@@ -1,0 +1,50 @@
+"""Plain PyTorch versions of the grid-force kernels.
+
+``grid_near_ref`` gathers each cell's bucket rows and the 9·cap slots of its
+3×3 neighborhood exactly as the JAX package's ``grid_repulsion`` does before
+its near kernel (empty slots: position 0, weight 0), computes the same force
+law, and scatters each bucketed vertex's force into ``f_near[n, 2]``.
+``grid_far_ref`` is every vertex against every cell aggregate, row-chunked:
+at n = 2^20 against 16384 cells the pair matrix must never be materialised.
+``cl2 = C·L·L`` and ``md2 = md·md`` arrive float32-rounded
+(``kernels._build.force_consts``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.nbody.ref import two_set_ref
+
+
+def grid_near_ref(pos, mass, vmask, bucket, table, cl2: float, md2: float, *,
+                  chunk_elems: int = 1 << 24) -> torch.Tensor:
+    """pos f32[n, 2]; bucket int32[nc+1, cap] (sentinel n); table
+    int32[nc+1, 9] (sentinel nc) → f_near f32[n, 2] (0 outside buckets)."""
+    n = pos.shape[0]
+    nc, cap = bucket.shape[0] - 1, bucket.shape[1]
+    w = torch.where(vmask, mass, 0.0)
+    pos_p = torch.cat([pos, pos.new_zeros((1, 2))])
+    w_p = torch.cat([w, w.new_zeros((1,))])
+    bucket_l = bucket.long()
+    table_l = table.long()
+    f_near = pos.new_zeros((n + 1, 2))
+    step = max(1, chunk_elems // (9 * cap * cap))
+    for c0 in range(0, nc, step):
+        rows_idx = bucket_l[c0:c0 + step]                          # [R, cap]
+        nbr = bucket_l[table_l[c0:c0 + step]].reshape(-1, 9 * cap)  # [R, 9cap]
+        rows_pos = pos_p[rows_idx]
+        nbr_pos = pos_p[nbr]
+        cw = cl2 * w_p[nbr]
+        dx = rows_pos[:, :, 0:1] - nbr_pos[:, None, :, 0]
+        dy = rows_pos[:, :, 1:2] - nbr_pos[:, None, :, 1]
+        d2 = dx * dx + dy * dy + md2
+        inv = cw[:, None, :] / d2
+        near = torch.stack([(dx * inv).sum(dim=2), (dy * inv).sum(dim=2)],
+                           dim=2)
+        f_near[rows_idx.reshape(-1)] = near.reshape(-1, 2)
+    return f_near[:n]
+
+
+def grid_far_ref(pos, cell_xyw, cl2: float, md2: float) -> torch.Tensor:
+    """pos [n, 2] vs cell aggregates [nc, 3] (x, y, mass) → [n, 2]."""
+    return two_set_ref(pos, cell_xyw[:, :2], cell_xyw[:, 2], cl2, md2)
