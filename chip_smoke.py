@@ -25,7 +25,22 @@ of them passed):
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
      CPU layout's NELD and CRE;
-  6. the ``{"kernels": [...]}`` summary, the card line, and
+  6. the LM serving path, internlm2-1.8b at its published width and depth
+     (24 layers) in bf16, weights drawn from a seed on the card:
+     a. the flash-attention kernel against its plain version at the path's
+        two shapes — prefill (B 4, Sq = Sk = 2048, 16 heads over 8 KV heads,
+        hd 128, causal) and decode (Sq 1 against cache[:, :2080] of a
+        2088-long cache) — timed like phase 3, beside
+        ``scaled_dot_product_attention`` as a yardstick, with the bound
+        max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16);
+     b. ``repro_torch.models.prefill`` of a 4 × 2048-token prompt, then 32
+        greedy ``decode_step``s: prefill seconds, decode tokens/s, flash
+        launches in each (24 per prefill, 24 per step), every logit finite;
+        then each once more under torch.profiler (device busy share);
+     c. a 2-layer model at full width, the same weights on the card and on
+        the CPU (plain attention there): prefill's last-token logits and the
+        first decode step's agree within LOGIT_TOL;
+  7. the ``{"kernels": [...]}`` summary, the card line, and
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports neither JAX nor the JAX package.
@@ -40,12 +55,28 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 FLOPS_PER_PAIR = 11              # 2 sub, 2 mul + 2 add (d2), 1 div, 2 fma
                                  # (a multiply-add counts 2)
 RTOL = 1e-4                      # kernel vs plain: sums in another order
 ATOL_FRAC = 1e-5                 # atol = ATOL_FRAC * max|plain|
 NELD_DELTA, CRE_DELTA = 0.05, 0.15
 N_MAIN = 1_000_000
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
+# attention kernel vs plain, bf16: both round the output to bf16 (one ulp is
+# 2^-8 relative) and round p to bf16 at different points. The atol follows
+# each shape's output size: a prefill row near the diagonal averages few
+# values of v (|out| up to ~4), a decode row averages 2080 of them, so its
+# outputs are ~0.04 and an atol of 1e-2 there would hide a wrong key.
+ATTN_TOL = dict(flash_attention_prefill=dict(rtol=1e-2, atol=1e-2),
+                flash_attention_decode=dict(rtol=1e-2, atol=2e-3))
+# card vs CPU logits of the 2-layer full-width model, both bf16: the same
+# function with sums in another order (cuBLAS vs the CPU's GEMMs), the
+# kernel's p rounding, and bf16 activations between layers; a logit near 4
+# has a bf16 ulp of 0.016
+LOGIT_TOL = dict(rtol=0.02, atol=0.1)
 
 
 def _card_line() -> str:
@@ -77,9 +108,10 @@ def _per_call_ms(fn, reps: int, batches: int = 5) -> float:
     return float(np.median(times))
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    t_f = flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -185,19 +217,19 @@ def kernel_checks(graphs, scheds, device):
     return rows
 
 
-def profile_main_path(edges, n, cfg) -> dict:
-    """Phase 4b: one more main-path run under torch.profiler — device time
-    by kernel and the device's busy share of the wall clock. The profiler
-    slows the host, so the wall here is longer than phase 4's."""
+def profile_run(fn) -> dict:
+    """One more run of ``fn`` under torch.profiler — device time by kernel
+    and the device's busy share of the wall clock. The profiler slows the
+    host, so the wall here is longer than the unprofiled run's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import multigila_layout
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        multigila_layout(edges, n, cfg)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
@@ -218,6 +250,188 @@ def profile_main_path(edges, n, cfg) -> dict:
     return dict(wall_s=wall, device_busy_s=busy_us / 1e6,
                 idle_share=1.0 - busy_us / 1e6 / wall,
                 top=[[name[:90], ms, cnt] for name, (ms, cnt) in top])
+
+
+def attention_checks(device) -> list:
+    """Phase 6a: the flash-attention kernel against its plain version at the
+    LM path's prefill and decode shapes, with SDPA timed as a yardstick."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cfg = get_config(LM_ARCH)
+    B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(7)
+
+    def draw(*shape):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        return x.to(device, torch.bfloat16)
+
+    kv_len = LM_PROMPT + LM_NEW
+    cache_k = draw(B, LM_CACHE, KV, hd)
+    cache_v = draw(B, LM_CACHE, KV, hd)
+    cases = [
+        ("flash_attention_prefill", draw(B, LM_PROMPT, H, hd),
+         draw(B, LM_PROMPT, KV, hd), draw(B, LM_PROMPT, KV, hd), True,
+         LM_PROMPT * (LM_PROMPT + 1) // 2, 20, 3),
+        ("flash_attention_decode", draw(B, 1, H, hd),
+         cache_k[:, :kv_len], cache_v[:, :kv_len], True, kv_len, 200, 20),
+    ]
+    rows = []
+    for name, q, k, v, causal, pairs, reps, plain_reps in cases:
+        Sq, Sk = q.shape[1], k.shape[1]
+        f = lambda: flash_attention(q, k, v, causal=causal)
+        p = lambda: flash_attention_ref(q, k, v, causal=causal)
+        out, ref = f(), p()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[name])
+        err = float((out.float() - ref.float()).abs().max())
+        ms = _per_call_ms(f, reps)
+        plain_ms = _per_call_ms(p, plain_reps, batches=3)
+        # SDPA's is_causal aligns top-left: the same mask when Sq == Sk, and
+        # none is needed for one query row at the end of the cache
+        lib = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal and Sq == Sk, enable_gqa=True)
+        lib_err = float((lib().transpose(1, 2).float()
+                         - ref.float()).abs().max())
+        library_ms = _per_call_ms(lib, reps)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * B * H * hd * pairs
+        bound, by = _bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention/kernel.py:63",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=library_ms)
+        print(json.dumps(dict(row, shape=dict(
+            B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd, causal=causal,
+            k_batch_stride=k.stride(0)), library_max_abs_err=lib_err,
+            tol=ATTN_TOL[name])), flush=True)
+        rows.append(row)
+    return rows
+
+
+def lm_main_path(device) -> dict:
+    """Phase 6b: internlm2-1.8b, full width and depth, bf16: prefill of a
+    LM_BATCH × LM_PROMPT prompt and LM_NEW greedy decode steps, with the
+    flash launches of each counted from 0."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    # warm-up (cuBLAS handles and kernels' first launches), not counted
+    M.decode_step(model, tokens[:, :1],
+                  M.prefill(model, {"tokens": tokens[:, :64]}, 128)[1], 64)
+    torch.cuda.synchronize()
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    logits, state, pos = M.prefill(model, {"tokens": tokens}, LM_CACHE)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(_build.launches)
+    finite = torch.isfinite(logits).all()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out = [tok]
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    for i in range(LM_NEW):
+        logits, state = M.decode_step(model, tok, state, pos + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = dict(_build.launches)
+
+    if not bool(finite):
+        raise AssertionError("LM path: non-finite logits")
+    if logits.shape != (LM_BATCH, 1, cfg.vocab_padded):
+        raise AssertionError(f"LM path: logits shape {tuple(logits.shape)}")
+    want = {"flash_attention": cfg.n_layers}
+    if prefill_launches != want:
+        raise AssertionError(f"prefill launches {prefill_launches}, "
+                             f"expected {want}")
+    want = {"flash_attention": cfg.n_layers * LM_NEW}
+    if decode_launches != want:
+        raise AssertionError(f"decode launches {decode_launches}, "
+                             f"expected {want}")
+    seq = torch.cat(out, dim=1).cpu()
+
+    prof_prefill = profile_run(
+        lambda: M.prefill(model, {"tokens": tokens}, LM_CACHE))
+    st = M.prefill(model, {"tokens": tokens}, LM_CACHE)[1]
+    t = seq[:, :1].to(device)
+
+    def decode8():
+        for i in range(8):
+            M.decode_step(model, t, st, LM_PROMPT + i)
+    prof_decode = profile_run(decode8)
+    return dict(
+        lm=LM_ARCH, params=cfg.param_count(), dtype="bfloat16",
+        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+        cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
+        prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
+        decode_s=decode_s, decode_tok_per_s=LM_BATCH * LM_NEW / decode_s,
+        decode_ms_per_step=decode_s / LM_NEW * 1e3,
+        launches=dict(prefill=prefill_launches["flash_attention"],
+                      decode=decode_launches["flash_attention"]),
+        logits_finite=True, sample=seq[0, :12].tolist(),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode)
+
+
+def lm_card_vs_cpu(device) -> dict:
+    """Phase 6c: a 2-layer internlm2-1.8b at full width, the same bf16
+    weights on the card and on the CPU: prefill's last-token logits and the
+    first decode step's logits agree within LOGIT_TOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    card = M.init_params(cfg, seed=1, device=device)
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
+    res = {}
+    lg_card, st_card, pos = M.prefill(card, {"tokens": tokens.to(device)}, 144)
+    lg_cpu, st_cpu, _ = M.prefill(cpu, {"tokens": tokens}, 144)
+    tok = lg_cpu[:, -1].argmax(-1, keepdim=True)
+    d_card, _ = M.decode_step(card, tok.to(device), st_card, pos)
+    d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos)
+    for name, a, b in (("prefill", lg_card, lg_cpu), ("decode", d_card, d_cpu)):
+        a, b = a.float().cpu(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"card vs CPU {name}: non-finite logits")
+        res[name] = dict(max_abs_err=float((a - b).abs().max()),
+                         max_abs_logit=float(b.abs().max()),
+                         argmax_agree=float((a.argmax(-1) == b.argmax(-1))
+                                            .float().mean()))
+        print(json.dumps({f"card_vs_cpu_{name}": res[name]}), flush=True)
+        torch.testing.assert_close(a, b, **LOGIT_TOL)
+    return dict(res, layers=2, d_model=cfg.d_model, tokens=list(tokens.shape),
+                tol=LOGIT_TOL)
 
 
 def main() -> int:
@@ -296,8 +510,8 @@ def main() -> int:
         wall_s=wall, phase_s=stats.phase_seconds,
         level_sizes=stats.level_sizes, level_modes=stats.level_modes,
         launches=launches, neld=neld(pos, edges))), flush=True)
-    print(json.dumps(dict(profile=profile_main_path(edges, n, cfg))),
-          flush=True)
+    print(json.dumps(dict(profile=profile_run(
+        lambda: multigila_layout(edges, n, cfg)))), flush=True)
 
     # 5. small graph: card hierarchy == CPU hierarchy; layouts agree
     e5, n5 = generators.delaunay(5000, seed=3)
@@ -334,7 +548,21 @@ def main() -> int:
                           level_modes=s_card.level_modes,
                           hierarchy_equal=True, neld_cre=q)), flush=True)
 
-    # 6. summary
+    # 6. the LM serving path
+    del p_card, p_cpu, hier
+    torch.cuda.empty_cache()
+    rows += attention_checks(device)
+    lm = lm_main_path(device)
+    for r in rows:
+        if r["name"] == "flash_attention_prefill":
+            r["launches"] = lm["launches"]["prefill"]
+        elif r["name"] == "flash_attention_decode":
+            r["launches"] = lm["launches"]["decode"]
+    print(json.dumps(lm), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device))), flush=True)
+
+    # 7. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

@@ -1,9 +1,9 @@
 """Carry the JAX package's state across to the port.
 
-This system has no weights: its carried state is the graph and the
-hierarchy. Each function takes the JAX package's arrays as numpy arrays (the
-caller converts with ``np.asarray``) and returns the port's structure on
-``device`` — so both packages can be fed identical inputs.
+The layout system's carried state is the graph and the hierarchy; the LM's
+is its weights. Each function takes the JAX package's arrays as numpy arrays
+(the caller converts with ``np.asarray``) and returns the port's structure
+on ``device`` — so both packages can be fed identical inputs.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.solar_merger import LevelInfo, MergerState
 from repro_torch.graphs.graph import PaddedGraph
+from repro_torch.models.model import LM
 from repro_torch.utils.device import resolve_device
 
 
@@ -47,3 +48,31 @@ def neighbor_lists(nbr_idx, nbr_mask, *, device=None
     """The padded k-hop lists ``(int32[n_pad, K], bool[n_pad, K])``."""
     dev = resolve_device(device)
     return _t(nbr_idx, np.int32, dev), _t(nbr_mask, bool, dev)
+
+
+def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
+    """An ``LM`` holding the JAX package's ``init_params`` weights.
+
+    ``params`` is that pytree with numpy leaves; its layer weights are
+    stacked ``[G, ...]`` under ``params["groups"][0]`` (one entry per
+    position of the layer pattern, which for the dense family is one).
+    Matmul weights are cast once to ``dtype``, as JAX casts them at use;
+    norm scales stay float32.
+    """
+    model = LM(cfg, dtype=dtype, device=device)
+
+    def put(dst: dict, src: dict):
+        for name, p in dst.items():
+            p.copy_(torch.from_numpy(np.array(src[name], np.float32)))
+
+    put(model.embed, params["embed"])
+    put(model.final_norm, params["final_norm"])
+    if model.lm_head is not None:
+        put(model.lm_head, params["lm_head"])
+    groups = params["groups"][0]
+    for i, layer in enumerate(model.layers):
+        for part in ("norm1", "attn", "norm2", "mlp"):
+            if getattr(layer, part) is not None:
+                put(getattr(layer, part),
+                    {k: a[i] for k, a in groups[part].items()})
+    return model

@@ -44,7 +44,7 @@ build_seconds = 0.0
 #: what ``nvcc -Xptxas -v`` printed for each source on the last build
 build_log: dict[str, str] = {}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream: void*)
 _SIGNATURES = {
     "nbody_repulsion_launch": [_P, _P, _P, _I, _F, _F, _P, _P],
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
                                   _P],
     "grid_near_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                               _L, _I, _P],
 }
 
 

@@ -1,0 +1,3 @@
+"""The LM serving path of the port: the dense decoder family."""
+from repro_torch.models.model import (LM, DecoderLayer, decode_step, forward,
+                                      init_decode_state, init_params, prefill)

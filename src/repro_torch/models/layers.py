@@ -1,0 +1,126 @@
+"""Transformer layer library: norms, RoPE, GQA attention, gated MLPs.
+
+Functions of tensors, ported from the JAX package's ``models/layers.py``;
+the modules that hold the weights are in ``model.py``. Activations run in
+the model's dtype (bf16 by default) with float32 softmax, norm and RoPE
+internals. Matmul weights are stored once in the activation dtype: the JAX
+package stores float32 and casts at every use, which gives the same bits.
+Norm scales stay float32. The JAX package's sharding constraints have no
+counterpart here (the sharded path is a later slice), and neither has its
+cross-attention (the encoder-decoder family).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+
+# -- norms ---------------------------------------------------------------------
+
+NORM_EPS = 1e-6
+
+
+def apply_norm(p, x, kind: str):
+    """p: "scale" (and "bias" for layernorm), float32 [D]."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + NORM_EPS) * p["scale"]
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + NORM_EPS) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+# -- rotary position embeddings -------------------------------------------------
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions int[..., S] → (cos, sin) [..., S, head_dim//2] float32."""
+    half = head_dim // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, hd]; cos/sin broadcastable [..., S, 1, hd//2]."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# -- attention -------------------------------------------------------------------
+
+def _proj(x, w):
+    """x [B, S, D] · w [D, *rest] → [B, S, *rest] (the einsum
+    ``bsd,d...->bs...`` as one matmul on a view of w)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:2],
+                                                    *w.shape[1:])
+
+
+def rope_for(positions, cfg):
+    """(cos, sin) [S, 1, hd//2] of positions int [S] (one row for the whole
+    batch). Every layer uses the same angles, so the model computes them
+    once per call where the JAX package computes them in each layer."""
+    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)
+    return cos[:, None, :], sin[:, None, :]
+
+
+def _qkv(p, x, rope):
+    """p: wq [D,H,hd], wk/wv [D,KV,hd]; rope from ``rope_for`` → q [B,S,H,hd],
+    k/v [B,S,KV,hd] with RoPE on q and k."""
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    return apply_rope(q, *rope), apply_rope(k, *rope), v
+
+
+def apply_attention(p, x, rope, *, cache=None, cache_pos=None):
+    """Causal attention block. ``cache`` = (k, v) [B, Smax, KV, hd] for
+    prefill/decode, written in place at ``cache_pos`` (an int, so kv_len is
+    known on the host); the JAX package updates it functionally and returns
+    it. The JAX package's ``_sdpa`` becomes the flash-attention kernel: its
+    causal mask, aligned bottom-right, on ``cache[:, :kv_len]`` (read where
+    it lies) is ``_sdpa``'s ``q_offset``/``kv_len`` mask."""
+    if cache is not None:
+        q, k_new, v_new = _qkv(p, x, rope)
+        ck, cv = cache
+        kv_len = cache_pos + x.shape[1]
+        ck[:, cache_pos:kv_len] = k_new
+        cv[:, cache_pos:kv_len] = v_new
+        out = flash_attention(q, ck[:, :kv_len], cv[:, :kv_len], causal=True)
+    else:
+        q, k, v = _qkv(p, x, rope)
+        out = flash_attention(q, k, v, causal=True)
+    wo = p["wo"]                                    # [H, hd, D]
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# -- MLP -------------------------------------------------------------------------
+
+def apply_mlp(p, x, activation: str):
+    up = x @ p["wup"]
+    if activation == "swiglu":
+        h = F.silu(x @ p["wgate"]) * up
+    elif activation == "geglu":
+        h = F.gelu(x @ p["wgate"], approximate="tanh") * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["wdown"]
+
+
+# -- embeddings -------------------------------------------------------------------
+
+def apply_embedding(p, tokens):
+    return p["tok"][tokens]
+
+
+def apply_lm_head(p_embed, p_head, x, tie: bool):
+    if tie:
+        return x @ p_embed["tok"].t()
+    return x @ p_head["w"]

@@ -1,0 +1,196 @@
+"""The dense decoder-only LM: weights, forward, prefill and greedy decode.
+
+Ported from the JAX package's ``models/model.py`` for the dense family
+(every layer attention + MLP): ``init_params``, ``forward``, ``prefill``
+(chunked prefill included) and ``decode_step``. The weights live in
+``nn.Module``s, one ``DecoderLayer`` per layer, and the layers are looped
+over in Python where the JAX package scans over stacked weights. Every
+weight keeps the JAX layout (``wq [D,H,hd]``, ``wo [H,hd,D]``,
+``wup [D,F]`` …), so ``repro_torch.convert.lm_params`` is a copy without
+reshapes.
+
+The decode state is one (k, v) cache pair [B, cache_len, KV, hd] per layer,
+updated in place; ``pos`` is a Python int, so every ``kv_len`` is known on
+the host and attention reads ``cache[:, :kv_len]``.
+
+Families that need modules the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.utils.device import resolve_device
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    """Raise for the families the port does not run yet."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers (moe.py) wait for a later "
+            "slice (ROADMAP.md queue 1, item 13: the other LM families)")
+    if cfg.ssm is not None or "ssm" in cfg.layer_pattern():
+        raise NotImplementedError(
+            f"{cfg.name}: SSM layers (ssm.py) wait for a later slice "
+            "(ROADMAP.md queue 1, item 13: the other LM families)")
+    if cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family waits for a later slice "
+            "(ROADMAP.md queue 1, item 13: the other LM families)")
+    if cfg.modality != "text":
+        raise NotImplementedError(
+            f"{cfg.name}: modality {cfg.modality!r} waits for a later slice "
+            "(ROADMAP.md queue 1, item 13: the other LM families)")
+
+
+def _weights(dtype, dev, **shapes) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: nn.Parameter(torch.empty(s, dtype=dtype, device=dev),
+                        requires_grad=False) for k, s in shapes.items()})
+
+
+def _norm(cfg: ArchConfig, dev) -> nn.ParameterDict:
+    shapes = dict(scale=(cfg.d_model,))
+    if cfg.norm == "layernorm":
+        shapes["bias"] = (cfg.d_model,)
+    return _weights(torch.float32, dev, **shapes)
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm residual layer: attention, then the MLP."""
+
+    def __init__(self, cfg: ArchConfig, dtype, dev):
+        super().__init__()
+        D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.d_ff)
+        self.norm1 = _norm(cfg, dev)
+        self.attn = _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
+                             wv=(D, KV, hd), wo=(H, hd, D))
+        self.norm2 = _norm(cfg, dev)
+        mlp = dict(wup=(D, F), wdown=(F, D))
+        if cfg.activation in ("swiglu", "geglu"):
+            mlp["wgate"] = (D, F)
+        self.mlp = _weights(dtype, dev, **mlp) if F else None
+
+
+class LM(nn.Module):
+    """Embedding, ``n_layers`` decoder layers, final norm and LM head. The
+    activation dtype (bf16 by default; the JAX package's
+    ``REPRO_ACT_DTYPE``) is the dtype of every matmul weight."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg, self.dtype, self.device = cfg, dtype, dev
+        D, V = cfg.d_model, cfg.vocab_padded
+        self.embed = _weights(dtype, dev, tok=(V, D))
+        self.final_norm = _norm(cfg, dev)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _weights(dtype, dev, w=(D, V)))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, dev)
+                                    for _ in range(cfg.n_layers))
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                dtype=torch.bfloat16) -> LM:
+    """A model with random weights of the JAX package's shapes and scales
+    (normal with std D^-½ for wq/wk/wv/wup/wgate, the embedding and the LM
+    head, (H·hd)^-½ for wo, F^-½ for wdown; norm scales 1, biases 0), drawn
+    in float32 by a ``torch.Generator`` on ``device`` from ``seed``. The
+    bits are not JAX's: ``convert.lm_params`` carries JAX's weights across."""
+    model = LM(cfg, dtype=dtype, device=device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    D, F, Hhd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    std = dict(wq=D ** -0.5, wk=D ** -0.5, wv=D ** -0.5, wo=Hhd ** -0.5,
+               wup=D ** -0.5, wgate=D ** -0.5, wdown=F ** -0.5 if F else 0.0,
+               tok=D ** -0.5, w=D ** -0.5)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                            device=model.device)
+            p.copy_(x.mul_(std[leaf]))
+    return model
+
+
+# -- forward --------------------------------------------------------------------
+
+def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
+                    cache=None, cache_pos=None):
+    """Pre-norm residual layer; ``cache`` (k, v) is written in place."""
+    h = L.apply_norm(layer.norm1, x, cfg.norm)
+    x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
+                              cache_pos=cache_pos)
+    if layer.mlp is not None:
+        h = L.apply_norm(layer.norm2, x, cfg.norm)
+        x = x + L.apply_mlp(layer.mlp, h, cfg.activation)
+    return x
+
+
+def _head(model: LM, x):
+    x = L.apply_norm(model.final_norm, x, model.cfg.norm)
+    return L.apply_lm_head(model.embed, model.lm_head, x,
+                           model.cfg.tie_embeddings)
+
+
+def forward(model: LM, batch: dict):
+    """Training/prefill forward → (logits [B, S, vocab_padded], aux loss 0:
+    a dense model has no auxiliary loss). batch: tokens int [B, S]."""
+    cfg = model.cfg
+    tokens = batch["tokens"].to(model.device)
+    x = L.apply_embedding(model.embed, tokens)
+    rope = L.rope_for(torch.arange(tokens.shape[1], device=model.device), cfg)
+    for layer in model.layers:
+        x = _apply_sublayer(layer, x, cfg, rope)
+    return _head(model, x), torch.zeros((), device=model.device)
+
+
+# -- serving --------------------------------------------------------------------
+
+def init_decode_state(model: LM, batch: int, cache_len: int) -> list:
+    """One zeroed (k, v) cache pair [batch, cache_len, KV, hd] per layer, in
+    the model's activation dtype."""
+    cfg = model.cfg
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    return [tuple(torch.zeros(shape, dtype=model.dtype, device=model.device)
+                  for _ in range(2)) for _ in range(cfg.n_layers)]
+
+
+def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
+    """Run the prompt, return (last-token logits [B, 1, vocab_padded],
+    decode state, next_pos). ``chunks > 1`` runs the prompt in sequential
+    super-chunks against the growing KV caches (chunked prefill)."""
+    cfg = model.cfg
+    tokens = batch["tokens"].to(model.device)
+    B, S = tokens.shape
+    assert S % chunks == 0
+    Sc = S // chunks
+    state = init_decode_state(model, B, cache_len)
+    x_full = L.apply_embedding(model.embed, tokens)
+    for c in range(chunks):
+        x = x_full[:, c * Sc:(c + 1) * Sc]
+        rope = L.rope_for(torch.arange(c * Sc, (c + 1) * Sc,
+                                       device=model.device), cfg)
+        for layer, cache in zip(model.layers, state):
+            x = _apply_sublayer(layer, x, cfg, rope, cache=cache,
+                                cache_pos=c * Sc)
+    return _head(model, x[:, -1:]), state, S
+
+
+def decode_step(model: LM, token, state: list, pos: int):
+    """One decode step. token int [B, 1] at position ``pos`` (an int) →
+    (logits [B, 1, vocab_padded], state); the caches are written in place."""
+    cfg = model.cfg
+    x = L.apply_embedding(model.embed, token.to(model.device))
+    rope = L.rope_for(torch.arange(pos, pos + 1, device=model.device), cfg)
+    for layer, cache in zip(model.layers, state):
+        x = _apply_sublayer(layer, x, cfg, rope, cache=cache, cache_pos=pos)
+    return _head(model, x), state

@@ -9,10 +9,13 @@ in ``test_torch_kernels.py``. On a machine with a card:
 
 Sizes here are ragged on purpose (not multiples of the block widths), and
 one grid case has a bucket cap large enough that the near kernel needs more
-than 48 KB of dynamic shared memory. Tolerance: rtol 1e-4 with atol
-1e-5 · max|plain| — the kernels sum over sources in another order than the
-plain versions' reductions (one test, on the composed grid op, states its
-own bound).
+than 48 KB of dynamic shared memory. Tolerance of the force kernels: rtol
+1e-4 with atol 1e-5 · max|plain| — the kernels sum over sources in another
+order than the plain versions' reductions (one test, on the composed grid
+op, states its own bound). Tolerance of the bf16 attention kernel: rtol =
+atol = 1e-2 — both versions round the output to bf16 (one ulp is 2^-8
+relative), and the kernel rounds the unnormalised p to bf16 where the plain
+version rounds the normalised p.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grid_force import ops as grid_ops
 from repro_torch.kernels.grid_force.ref import grid_far_ref, grid_near_ref
 from repro_torch.kernels.nbody.ops import nbody_repulsion
@@ -130,3 +135,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     nbr = torch.zeros((300, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)
+
+
+def _attn_inputs(B, Sq, Sk, H, KV, hd, seed, dev):
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return x.to(dev, torch.bfloat16)
+    return draw(B, Sq, H, hd), draw(B, Sk, KV, hd), draw(B, Sk, KV, hd)
+
+
+def _close_bf16(out, ref):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (2, 77, 77, 4, 2, 64, True),
+    (1, 200, 333, 8, 2, 128, True),      # longer cache: bottom-right mask
+    (2, 130, 70, 2, 1, 64, False),
+    (1, 9, 4, 4, 4, 128, True),          # Sq > Sk: fully masked rows → 0
+    (3, 1000, 1000, 16, 8, 128, True),
+])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, hd, causal):
+    q, k, v = _attn_inputs(B, Sq, Sk, H, KV, hd, Sq + Sk, cuda)
+    out = _launched("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=causal))
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    _close_bf16(out, ref)
+    if Sq > Sk and causal:
+        assert (out[:, :Sq - Sk] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_kernel_decode_on_a_cache_slice(cuda, hd):
+    """Sq = 1 against cache[:, :kv_len]: a strided view, read in place."""
+    B, H, KV, cache_len, kv_len = 3, 8, 2, 300, 257
+    q, ck, cv = _attn_inputs(B, 1, cache_len, H, KV, hd, hd, cuda)
+    k, v = ck[:, :kv_len], cv[:, :kv_len]
+    assert not k.is_contiguous()
+    out = _launched("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=True))
+    _close_bf16(out, flash_attention_ref(q, k.contiguous(), v.contiguous(),
+                                         causal=True))
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _attn_inputs(1, 16, 16, 4, 2, 64, 0, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.float(), k.float(), v.float())
+    q96, k96, v96 = _attn_inputs(1, 16, 16, 4, 2, 96, 0, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q96, k96, v96)
+    with pytest.raises(ValueError, match="on cpu"):
+        flash_attention(q, k.cpu(), v)
