@@ -28,11 +28,15 @@ of them passed):
   6. the LM serving path, internlm2-1.8b at its published width and depth
      (24 layers) in bf16, weights drawn from a seed on the card:
      a. the flash-attention kernel against its plain version at the path's
-        two shapes — prefill (B 4, Sq = Sk = 2048, 16 heads over 8 KV heads,
-        hd 128, causal) and decode (Sq 1 against cache[:, :2080] of a
-        2088-long cache) — timed like phase 3, beside
-        ``scaled_dot_product_attention`` as a yardstick, with the bound
-        max(bytes / 3.35 TB/s, flops / 989 TFLOP/s bf16);
+        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, 16 heads
+        over 8 KV heads, hd 128, causal; k/v = cache[:, :2048] of a
+        2088-row cache: the wgmma route) and decode (Sq 1 against
+        cache[:, :2080], rotating over 3 caches that together exceed the
+        L2: the split-KV route) — timed as device time per call (CUDA-graph
+        replay) and eagerly (host work included), beside
+        ``scaled_dot_product_attention`` timed the same ways as a
+        yardstick, with the bound max(bytes / 3.35 TB/s, flops / 989
+        TFLOP/s bf16);
      b. ``repro_torch.models.prefill`` of a 4 × 2048-token prompt, then 32
         greedy ``decode_step``s: prefill seconds, decode tokens/s, flash
         launches in each (24 per prefill, 24 per step), every logit finite;
@@ -65,6 +69,7 @@ N_MAIN = 1_000_000
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
+DECODE_CACHES = 3                     # 3 × 34 MB of k/v: more than the L2
 # attention kernel vs plain, bf16: both round the output to bf16 (one ulp is
 # 2^-8 relative) and round p to bf16 at different points. The atol follows
 # each shape's output size: a prefill row near the diagonal averages few
@@ -85,6 +90,37 @@ def _card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def _kernel_name(sym: str) -> str:
+    """``fa_split_kernel<128,128>`` out of its mangled symbol: the name is
+    the length-prefixed identifier that ends in ``kernel``; integer
+    template arguments follow it as ``I Li128E … E``."""
+    import re
+    for m in re.finditer(r"\d+", sym):
+        # the length prefix may follow other digits (a hash): try each tail
+        lengths = {int(m.group()[j:]) for j in range(len(m.group()))}
+        name = next((sym[m.end():m.end() + n] for n in sorted(lengths)
+                     if sym[m.end():m.end() + n].endswith("kernel")), "")
+        if name:
+            args = re.match(r"I((?:Li\d+E)+)E", sym[m.end() + len(name):])
+            return name + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                           if args else "")
+    return sym
+
+
+def _ptxas_report(log: str) -> list:
+    """(kernel, "registers, shared memory, spills") for each entry function
+    in the ``nvcc -Xptxas -v`` output of one source."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append((_kernel_name(m.group(1)), []))
+        elif out and ("registers" in line or "spill" in line):
+            out[-1][1].append(line.split(":", 1)[-1].strip())
+    return [(k, ", ".join(info)) for k, info in out]
 
 
 def _per_call_ms(fn, reps: int, batches: int = 5) -> float:
@@ -252,13 +288,44 @@ def profile_run(fn) -> dict:
                 top=[[name[:90], ms, cnt] for name, (ms, cnt) in top])
 
 
+def _graph_ms(fn, calls: int, replays: int = 10) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events. Unlike ``_per_call_ms``
+    this leaves out the wrapper's host work, which at decode is longer than
+    the kernel itself."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (replays * calls)
+
+
 def attention_checks(device) -> list:
     """Phase 6a: the flash-attention kernel against its plain version at the
-    LM path's prefill and decode shapes, with SDPA timed as a yardstick."""
+    LM path's prefill and decode shapes, on the path's own layout: k/v are
+    slices ``cache[:, :kv_len]`` of LM_CACHE-row caches; decode rotates over
+    DECODE_CACHES caches (more than the 50 MB L2 together), as the 24 layers
+    each read their own. SDPA is timed on the same tensors as a yardstick.
+    ``ms`` and ``library_ms`` are device time per call (CUDA-graph replay);
+    ``eager_ms`` and ``library_eager_ms`` time the same calls made back to
+    back from Python, host work included."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -270,35 +337,59 @@ def attention_checks(device) -> list:
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
         return x.to(device, torch.bfloat16)
 
+    def caches(n):
+        return [(draw(B, LM_CACHE, KV, hd), draw(B, LM_CACHE, KV, hd))
+                for _ in range(n)]
+
     kv_len = LM_PROMPT + LM_NEW
-    cache_k = draw(B, LM_CACHE, KV, hd)
-    cache_v = draw(B, LM_CACHE, KV, hd)
     cases = [
-        ("flash_attention_prefill", draw(B, LM_PROMPT, H, hd),
-         draw(B, LM_PROMPT, KV, hd), draw(B, LM_PROMPT, KV, hd), True,
-         LM_PROMPT * (LM_PROMPT + 1) // 2, 20, 3),
-        ("flash_attention_decode", draw(B, 1, H, hd),
-         cache_k[:, :kv_len], cache_v[:, :kv_len], True, kv_len, 200, 20),
+        # name, q, caches, keys, causal, (query, key) pairs, calls per graph
+        ("flash_attention_prefill", draw(B, LM_PROMPT, H, hd), caches(1),
+         LM_PROMPT, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 10),
+        ("flash_attention_decode", draw(B, 1, H, hd), caches(DECODE_CACHES),
+         kv_len, True, kv_len, 3 * DECODE_CACHES),
     ]
     rows = []
-    for name, q, k, v, causal, pairs, reps, plain_reps in cases:
-        Sq, Sk = q.shape[1], k.shape[1]
-        f = lambda: flash_attention(q, k, v, causal=causal)
-        p = lambda: flash_attention_ref(q, k, v, causal=causal)
-        out, ref = f(), p()
+    for name, q, cs, Sk, causal, pairs, calls in cases:
+        Sq = q.shape[1]
+        kvs = [(ck[:, :Sk], cv[:, :Sk]) for ck, cv in cs]
+        turn = [0]
+
+        def rotate():
+            turn[0] += 1
+            return kvs[turn[0] % len(kvs)]
+
+        def f():
+            k, v = rotate()
+            return flash_attention(q, k, v, causal=causal)
+
+        # SDPA's is_causal aligns top-left: the same mask when Sq == Sk, and
+        # none is needed for one query row at the end of the cache
+        def lib():
+            k, v = rotate()
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal and Sq == Sk, enable_gqa=True)
+
+        k, v = kvs[0]
+        out = flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k.contiguous(), v.contiguous(),
+                                  causal=causal)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[name])
         err = float((out.float() - ref.float()).abs().max())
-        ms = _per_call_ms(f, reps)
-        plain_ms = _per_call_ms(p, plain_reps, batches=3)
-        # SDPA's is_causal aligns top-left: the same mask when Sq == Sk, and
-        # none is needed for one query row at the end of the cache
-        lib = lambda: F.scaled_dot_product_attention(
+        lib_out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal and Sq == Sk, enable_gqa=True)
-        lib_err = float((lib().transpose(1, 2).float()
+        lib_err = float((lib_out.transpose(1, 2).float()
                          - ref.float()).abs().max())
-        library_ms = _per_call_ms(lib, reps)
+        ms = _graph_ms(f, calls)
+        library_ms = _graph_ms(lib, calls)
+        eager_ms = _per_call_ms(f, 20 * calls)
+        library_eager_ms = _per_call_ms(lib, 20 * calls)
+        plain_ms = _per_call_ms(
+            lambda: flash_attention_ref(q, k, v, causal=causal), 3,
+            batches=3)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * B * H * hd * pairs
         bound, by = _bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
@@ -307,11 +398,13 @@ def attention_checks(device) -> list:
                           "flash_attention.cu",
                    replaces="src/repro/kernels/flash_attention/kernel.py:63",
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=library_ms)
+                   bound_ms=bound, bound_by=by, library_ms=library_ms,
+                   flash_route=flash_ops.route(Sq, H, KV))
         print(json.dumps(dict(row, shape=dict(
             B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd, causal=causal,
-            k_batch_stride=k.stride(0)), library_max_abs_err=lib_err,
-            tol=ATTN_TOL[name])), flush=True)
+            k_batch_stride=k.stride(0), caches=len(kvs)),
+            eager_ms=eager_ms, library_eager_ms=library_eager_ms,
+            library_max_abs_err=lib_err, tol=ATTN_TOL[name])), flush=True)
         rows.append(row)
     return rows
 
@@ -472,9 +565,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)",
           flush=True)
     for src, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}", flush=True)
+        for kernel, info in _ptxas_report(log):
+            print(f"  ptxas {src} {kernel}: {info}", flush=True)
 
     # the main path's graph and its hierarchy (kernel shapes come from it)
     t0 = time.perf_counter()

@@ -52,8 +52,11 @@ _SIGNATURES = {
     "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
                                   _P],
     "grid_near_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
-                               _L, _I, _P],
+    "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _L, _L, _I, _P],
+    "flash_attention_split_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _L, _L, _I, _I, _I, _P, _P, _P,
+                                     _P],
 }
 
 

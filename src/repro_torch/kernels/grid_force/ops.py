@@ -218,6 +218,8 @@ def grid_far(pos, cell_xyw, C, L, min_dist) -> torch.Tensor:
     n, nc, dev = pos.shape[0], cell_xyw.shape[0], pos.device
     _build.require(pos, "pos", torch.float32, (n, 2), dev)
     _build.require(cell_xyw, "cell_xyw", torch.float32, (nc, 3), dev)
+    if pos.data_ptr() % 8:
+        raise ValueError("grid_far: pos must be 8-byte aligned (float2 loads)")
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_far_launch(
         pos.data_ptr(), n, cell_xyw.data_ptr(), nc, cl2, md2, out.data_ptr(),

@@ -1,12 +1,10 @@
 // Two-set n-body FR repulsion on Hopper: every target against every source.
 //
-// Shared by two Pallas kernels of the JAX package, which compute the same
-// force law over two different source sets:
-//   * kernels/nbody/kernel.py:nbody_repulsion_pallas — all pairs of one
-//     vertex set (sources = targets = the level's vertices, weight mass·vmask,
-//     output masked by vmask);
-//   * kernels/grid_force/kernel.py:grid_far_pallas — every vertex against
-//     every cell aggregate (x, y, mass), output unmasked.
+// Its one user is nbody.cu, the port of kernels/nbody/kernel.py:
+// nbody_repulsion_pallas of the JAX package: all pairs of one vertex set
+// (sources = targets = the level's vertices, weight mass·vmask, output
+// masked by vmask). The grid far field has a kernel of its own
+// (../../grid_force/csrc/grid_far.cu).
 //
 //   f_t = Σ_s (C·L²·w_s) · (p_t − p_s) / (|p_t − p_s|² + md²)
 //

@@ -13,6 +13,12 @@ tests hold to JAX on the same numpy-seeded inputs:
   ``kv_len`` on a longer cache, at ragged sizes, against the port on the
   cache sliced to ``kv_len``; and one case with fully masked rows.
 
+The split-KV route's own decomposition (``flash_attention_split_ref``:
+per-chunk max, sum and unnormalised p·v, merged by the log-sum-exp rule) is
+held to the plain version and to JAX's reference over several chunk
+lengths, with empty chunks past Sk and chunks that every row's mask hides;
+``route`` and ``split_plan`` are tested for the shapes the card sees.
+
 Tolerances, as the JAX sweep states them: 2e-5 (rtol and atol) in float32,
 where both sides compute the same float32 softmax and differ only in the
 order of the sums; 2e-2 in bf16, where the sides round at different points
@@ -31,7 +37,10 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref
 from repro.models.layers import _sdpa as jax_sdpa
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_split_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -128,3 +137,70 @@ def test_fully_masked_rows_give_zero():
     ref = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    causal=True, q_offset=Sk - Sq)
     np.testing.assert_allclose(out, np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,chunk,splits", [
+    (1, 130, 64, None),       # decode: a ragged last chunk
+    (1, 130, 16, 12),         # three empty chunks past Sk
+    (3, 100, 8, None),        # many chunks, several rows
+    (40, 48, 8, None),        # early rows: the last chunks are fully masked
+    (9, 4, 2, 3),             # Sq > Sk: rows that see no key at all → 0
+    (5, 37, 128, None),       # one chunk longer than Sk
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_decomposition_matches_plain(Sq, Sk, chunk, splits, causal,
+                                           dtype):
+    _, tdt, tol = DTYPES[dtype]
+    B, H, KV, hd = 2, 4, 2, 16
+    q, k, v = (torch.tensor(a).to(tdt)
+               for a in _inputs(B, Sq, Sk, H, KV, hd, seed=Sq + Sk + chunk))
+    out = flash_attention_split_ref(q, k, v, causal=causal, chunk=chunk,
+                                    splits=splits)
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               rtol=tol, atol=tol)
+    if causal and Sq > Sk:
+        assert (out[:, :Sq - Sk] == 0).all()
+
+
+@pytest.mark.parametrize("Sq,Sk,chunk", [(1, 130, 64), (4, 200, 32),
+                                         (2, 77, 16)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_decomposition_matches_jax_ref(Sq, Sk, chunk, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    B, H, KV, hd = 2, 4, 2, 32
+    q, k, v = _inputs(B, Sq, Sk, H, KV, hd, seed=Sq * Sk + chunk)
+    q, k, v = (np.asarray(jnp.asarray(a, jdt), np.float32) for a in (q, k, v))
+    ref = jax_flash_ref(jnp.asarray(_flat(q, 1), jdt),
+                        jnp.asarray(_flat(k, H // KV), jdt),
+                        jnp.asarray(_flat(v, H // KV), jdt), causal=True)
+    out = flash_attention_split_ref(*(torch.tensor(a).to(tdt)
+                                      for a in (q, k, v)),
+                                    causal=True, chunk=chunk)
+    np.testing.assert_allclose(out.float().numpy(),
+                               _jax_rows_to_port(ref, B, Sq, H, hd),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_route_threshold(G):
+    """Sq·G ≤ SPLIT_ROWS packed rows take the split-KV route."""
+    at = flash_ops.SPLIT_ROWS // G
+    assert flash_ops.route(at, 2 * G, 2) == "split_kv"
+    assert flash_ops.route(at + 1, 2 * G, 2) == "wgmma"
+    assert flash_ops.route(1, 16, 8) == "split_kv"          # LM decode
+    assert flash_ops.route(2048, 16, 8) == "wgmma"          # LM prefill
+
+
+@pytest.mark.parametrize("B,KV,Sk,sms", [(4, 8, 2080, 132), (1, 8, 2080, 132),
+                                         (4, 8, 2080, 78), (1, 1, 1, 132),
+                                         (1, 1, 0, 132), (8, 32, 32768, 132)])
+def test_split_plan(B, KV, Sk, sms):
+    splits, chunk = flash_ops.split_plan(B, KV, Sk, sms)
+    assert chunk in flash_ops.SPLIT_CHUNKS and splits >= 1
+    assert splits * chunk >= Sk > (splits - 1) * chunk or Sk == 0
+    if chunk == max(flash_ops.SPLIT_CHUNKS):   # the long chunk fills the card
+        assert B * KV * splits >= flash_ops.SPLIT_BLOCKS_PER_SM * sms
+    if (B, KV, Sk, sms) == (4, 8, 2080, 132):  # the LM path's decode
+        assert B * KV * splits >= 2 * sms

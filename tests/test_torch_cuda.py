@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grid_force import ops as grid_ops
@@ -111,6 +112,25 @@ def test_grid_far_kernel_matches_plain(cuda, n, nc):
     _close(out, grid_far_ref(pos, cells, cl2, md2))
 
 
+@pytest.mark.parametrize("n,nc,extent", [
+    (1025, 1, 10.0),          # one cell; n one past a block of 4·256 targets
+    (3000, 300, 10.0),        # nc not a multiple of the 256-source tile
+    (4099, 777, 1e4),         # d² from md² to ~1e8: the approximate
+                              # reciprocal at every magnitude
+])
+def test_grid_far_kernel_ragged_and_wide(cuda, n, nc, extent):
+    rng = np.random.default_rng(n + nc)
+    pos = torch.from_numpy((rng.random((n, 2)) * extent).astype(np.float32))
+    cells = np.concatenate([rng.random((nc, 2)) * extent,
+                            rng.random((nc, 1)) * 5 + 0.1], 1)
+    cells = torch.from_numpy(cells.astype(np.float32)).to(cuda)
+    pos = pos.to(cuda)
+    out = _launched("grid_far", lambda: grid_ops.grid_far(pos, cells,
+                                                          C, L, MD))
+    cl2, md2 = _build.force_consts(C, L, MD)
+    _close(out, grid_far_ref(pos, cells, cl2, md2))
+
+
 def test_grid_repulsion_on_card_matches_cpu(cuda):
     """The composed op on the card against the same op on the CPU. The cell
     aggregates are ``index_add_`` sums, taken with atomics in any order on
@@ -135,6 +155,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     nbr = torch.zeros((300, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)
+    odd = torch.zeros(601, device=cuda)[1:].view(300, 2)   # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        grid_ops.grid_far(odd, torch.zeros((4, 3), device=cuda), C, L, MD)
 
 
 def _attn_inputs(B, Sq, Sk, H, KV, hd, seed, dev):
@@ -179,6 +202,75 @@ def test_flash_kernel_decode_on_a_cache_slice(cuda, hd):
                     lambda: flash_attention(q, k, v, causal=True))
     _close_bf16(out, flash_attention_ref(q, k.contiguous(), v.contiguous(),
                                          causal=True))
+
+
+def _flash_case(cuda, B, Sq, Sk, H, KV, hd, causal, cache_len=None, seed=0):
+    """The kernel against its plain version; with ``cache_len``, k/v are
+    ``cache[:, :Sk]`` of a longer cache (a strided view, read in place)."""
+    q, ck, cv = _attn_inputs(B, Sq, cache_len or Sk, H, KV, hd,
+                             seed or Sq + Sk, cuda)
+    k, v = ck[:, :Sk], cv[:, :Sk]
+    out = _launched("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=causal))
+    ref = flash_attention_ref(q, k.contiguous(), v.contiguous(),
+                              causal=causal)
+    _close_bf16(out, ref)
+    return out
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("above", [False, True])
+def test_flash_kernel_both_sides_of_the_route_threshold(cuda, G, above):
+    """Sq·G = 64 takes the split-KV route, the next Sq the wgmma route."""
+    Sq = flash_ops.SPLIT_ROWS // G + int(above)
+    assert flash_ops.route(Sq, 2 * G, 2) == ("wgmma" if above
+                                             else "split_kv")
+    _flash_case(cuda, 2, Sq, 300, 2 * G, 2, 128, True)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_kernel_prefill_shape_on_a_cache_slice(cuda, hd):
+    """The LM path's prefill: Sq = Sk = 2048, 16 heads over 8, k/v a slice
+    cache[:, :2048] of a 2088-row cache."""
+    out = _flash_case(cuda, 2, 2048, 2048, 16, 8, hd, True, cache_len=2088)
+    assert flash_ops.route(2048, 16, 8) == "wgmma"
+    assert torch.isfinite(out.float()).all()
+
+
+def test_flash_kernel_chunked_prefill(cuda):
+    """Sq 512 against Sk 2048: the chunk's rows sit at the end of the keys
+    (bottom-right mask)."""
+    _flash_case(cuda, 2, 512, 2048, 16, 8, 128, True, cache_len=2100)
+
+
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd", [
+    (1, 40, 16, 8, 128),      # Sk shorter than one split chunk
+    (1, 1, 16, 8, 64),        # one key
+    (1, 1000, 16, 8, 128),    # Sk not a multiple of the chunk
+    (3, 2049, 8, 2, 64),      # a ragged last chunk, several rows
+    (200, 1, 8, 2, 128),      # wgmma: one key, every row but the last masked
+    (100, 333, 4, 2, 64),     # wgmma: Sk not a multiple of the TMA tile
+])
+def test_flash_kernel_ragged_keys(cuda, Sq, Sk, H, KV, hd):
+    _flash_case(cuda, 3, Sq, Sk, H, KV, hd, True, cache_len=Sk + 24)
+    _flash_case(cuda, 2, Sq, Sk, H, KV, hd, False)
+
+
+@pytest.mark.parametrize("Sq,Sk,G", [(9, 4, 4), (80, 30, 2), (300, 7, 1)])
+def test_flash_kernel_fully_masked_rows_give_zero(cuda, Sq, Sk, G):
+    """Sq > Sk, causal: the first Sq − Sk rows see no key (split-KV route
+    for 36 packed rows, wgmma for 160 and 300)."""
+    out = _flash_case(cuda, 2, Sq, Sk, 2 * G, 2, 128, True)
+    assert (out[:, :Sq - Sk] == 0).all()
+
+
+def test_flash_kernel_decode_shape_spreads_over_the_card(cuda):
+    """The LM path's decode (B 4, 8 KV heads, 2080 keys): at least 256
+    blocks of the split-KV route."""
+    splits, chunk = flash_ops.split_plan(4, 8, 2080, flash_ops._sm_count(
+        cuda.index or 0))
+    assert 4 * 8 * splits >= 256 and splits * chunk >= 2080
+    _flash_case(cuda, 4, 1, 2080, 16, 8, 128, True, cache_len=2088)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
