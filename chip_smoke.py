@@ -8,19 +8,30 @@ of them passed):
 
   1. the card: ``nvidia-smi --query-gpu=name,power.limit``;
   2. build the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
-  3. each kernel against its plain PyTorch version at the shapes the main
-     path gives it on delaunay(1_000_000): the largest exact, neighbor and
-     grid levels of that graph's hierarchy, with positions drawn from a seed.
-     One JSON line per kernel: ms per call (CUDA events around a batch of
-     calls made back to back, the median of a few batches), the plain
-     version's ms, and the least time the card could take (bytes over
-     3.35 TB/s or flops over 67 TFLOP/s fp32, whichever is larger, both
-     counted for the valid vertices only);
+  3. each force kernel against its plain PyTorch version (and against
+     itself: two calls on one input must agree bit for bit):
+     a. before phase 4, on drawn inputs: the largest exact, neighbor and
+        grid levels of delaunay(1_000_000)'s hierarchy, positions drawn
+        from a seed (``inputs: "random"``);
+     b. after phase 4, on the path's own inputs: nbody, grid_near and
+        grid_far on the arguments of their first call at each level of
+        phase 4's profiled run, one row a shape with that shape's launches
+        (``inputs: "path"``).
+     One JSON line a row: ``ms`` is device time per call (calls captured in
+     a CUDA graph, replayed between CUDA events), ``eager_ms`` the same
+     calls made back to back from Python (the median of a few batches,
+     host work included); the plain version's ms; the least time the card
+     could take (bytes over 3.35 TB/s or 11 flops a pair over 67 TFLOP/s
+     fp32, whichever is larger, for the pairs and vertices this input
+     needs). The row's own line also gives the pairs and, for the grid
+     kernels, the MUFU ceiling (one reciprocal a pair at 16 a clock per
+     SM), which the ``{"kernels": [...]}`` line leaves out;
   4. the main path, ``repro_torch.core.multigila_layout`` with the default
      ``LayoutConfig()``, on delaunay(1_000_000) on the card: every position
      finite and every kernel launched; level sizes, modes, phase seconds and
      launch counts are printed; then one more run under torch.profiler:
-     device time by kernel and the device's busy share of the wall;
+     device time by kernel and the device's busy share of the wall, with
+     the force kernels' arguments recorded for phase 3b (``PathInputs``);
   5. a ~5,000-vertex delaunay with exact_threshold=64, grid_threshold=512
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
@@ -48,6 +59,13 @@ of them passed):
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports neither JAX nor the JAX package.
+
+``--compare SRC`` also times another tree's force kernels (``SRC`` is a
+``src/`` directory that holds a ``repro_torch``, such as an earlier commit
+unpacked by ``git archive`` into the gitignored ``scratch_chip/``) on phase
+3's nbody, grid_near and grid_far inputs, right after phase 3b: that tree's
+kernels, then this checkout's again, in one process on one card. Those rows
+say ``"tree"`` and stay out of the ``{"kernels": [...]}`` line.
 """
 from __future__ import annotations
 
@@ -62,6 +80,9 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 FLOPS_PER_PAIR = 11              # 2 sub, 2 mul + 2 add (d2), 1 div, 2 fma
                                  # (a multiply-add counts 2)
+# reciprocals a second on the MUFU pipe: 16 lanes a clock per SM, 132 SMs,
+# 1.98 GHz boost (H100 SXM): the force kernels' ceiling, one a pair
+MUFU_PER_S = 16 * 132 * 1.98e9
 RTOL = 1e-4                      # kernel vs plain: sums in another order
 ATOL_FRAC = 1e-5                 # atol = ATOL_FRAC * max|plain|
 NELD_DELTA, CRE_DELTA = 0.05, 0.15
@@ -158,11 +179,40 @@ def _compare(name: str, out, ref) -> float:
     return float((out - ref).abs().max())
 
 
-def kernel_checks(graphs, scheds, device):
-    """Phase 3: every kernel against its plain version at main-path shapes."""
-    import numpy as np
+def _near_pairs(bucket, table, n_pad: int) -> int:
+    """Pairs the near field computes: each bucketed row against the valid
+    slots of its cell's 3×3 neighborhood."""
     import torch
-    from repro_torch.core import bucketing, gila
+    nc = table.shape[0] - 1
+    cnt = torch.cat([(bucket[:nc] < n_pad).sum(dim=1),
+                     bucket.new_zeros((1,), dtype=torch.int64)])
+    return int((cnt[:nc] * cnt[table[:nc].long()].sum(dim=1)).sum())
+
+
+# (source, Pallas function) of each force kernel
+_FORCE_KERNELS = dict(
+    nbody=("src/repro_torch/kernels/nbody/csrc/nbody.cu",
+           "src/repro/kernels/nbody/kernel.py:45"),
+    neighbor_force=(
+        "src/repro_torch/kernels/neighbor_force/csrc/neighbor_force.cu",
+        "src/repro/kernels/neighbor_force/kernel.py:32"),
+    grid_near=("src/repro_torch/kernels/grid_force/csrc/grid_near.cu",
+               "src/repro/kernels/grid_force/kernel.py:45"),
+    grid_far=("src/repro_torch/kernels/grid_force/csrc/grid_far.cu",
+              "src/repro/kernels/grid_force/kernel.py:89"),
+)
+# per kernel: (calls a CUDA graph, replays, eager calls a batch, plain calls)
+_REPS = dict(nbody=(50, 10, 200, 5), neighbor_force=(50, 10, 200, 5),
+             grid_near=(10, 10, 50, 2), grid_far=(2, 5, 10, 1))
+
+
+def _force_case(name, args, consts):
+    """(kernel call, plain call, bytes, pairs) of one force kernel on the
+    tensors ``args`` with the force constants ``consts`` = (C, L,
+    min_dist). Bytes count each input once and the output once, for the
+    valid vertices where padding rows are skipped; pairs are those that this
+    input needs."""
+    import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.grid_force import ops as grid_ops
     from repro_torch.kernels.grid_force.ref import grid_far_ref, grid_near_ref
@@ -171,8 +221,100 @@ def kernel_checks(graphs, scheds, device):
     from repro_torch.kernels.neighbor_force.ops import neighbor_repulsion
     from repro_torch.kernels.neighbor_force.ref import neighbor_repulsion_ref
 
-    C, L, md = 1.0, 1.0, 1e-3
+    C, L, md = consts
     cl2, md2 = _build.force_consts(C, L, md)
+    if name == "nbody":
+        pos, mass, vmask = args
+        nv = int(vmask.sum())
+        f = lambda: nbody_repulsion(pos, mass, vmask, C, L, md)
+        p = lambda: nbody_repulsion_ref(pos, mass, vmask, cl2, md2)
+        nbytes, pairs = 21 * pos.shape[0], nv * nv
+    elif name == "neighbor_force":
+        pos, mass, nbr_idx, nbr_mask, vmask = args
+        K = int(nbr_idx.shape[1])
+        f = lambda: neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask,
+                                       C, L, md)
+        p = lambda: neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask,
+                                           vmask, cl2, md2)
+        nv = int(vmask.sum())        # rows outside vmask skip their list
+        nbytes = 21 * pos.shape[0] + 5 * nv * K
+        pairs = int((nbr_mask & vmask[:, None]).sum())
+    elif name == "grid_near":
+        pos, mass, vmask, bucket, table = args
+        nc, cap = bucket.shape[0] - 1, bucket.shape[1]
+        f = lambda: grid_ops.grid_near(pos, mass, vmask, bucket, table,
+                                       C, L, md)
+        p = lambda: grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2)
+        nbytes = 21 * pos.shape[0] + 4 * (nc + 1) * cap + 36 * (nc + 1)
+        pairs = _near_pairs(bucket, table, pos.shape[0])
+    elif name == "grid_far":
+        pos, cell_xyw, vmask = args
+        nc = cell_xyw.shape[0]
+        f = lambda: grid_ops.grid_far(pos, cell_xyw, C, L, md)
+        p = lambda: grid_far_ref(pos, cell_xyw, cl2, md2)
+        nv = int(vmask.sum())        # padding rows' output is discarded
+        nbytes, pairs = 16 * nv + 12 * nc, nv * nc
+    else:
+        raise ValueError(name)
+    return f, p, nbytes, pairs
+
+
+def _shape_label(shape: dict) -> str:
+    """``level 4: 632 of 1024`` (and the grid's ``G``/``cap`` or the
+    far field's ``cells``) for a row's ``shape``."""
+    more = "".join(f", {k} {v}" for k, v in shape.items()
+                   if k not in ("level", "n", "n_pad"))
+    return f"level {shape['level']}: {shape['n']} of {shape['n_pad']}{more}"
+
+
+def time_force_case(name, args, consts, shape, inputs, launches=0,
+                    time_plain=True, tree=None) -> dict:
+    """One force kernel on one input: checked against its plain version
+    (and against itself: two calls must agree bit for bit), then timed as
+    device time per call (``ms``, CUDA-graph replay) and eagerly
+    (``eager_ms``: calls made back to back, the wrapper's host work
+    included), beside the plain version's time (unless ``time_plain`` is
+    false) and the bound. Returns the row for the ``{"kernels": [...]}``
+    line; the printed line adds the pairs, for the grid kernels the MUFU
+    ceiling, and the ``tree`` timed where it is not this checkout."""
+    import torch
+    f, p, nbytes, pairs = _force_case(name, args, consts)
+    out, again = f(), f()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls on one input differ")
+    err = _compare(name, out, p())
+    calls, replays, eager, plain_reps = _REPS[name]
+    ms = _graph_ms(f, calls, replays)
+    eager_ms = _per_call_ms(f, eager)
+    plain_ms = _per_call_ms(p, plain_reps,
+                            batches=1 if name == "grid_far" else 3) \
+        if time_plain else None
+    bound, by = _bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
+    source, replaces = _FORCE_KERNELS[name]
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by, library_ms=None, inputs=inputs,
+               shape=_shape_label(shape), eager_ms=eager_ms)
+    more = dict(pairs=pairs)
+    if name in ("grid_near", "grid_far"):
+        more["mufu_ms"] = pairs / MUFU_PER_S * 1e3
+    if tree is not None:
+        more["tree"] = tree
+    print(json.dumps(dict(row, **more, tol=dict(
+        rtol=RTOL, atol_frac_of_max=ATOL_FRAC))), flush=True)
+    return row
+
+
+def random_input_cases(graphs, scheds, device) -> list:
+    """Phase 3a's inputs, (name, args, consts, shape) each: the largest
+    exact, neighbor and grid levels of the main path's hierarchy, with
+    positions drawn from a seed."""
+    import torch
+    from repro_torch.core import bucketing, gila
+    from repro_torch.kernels.grid_force import ops as grid_ops
+
+    consts = (1.0, 1.0, 1e-3)
 
     def level(mode):
         i = max((i for i, s in enumerate(scheds) if s.mode == mode),
@@ -181,76 +323,106 @@ def kernel_checks(graphs, scheds, device):
         pos = gila.random_init(g, max(g.n, 4) ** 0.5, seed=1000 + i)
         return i, g, pos
 
-    rows = []
-
-    def record(name, source, replaces, fn, plain, out, ref, nbytes, flops,
-               shape, reps, plain_reps):
-        err = _compare(name, out, ref)
-        ms = _per_call_ms(fn, reps)
-        plain_ms = _per_call_ms(plain, plain_reps, batches=3)
-        bound, by = _bound_ms(nbytes, flops)
-        row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound, bound_by=by, library_ms=None)
-        print(json.dumps(dict(row, shape=shape, tol=dict(
-            rtol=RTOL, atol_frac_of_max=ATOL_FRAC))), flush=True)
-        rows.append(row)
-
-    # nbody: the largest exact level
+    cases = []
     i, g, pos = level("exact")
-    f = lambda: nbody_repulsion(pos, g.mass, g.vmask, C, L, md)
-    p = lambda: nbody_repulsion_ref(pos, g.mass, g.vmask, cl2, md2)
-    nv = int(g.vmask.sum())
-    record("nbody", "src/repro_torch/kernels/nbody/csrc/nbody.cu",
-           "src/repro/kernels/nbody/kernel.py:45", f, p, f(), p(),
-           21 * g.n_pad, FLOPS_PER_PAIR * nv * nv,
-           dict(level=i, n=g.n, n_pad=g.n_pad), 200, 5)
-
-    # neighbor_force: the largest neighbor level, its real k-hop lists
+    cases.append(("nbody", (pos, g.mass, g.vmask), consts,
+                  dict(level=i, n=g.n, n_pad=g.n_pad)))
     i, g, pos = level("neighbor")
     nbr_idx, nbr_mask = bucketing.init_state(g, scheds[i], seed=i)
-    K = int(nbr_idx.shape[1])
-    f = lambda: neighbor_repulsion(pos, g.mass, nbr_idx, nbr_mask, g.vmask,
-                                   C, L, md)
-    p = lambda: neighbor_repulsion_ref(pos, g.mass, nbr_idx, nbr_mask,
-                                       g.vmask, cl2, md2)
-    slots = int((nbr_mask & g.vmask[:, None]).sum())
-    nv = int(g.vmask.sum())          # rows outside vmask skip their list
-    record("neighbor_force",
-           "src/repro_torch/kernels/neighbor_force/csrc/neighbor_force.cu",
-           "src/repro/kernels/neighbor_force/kernel.py:32", f, p, f(), p(),
-           21 * g.n_pad + 5 * nv * K, FLOPS_PER_PAIR * slots,
-           dict(level=i, n=g.n, n_pad=g.n_pad, K=K), 200, 5)
-
-    # grid_near and grid_far: the largest grid level
+    cases.append(("neighbor_force", (pos, g.mass, nbr_idx, nbr_mask, g.vmask),
+                  consts, dict(level=i, n=g.n, n_pad=g.n_pad,
+                               K=int(nbr_idx.shape[1]))))
     i, g, pos = level("grid")
     G, cap = scheds[i].grid_dim, scheds[i].cell_cap
     nc = G * G
-    cid, bucket, inb = grid_ops.bin_vertices(pos, g.vmask, G, cap)
-    table = grid_ops.neighbor_table(G, device)
-    f = lambda: grid_ops.grid_near(pos, g.mass, g.vmask, bucket, table,
-                                   C, L, md)
-    p = lambda: grid_near_ref(pos, g.mass, g.vmask, bucket, table, cl2, md2)
-    cnt = torch.cat([(bucket[:nc] < g.n_pad).sum(dim=1),
-                     bucket.new_zeros((1,), dtype=torch.int64)])
-    pairs = int((cnt[:nc] * cnt[table[:nc].long()].sum(dim=1)).sum())
-    near_bytes = 21 * g.n_pad + 4 * (nc + 1) * cap + 36 * (nc + 1)
-    record("grid_near", "src/repro_torch/kernels/grid_force/csrc/grid_near.cu",
-           "src/repro/kernels/grid_force/kernel.py:45", f, p, f(), p(),
-           near_bytes, FLOPS_PER_PAIR * pairs,
-           dict(level=i, n=g.n, n_pad=g.n_pad, G=G, cap=cap), 50, 2)
-
+    cid, bucket, _ = grid_ops.bin_vertices(pos, g.vmask, G, cap)
+    table = grid_ops.neighbor_table(G, pos.device)
+    cases.append(("grid_near", (pos, g.mass, g.vmask, bucket, table), consts,
+                  dict(level=i, n=g.n, n_pad=g.n_pad, G=G, cap=cap)))
     w = torch.where(g.vmask, g.mass, 0.0)
     M, _, mu = grid_ops._cell_aggregates(pos, w, cid.long(), nc)
     cell_xyw = torch.cat([mu[:nc], M[:nc, None]], dim=1)
-    f = lambda: grid_ops.grid_far(pos, cell_xyw, C, L, md)
-    p = lambda: grid_far_ref(pos, cell_xyw, cl2, md2)
-    nv = int(g.vmask.sum())          # padding rows' output is discarded
-    record("grid_far", "src/repro_torch/kernels/grid_force/csrc/grid_far.cu",
-           "src/repro/kernels/grid_force/kernel.py:89", f, p, f(), p(),
-           16 * nv + 12 * nc, FLOPS_PER_PAIR * nv * nc,
-           dict(level=i, n=g.n, n_pad=g.n_pad, cells=nc), 10, 1)
-    return rows
+    cases.append(("grid_far", (pos, cell_xyw, g.vmask), consts,
+                  dict(level=i, n=g.n, n_pad=g.n_pad, cells=nc)))
+    return cases
+
+
+class PathInputs:
+    """For the length of one run, wraps the force entry points that
+    ``core/gila.py`` (nbody) and ``kernels/grid_force/ops.py`` (grid_near,
+    grid_far) call: keeps the arguments of the first call at each level and
+    counts the calls at each. A level is its graph's vmask tensor, held here
+    so its id stays its own; grid_far takes no vmask and is filed under the
+    level of the grid_near call that ``grid_repulsion`` makes just before
+    it. The package itself has no hook: the names are put back on exit."""
+
+    def __init__(self):
+        self.cases = {}             # (name, id(vmask)) → (args, consts)
+        self.calls = {}             # (name, id(vmask)) → calls
+        self._near = None           # the last grid_near call's vmask
+
+    def _wrap(self, module, attr, name, record):
+        real = getattr(module, attr)
+
+        def wrapper(*args, **kw):
+            vmask, keep = record(*args)
+            key = (name, id(vmask))
+            if key not in self.cases:
+                self.cases[key] = (keep(), tuple(args[-3:]))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return real(*args, **kw)
+        self._saved.append((module, attr, real))
+        setattr(module, attr, wrapper)
+
+    def _grid_far(self, pos, cells, *c):
+        if self._near is None or self._near.shape[0] != pos.shape[0]:
+            raise AssertionError("grid_far without its level's grid_near")
+        vmask = self._near
+        return vmask, lambda: (pos.clone(), cells.clone(), vmask)
+
+    def _grid_near(self, pos, mass, vmask, bucket, table, *c):
+        self._near = vmask
+        return vmask, lambda: (pos.clone(), mass, vmask, bucket, table)
+
+    def __enter__(self):
+        from repro_torch.core import gila
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        self._saved = []
+        self._wrap(gila, "nbody_repulsion", "nbody",
+                   lambda pos, mass, vmask, *c:
+                   (vmask, lambda: (pos.clone(), mass, vmask)))
+        self._wrap(grid_ops, "grid_near", "grid_near", self._grid_near)
+        self._wrap(grid_ops, "grid_far", "grid_far", self._grid_far)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, real in reversed(self._saved):
+            setattr(module, attr, real)
+        return False
+
+    def by_level(self, level_sizes) -> list:
+        """(name, args, consts, shape, launches) of every recorded level;
+        the level is the one index in ``level_sizes`` whose vertex count is
+        the vmask's, and each kernel has one record a level."""
+        out = []
+        for key, (args, consts) in self.cases.items():
+            name = key[0]
+            nv = int(args[2].sum())      # every kernel's args hold vmask third
+            level = [i for i, (n, _) in enumerate(level_sizes) if n == nv]
+            if len(level) != 1:
+                raise AssertionError(f"{name}: {nv} valid vertices match "
+                                     f"levels {level}")
+            shape = dict(level=level[0], n=nv, n_pad=int(args[0].shape[0]))
+            if name == "grid_near":
+                nc, cap = args[3].shape[0] - 1, int(args[3].shape[1])
+                shape.update(G=int(round(nc ** 0.5)), cap=cap)
+            elif name == "grid_far":
+                shape.update(cells=int(args[1].shape[0]))
+            out.append((name, args, consts, shape, self.calls[key]))
+        seen = [(c[0], c[3]["level"]) for c in out]
+        if len(set(seen)) != len(seen):
+            raise AssertionError(f"two records of one kernel and level: {seen}")
+        return sorted(out, key=lambda c: (c[0], c[3]["level"]))
 
 
 def profile_run(fn) -> dict:
@@ -527,17 +699,60 @@ def lm_card_vs_cpu(device) -> dict:
                 tol=LOGIT_TOL)
 
 
-def main() -> int:
+def compare_trees(src, cases) -> None:
+    """``--compare SRC``: the force kernels of the ``repro_torch`` under
+    ``src`` on ``cases`` — (name, args, consts, shape, launches) each —
+    then this checkout's again, so that the two trees meet the same tensors
+    on one card, the other tree between two turns of this one. The other
+    tree's modules take the place of this one's for the length of its
+    turn; its build lands in its own ``kernels/build/``."""
+    mine = {k: m for k, m in sys.modules.items()
+            if k == "repro_torch" or k.startswith("repro_torch.")}
+    for tree in (src, None):
+        for k in list(sys.modules):
+            if k == "repro_torch" or k.startswith("repro_torch."):
+                del sys.modules[k]
+        if tree is None:
+            sys.modules.update(mine)
+        else:
+            sys.path.insert(0, str(tree))
+        try:
+            from repro_torch.kernels import _build
+            _build.load()
+            print(f"compare: kernels of {Path(_build.__file__).parent}",
+                  flush=True)
+            for source, log in sorted(_build.build_log.items()):
+                for kernel, info in _ptxas_report(log):
+                    print(f"  ptxas {source} {kernel}: {info}", flush=True)
+            for name, args, consts, shape, launches in cases:
+                time_force_case(name, args, consts, shape,
+                                "path" if launches else "random",
+                                launches=launches, time_plain=False,
+                                tree=str(tree or "this checkout"))
+        finally:
+            if tree is not None:
+                sys.path.remove(str(tree))
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", metavar="SRC",
+                    help="also time the force kernels of the repro_torch "
+                         "in the src/ directory SRC on phase 3's inputs")
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    root = Path(__file__).resolve().parent
-    if not (root / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(root / "src"))
+    other = Path(opts.compare).resolve() if opts.compare else None
+    src = Path(__file__).resolve().parent / "src"
+    for tree in (src, other):
+        if tree is not None and not (tree / "repro_torch").is_dir():
+            print(f"chip_smoke: {tree}/repro_torch not found",
+                  file=sys.stderr)
+            return 2
+    sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch.core import (LayoutConfig, build_hierarchy,
                                   multigila_layout)
@@ -579,8 +794,11 @@ def main() -> int:
     graphs, _ = build_hierarchy(g0, cfg, device=device)
     scheds = [_schedule(cfg, i, len(graphs), g) for i, g in enumerate(graphs)]
 
-    # 3. kernels against their plain versions
-    rows = kernel_checks(graphs, scheds, device)
+    # 3a. kernels against their plain versions on drawn positions
+    random_cases = random_input_cases(graphs, scheds, device)
+    rows = [time_force_case(name, args, consts, shape, "random")
+            for name, args, consts, shape in random_cases]
+    random_cases = [c + (0,) for c in random_cases if c[0] != "neighbor_force"]
     del graphs, g0
     torch.cuda.empty_cache()
 
@@ -602,8 +820,30 @@ def main() -> int:
         wall_s=wall, phase_s=stats.phase_seconds,
         level_sizes=stats.level_sizes, level_modes=stats.level_modes,
         launches=launches, neld=neld(pos, edges))), flush=True)
-    print(json.dumps(dict(profile=profile_run(
-        lambda: multigila_layout(edges, n, cfg)))), flush=True)
+    # the profiled run, its force calls' first arguments at each level kept
+    _build.launches.clear()
+    with PathInputs() as rec:
+        prof = profile_run(lambda: multigila_layout(edges, n, cfg))
+    if dict(_build.launches) != launches:
+        raise AssertionError(f"profiled run launched {dict(_build.launches)}"
+                             f", the timed run {launches}")
+    print(json.dumps(dict(profile=prof)), flush=True)
+
+    # 3b. nbody, grid_near and grid_far on the path's own inputs, one row a
+    # shape with that shape's launches
+    path_cases = rec.by_level(stats.level_sizes)
+    for name in ("nbody", "grid_near", "grid_far"):
+        per_shape = sum(c[4] for c in path_cases if c[0] == name)
+        if per_shape != launches[name]:
+            raise AssertionError(f"{name}: {per_shape} calls recorded, "
+                                 f"{launches[name]} launched")
+    for name, args, consts, shape, calls in path_cases:
+        rows.append(time_force_case(name, args, consts, shape, "path",
+                                    launches=calls))
+    if other is not None:
+        compare_trees(other, random_cases + path_cases)
+    del rec, path_cases, random_cases
+    torch.cuda.empty_cache()
 
     # 5. small graph: card hierarchy == CPU hierarchy; layouts agree
     e5, n5 = generators.delaunay(5000, seed=3)

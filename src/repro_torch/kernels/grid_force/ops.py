@@ -180,11 +180,44 @@ def far_corrections(pos, w_out, cid_l, inb, M_full, S_full, Q_full,
     return f + torch.where(inb, 0.0, 1.0)[:, None] * f_bkt
 
 
+#: rows a lane of the near kernel may keep (its near_rows<1..4>)
+NEAR_MAX_RT = 4
+
+
+@functools.lru_cache(maxsize=None)
+def near_split(rows: int) -> tuple[int, int]:
+    """How a warp's 32 lanes share a cell of ``rows`` bucket rows: (RT, s)
+    — s lanes a row, each summing every s-th slot of each neighbor row, and
+    RT rows a lane, so a pass covers (32 // s)·RT rows. Chosen for the least
+    time a lane, counted in pair terms (8 instructions each) for neighbor
+    rows as long as the cell's own: per pass, 9·⌈rows/s⌉ slots of RT pairs
+    and a quarter for the slot's load and loop, then ⌈log2 s⌉ shuffle-adds
+    (a quarter each) for each of the 2·RT sums."""
+    def cost(rt, s):
+        passes = -(-rows // ((32 // s) * rt))
+        return passes * (9 * -(-rows // s) * (4 * rt + 1)
+                         + 2 * rt * (s - 1).bit_length())
+    return min(((rt, s) for rt in range(1, NEAR_MAX_RT + 1)
+                for s in range(1, 33)),
+               key=lambda p: (cost(*p), p[1], -p[0]))
+
+
+@functools.lru_cache(maxsize=16)
+def near_split_table(cap: int, device: torch.device) -> torch.Tensor:
+    """int32[cap + 1]: ``(RT << 8) | s`` of ``near_split`` for each row count
+    a cell may hold — the kernel reads its cell's entry. Cached per (cap,
+    device); callers share the tensor and must not write to it."""
+    return torch.tensor([0] + [rt << 8 | s for rt, s in
+                               map(near_split, range(1, cap + 1))],
+                        dtype=torch.int32, device=device)
+
+
 def grid_near(pos, mass, vmask, bucket, table, C, L, min_dist
               ) -> torch.Tensor:
     """Exact 3×3 near field → f_near f32[n, 2] (0 for unbucketed vertices).
     pos f32[n, 2]; mass f32[n]; vmask bool[n]; bucket int32[nc+1, cap]
-    (sentinel n); table int32[nc+1, 9] (sentinel nc)."""
+    (sentinel n; each row filled from slot 0); table int32[nc+1, 9]
+    (sentinel nc)."""
     cl2, md2 = _build.force_consts(C, L, min_dist)
     if pos.device.type == "cpu":
         return grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2)
@@ -197,10 +230,15 @@ def grid_near(pos, mass, vmask, bucket, table, C, L, min_dist
     _build.require(vmask, "vmask", torch.bool, (n,), dev)
     _build.require(bucket, "bucket", torch.int32, (nc + 1, cap), dev)
     _build.require(table, "table", torch.int32, (nc + 1, 9), dev)
-    f_near = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    if pos.data_ptr() % 8:
+        raise ValueError("grid_near: pos must be 8-byte aligned (float2 loads)")
+    packed = torch.empty((nc + 1, cap, 4), dtype=torch.float32, device=dev)
+    cnt = torch.empty((nc + 1,), dtype=torch.int32, device=dev)
+    f_near = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_near_launch(
         pos.data_ptr(), mass.data_ptr(), vmask.data_ptr(), bucket.data_ptr(),
-        table.data_ptr(), n, nc, cap, cl2, md2, f_near.data_ptr(),
+        table.data_ptr(), near_split_table(cap, dev).data_ptr(), n, nc, cap,
+        cl2, md2, packed.data_ptr(), cnt.data_ptr(), f_near.data_ptr(),
         _build.stream_of(pos))
     _build.launches["grid_near"] += 1
     _build.check(err, "grid_near")

@@ -22,6 +22,9 @@ def nbody_repulsion(pos, mass, vmask, C, L, min_dist) -> torch.Tensor:
     _build.require(pos, "pos", torch.float32, (n, 2), dev)
     _build.require(mass, "mass", torch.float32, (n,), dev)
     _build.require(vmask, "vmask", torch.bool, (n,), dev)
+    if pos.data_ptr() % 8:
+        raise ValueError("nbody_repulsion: pos must be 8-byte aligned "
+                         "(float2 loads)")
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().nbody_repulsion_launch(
         pos.data_ptr(), mass.data_ptr(), vmask.data_ptr(), n, cl2, md2,

@@ -14,7 +14,7 @@ import torch
 def two_set_ref(tpos, spos, sw, cl2: float, md2: float, *,
                 chunk_elems: int = 1 << 24) -> torch.Tensor:
     """Every target [nt, 2] against every source [ns, 2] of weight sw [ns]
-    → [nt, 2]: the arithmetic of the two-set kernel (csrc/two_set.cuh)."""
+    → [nt, 2]: the arithmetic of the nbody and grid_far kernels."""
     nt, ns = tpos.shape[0], spos.shape[0]
     cw = cl2 * sw
     out = tpos.new_empty((nt, 2))

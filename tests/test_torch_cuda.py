@@ -8,8 +8,8 @@ in ``test_torch_kernels.py``. On a machine with a card:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Sizes here are ragged on purpose (not multiples of the block widths), and
-one grid case has a bucket cap large enough that the near kernel needs more
-than 48 KB of dynamic shared memory. Tolerance of the force kernels: rtol
+one grid case has a bucket cap of 512, so the near kernel's warps take
+their cell's rows in several passes. Tolerance of the force kernels: rtol
 1e-4 with atol 1e-5 · max|plain| — the kernels sum over sources in another
 order than the plain versions' reductions (one test, on the composed grid
 op, states its own bound). Tolerance of the bf16 attention kernel: rtol =
@@ -64,13 +64,47 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("n", [1, 255, 1000, 2048])
-def test_nbody_kernel_matches_plain(cuda, n):
-    pos, mass, vmask = _vertices(n, n, cuda)
-    out = _launched("nbody", lambda: nbody_repulsion(pos, mass, vmask,
-                                                     C, L, MD))
+def _mask(n, kind, seed, dev):
+    """vmask of n: "random" (~85% true), "prefix<k>" (the first k, as
+    build_graph makes it), "scattered" (n // 3 true at random places) or
+    "none"."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(n, bool)
+    if kind == "random":
+        m = rng.random(n) > 0.15
+    elif kind.startswith("prefix"):
+        m[:int(kind[6:])] = True
+    elif kind == "scattered":
+        m[rng.choice(n, n // 3, replace=False)] = True
+    return torch.from_numpy(m).to(dev)
+
+
+def _twice(name, fn):
+    """The kernel's output, after checking that a second call on the same
+    input gives the same bits."""
+    out = _launched(name, fn)
+    again = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("n,mask", [
+    (1, "random"), (255, "random"), (1000, "random"), (2048, "random"),
+    (256, "prefix9"),         # the coarsest exact level of delaunay(1M)
+    (256, "prefix253"),
+    (1024, "prefix632"),
+    (1000, "scattered"),      # valid vertices not a prefix
+    (300, "none"),            # no valid vertex: every force 0
+])
+def test_nbody_kernel_matches_plain(cuda, n, mask):
+    pos, mass, _ = _vertices(n, n, cuda)
+    vmask = _mask(n, mask, n, cuda)
+    out = _twice("nbody", lambda: nbody_repulsion(pos, mass, vmask,
+                                                  C, L, MD))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, nbody_repulsion_ref(pos, mass, vmask, cl2, md2))
+    assert (out[~vmask] == 0).all()
 
 
 @pytest.mark.parametrize("n,K", [(1001, 40), (4096, 128)])
@@ -88,12 +122,38 @@ def test_neighbor_kernel_matches_plain(cuda, n, K):
                                        cl2, md2))
 
 
-@pytest.mark.parametrize("n,G,cap", [(3001, 9, 48), (3000, 2, 512)])
-def test_grid_near_kernel_matches_plain(cuda, n, G, cap):
-    pos, mass, vmask = _vertices(n, G, cuda)
+def _skewed(n, seed, dev):
+    """Most vertices in six tight clumps (their cells over the cap), the
+    rest spread thin over a wide box (many cells empty)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 2)) * 100.0
+    k = n * 4 // 5
+    clumps = rng.random((6, 2)) * 100.0
+    pos[:k] = clumps[rng.integers(0, 6, k)] + rng.normal(scale=0.3,
+                                                         size=(k, 2))
+    pos = torch.from_numpy(pos.astype(np.float32))
+    mass = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    vmask = torch.from_numpy(rng.random(n) > 0.15)
+    return pos.to(dev), mass.to(dev), vmask.to(dev)
+
+
+@pytest.mark.parametrize("n,G,cap,drawing", [
+    (3001, 9, 48, "uniform"),
+    (3000, 2, 512, "uniform"),      # ~640 a cell, 512 kept: 4 passes a warp
+    (131072, 105, 48, "uniform"),   # the path's second grid level: ~9.5 rows
+    (50000, 64, 48, "skewed"),
+])
+def test_grid_near_kernel_matches_plain(cuda, n, G, cap, drawing):
+    if drawing == "uniform":
+        pos, mass, vmask = _vertices(n, G, cuda)
+    else:
+        pos, mass, vmask = _skewed(n, G, cuda)
     _, bucket, _ = grid_ops.bin_vertices(pos, vmask, G, cap)
     table = grid_ops.neighbor_table(G, cuda)
-    out = _launched("grid_near", lambda: grid_ops.grid_near(
+    if drawing == "skewed":
+        rows = (bucket[:G * G] < n).sum(dim=1)
+        assert int((rows == cap).sum()) >= 6 and int((rows == 0).sum()) > 0
+    out = _twice("grid_near", lambda: grid_ops.grid_near(
         pos, mass, vmask, bucket, table, C, L, MD))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2))
@@ -106,8 +166,8 @@ def test_grid_far_kernel_matches_plain(cuda, n, nc):
     cells = np.concatenate([rng.random((nc, 2)) * 10,
                             rng.random((nc, 1)) * 5], 1).astype(np.float32)
     cells = torch.from_numpy(cells).to(cuda)
-    out = _launched("grid_far", lambda: grid_ops.grid_far(pos, cells,
-                                                          C, L, MD))
+    out = _twice("grid_far", lambda: grid_ops.grid_far(pos, cells,
+                                                       C, L, MD))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, grid_far_ref(pos, cells, cl2, md2))
 
@@ -152,6 +212,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         nbody_repulsion(pos.t().contiguous().t(), mass, vmask, C, L, MD)
     with pytest.raises(ValueError, match="on cpu"):
         nbody_repulsion(pos, mass.cpu(), vmask, C, L, MD)
+    with pytest.raises(ValueError, match="aligned"):
+        nbody_repulsion(torch.zeros(601, device=cuda)[1:].view(300, 2),
+                        mass, vmask, C, L, MD)
     nbr = torch.zeros((300, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)

@@ -161,3 +161,88 @@ def test_grid_repulsion_overflow_cells_present():
     _, bucket, inb = grid_ops.bin_vertices(_t(pos), _t(vmask), 9, 12)
     full = (bucket[:81] < 800).all(dim=1)
     assert 0 < int(full.sum()) < 81 and not bool(inb[_t(vmask)].all())
+
+
+# -- the path's shapes and the near kernel's split table ----------------------
+
+def _scattered_mask(n, valid, seed):
+    """``valid`` true entries of n at random places: not a prefix."""
+    vmask = np.zeros(n, bool)
+    vmask[np.random.default_rng(seed).choice(n, valid, replace=False)] = True
+    assert not vmask[:valid].all()
+    return vmask
+
+
+@pytest.mark.parametrize("n,valid", [(256, 1), (256, 9), (256, 253),
+                                     (1024, 632)])
+def test_nbody_plain_matches_jax_at_path_shapes(n, valid):
+    """The exact levels' shapes (9 and 253 of 256, 632 of 1024) and a
+    single valid vertex, with the valid vertices scattered instead of a
+    prefix."""
+    pos, mass, _ = _vertices(n, valid)
+    vmask = _scattered_mask(n, valid, n + valid)
+    port = nbody_repulsion(_t(pos), _t(mass), _t(vmask), C, L, MD).numpy()
+    args = (jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(vmask), C, L, MD)
+    _close(port, jax_nbody_ref(*args))
+    _close(port, nbody_repulsion_pallas(*args, block_rows=128,
+                                        block_cols=128, interpret=True))
+    assert (port[~vmask] == 0).all()
+
+
+def test_bin_vertices_and_grid_near_match_jax_at_the_path_grid():
+    """G 105, cap 48 (the grid of the path's second level) on a skewed
+    drawing: half the vertices spread, half in four tight clumps whose cells
+    overflow the cap. The JAX side runs over the occupied cells only, as
+    the empty ones have no rows."""
+    n, G, cap = 4096, 105, 48
+    rng = np.random.default_rng(105)
+    pos = rng.random((n, 2)) * 100.0
+    clumps = rng.random((4, 2)) * 100.0
+    pos[n // 2:] = (clumps[rng.integers(0, 4, n - n // 2)]
+                    + rng.normal(scale=0.2, size=(n - n // 2, 2)))
+    pos = pos.astype(np.float32)
+    mass = (rng.random(n) + 0.5).astype(np.float32)
+    vmask = rng.random(n) > 0.15
+    cid_j, bucket_j, inb_j = jax_grid.bin_vertices(
+        jnp.asarray(pos), jnp.asarray(vmask), G, cap)
+    _, bucket, inb = grid_ops.bin_vertices(_t(pos), _t(vmask), G, cap)
+    np.testing.assert_array_equal(bucket.numpy(), np.asarray(bucket_j))
+    np.testing.assert_array_equal(inb.numpy(), np.asarray(inb_j))
+    nc = G * G
+    b = bucket.numpy()
+    full = (b[:nc] < n).all(axis=1)
+    assert full.sum() >= 4 and not inb.numpy()[vmask].all()
+    table = grid_ops.neighbor_table(G, torch.device("cpu"))
+    port = grid_ops.grid_near(_t(pos), _t(mass), _t(vmask), bucket, table,
+                              C, L, MD).numpy()
+
+    occ = np.nonzero((b[:nc] < n).any(axis=1))[0]
+    occ = np.concatenate([occ, np.full(-len(occ) % 8, nc)])  # 8 a block
+    w = np.where(vmask, mass, 0).astype(np.float32)
+    pos_p = np.concatenate([pos, np.zeros((1, 2), np.float32)])
+    w_p = np.concatenate([w, np.zeros(1, np.float32)])
+    nbr = b[table.numpy()[occ]].reshape(len(occ), 9 * cap)
+    args = (jnp.asarray(pos_p[b[occ]]), jnp.asarray(pos_p[nbr]),
+            jnp.asarray(w_p[nbr]), C, L, MD)
+    for near in (jax_near_ref(*args),
+                 grid_near_pallas(*args, block_cells=8, interpret=True)):
+        f = np.zeros((n + 1, 2), np.float32)
+        f[b[occ].reshape(-1)] = np.asarray(near).reshape(-1, 2)
+        _close(port, f[:n])
+    assert (port[~np.isin(np.arange(n), b[:nc])] == 0).all()
+
+
+@pytest.mark.parametrize("cap", [8, 48, 120, 512])
+def test_grid_near_split_table(cap):
+    """The table the near kernel reads, (RT << 8) | s for each row count a
+    cell may hold: RT rows a lane within near_rows<1..4>, s lanes a row
+    within a warp, and the splits the kernel's header names for the path's
+    two grids (~61 and ~10 rows a cell)."""
+    split = grid_ops.near_split_table(cap, torch.device("cpu")).tolist()
+    assert len(split) == cap + 1 and split[0] == 0
+    for rows in range(1, cap + 1):
+        rt, s = grid_ops.near_split(rows)
+        assert 1 <= rt <= grid_ops.NEAR_MAX_RT and 1 <= s <= 32
+        assert split[rows] == rt << 8 | s
+    assert grid_ops.near_split(61) == (4, 2)
+    assert grid_ops.near_split(10) == (2, 5)
