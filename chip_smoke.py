@@ -13,9 +13,10 @@ of them passed):
      a. before phase 4, on drawn inputs: the largest exact, neighbor and
         grid levels of delaunay(1_000_000)'s hierarchy, positions drawn
         from a seed (``inputs: "random"``);
-     b. after phase 4, on the path's own inputs: nbody, grid_near and
-        grid_far on the arguments of their first call at each level of
-        phase 4's profiled run, one row a shape with that shape's launches
+     b. after phase 4, on the path's own inputs: nbody, neighbor_force,
+        grid_near and grid_far on the arguments of their first call at each
+        level of phase 4's profiled run, one row a shape with that shape's
+        launches, which sum to the kernel's launches in phase 4
         (``inputs: "path"``).
      One JSON line a row: ``ms`` is device time per call (calls captured in
      a CUDA graph, replayed between CUDA events), ``eager_ms`` the same
@@ -23,9 +24,9 @@ of them passed):
      host work included); the plain version's ms; the least time the card
      could take (bytes over 3.35 TB/s or 11 flops a pair over 67 TFLOP/s
      fp32, whichever is larger, for the pairs and vertices this input
-     needs). The row's own line also gives the pairs and, for the grid
-     kernels, the MUFU ceiling (one reciprocal a pair at 16 a clock per
-     SM), which the ``{"kernels": [...]}`` line leaves out;
+     needs). The row's own line also gives the pairs and, for all but
+     nbody, the MUFU ceiling (one reciprocal a pair at 16 a clock per SM),
+     which the ``{"kernels": [...]}`` line leaves out;
   4. the main path, ``repro_torch.core.multigila_layout`` with the default
      ``LayoutConfig()``, on delaunay(1_000_000) on the card: every position
      finite and every kernel launched; level sizes, modes, phase seconds and
@@ -62,10 +63,11 @@ It imports neither JAX nor the JAX package.
 
 ``--compare SRC`` also times another tree's force kernels (``SRC`` is a
 ``src/`` directory that holds a ``repro_torch``, such as an earlier commit
-unpacked by ``git archive`` into the gitignored ``scratch_chip/``) on phase
-3's nbody, grid_near and grid_far inputs, right after phase 3b: that tree's
-kernels, then this checkout's again, in one process on one card. Those rows
-say ``"tree"`` and stay out of the ``{"kernels": [...]}`` line.
+unpacked by ``git archive`` into the gitignored ``scratch_chip/``) on all of
+phase 3's inputs, right after phase 3b: that tree's kernels, then this
+checkout's again, in one process on one card. It may be given more than
+once: each tree in turn, then this checkout. Those rows say ``"tree"`` and
+stay out of the ``{"kernels": [...]}`` line.
 """
 from __future__ import annotations
 
@@ -115,8 +117,8 @@ def _card_line() -> str:
 
 def _kernel_name(sym: str) -> str:
     """``fa_split_kernel<128,128>`` out of its mangled symbol: the name is
-    the length-prefixed identifier that ends in ``kernel``; integer
-    template arguments follow it as ``I Li128E … E``."""
+    the length-prefixed identifier that ends in ``kernel``; integer and
+    bool template arguments follow it as ``I Li128E Lb1E … E``."""
     import re
     for m in re.finditer(r"\d+", sym):
         # the length prefix may follow other digits (a hash): try each tail
@@ -124,8 +126,8 @@ def _kernel_name(sym: str) -> str:
         name = next((sym[m.end():m.end() + n] for n in sorted(lengths)
                      if sym[m.end():m.end() + n].endswith("kernel")), "")
         if name:
-            args = re.match(r"I((?:Li\d+E)+)E", sym[m.end() + len(name):])
-            return name + (f"<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+            args = re.match(r"I((?:L[ib]\d+E)+)E", sym[m.end() + len(name):])
+            return name + (f"<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
                            if args else "")
     return sym
 
@@ -297,7 +299,7 @@ def time_force_case(name, args, consts, shape, inputs, launches=0,
                bound_ms=bound, bound_by=by, library_ms=None, inputs=inputs,
                shape=_shape_label(shape), eager_ms=eager_ms)
     more = dict(pairs=pairs)
-    if name in ("grid_near", "grid_far"):
+    if name != "nbody":
         more["mufu_ms"] = pairs / MUFU_PER_S * 1e3
     if tree is not None:
         more["tree"] = tree
@@ -349,17 +351,18 @@ def random_input_cases(graphs, scheds, device) -> list:
 
 class PathInputs:
     """For the length of one run, wraps the force entry points that
-    ``core/gila.py`` (nbody) and ``kernels/grid_force/ops.py`` (grid_near,
-    grid_far) call: keeps the arguments of the first call at each level and
-    counts the calls at each. A level is its graph's vmask tensor, held here
-    so its id stays its own; grid_far takes no vmask and is filed under the
-    level of the grid_near call that ``grid_repulsion`` makes just before
-    it. The package itself has no hook: the names are put back on exit."""
+    ``core/gila.py`` (nbody, neighbor_force) and
+    ``kernels/grid_force/ops.py`` (grid_near, grid_far) call: keeps the
+    arguments of the first call at each level and counts the calls at each.
+    A level is its graph's vmask tensor, held here so its id stays its own;
+    grid_far takes no vmask and is filed under the level of the grid_near
+    call that ``grid_repulsion`` makes just before it. The package itself
+    has no hook: the names are put back on exit."""
 
     def __init__(self):
-        self.cases = {}             # (name, id(vmask)) → (args, consts)
-        self.calls = {}             # (name, id(vmask)) → calls
-        self._near = None           # the last grid_near call's vmask
+        self.cases = {}     # (name, id(vmask)) → (args, consts, vmask)
+        self.calls = {}     # (name, id(vmask)) → calls
+        self._near = None   # the last grid_near call's vmask
 
     def _wrap(self, module, attr, name, record):
         real = getattr(module, attr)
@@ -368,7 +371,7 @@ class PathInputs:
             vmask, keep = record(*args)
             key = (name, id(vmask))
             if key not in self.cases:
-                self.cases[key] = (keep(), tuple(args[-3:]))
+                self.cases[key] = (keep(), tuple(args[-3:]), vmask)
             self.calls[key] = self.calls.get(key, 0) + 1
             return real(*args, **kw)
         self._saved.append((module, attr, real))
@@ -391,6 +394,10 @@ class PathInputs:
         self._wrap(gila, "nbody_repulsion", "nbody",
                    lambda pos, mass, vmask, *c:
                    (vmask, lambda: (pos.clone(), mass, vmask)))
+        self._wrap(gila, "neighbor_repulsion", "neighbor_force",
+                   lambda pos, mass, nbr_idx, nbr_mask, vmask, *c:
+                   (vmask, lambda: (pos.clone(), mass, nbr_idx, nbr_mask,
+                                    vmask)))
         self._wrap(grid_ops, "grid_near", "grid_near", self._grid_near)
         self._wrap(grid_ops, "grid_far", "grid_far", self._grid_far)
         return self
@@ -405,15 +412,17 @@ class PathInputs:
         the level is the one index in ``level_sizes`` whose vertex count is
         the vmask's, and each kernel has one record a level."""
         out = []
-        for key, (args, consts) in self.cases.items():
+        for key, (args, consts, vmask) in self.cases.items():
             name = key[0]
-            nv = int(args[2].sum())      # every kernel's args hold vmask third
+            nv = int(vmask.sum())
             level = [i for i, (n, _) in enumerate(level_sizes) if n == nv]
             if len(level) != 1:
                 raise AssertionError(f"{name}: {nv} valid vertices match "
                                      f"levels {level}")
             shape = dict(level=level[0], n=nv, n_pad=int(args[0].shape[0]))
-            if name == "grid_near":
+            if name == "neighbor_force":
+                shape.update(K=int(args[2].shape[1]))
+            elif name == "grid_near":
                 nc, cap = args[3].shape[0] - 1, int(args[3].shape[1])
                 shape.update(G=int(round(nc ** 0.5)), cap=cap)
             elif name == "grid_far":
@@ -699,16 +708,16 @@ def lm_card_vs_cpu(device) -> dict:
                 tol=LOGIT_TOL)
 
 
-def compare_trees(src, cases) -> None:
+def compare_trees(srcs, cases) -> None:
     """``--compare SRC``: the force kernels of the ``repro_torch`` under
-    ``src`` on ``cases`` — (name, args, consts, shape, launches) each —
-    then this checkout's again, so that the two trees meet the same tensors
-    on one card, the other tree between two turns of this one. The other
-    tree's modules take the place of this one's for the length of its
-    turn; its build lands in its own ``kernels/build/``."""
+    each of ``srcs`` on ``cases`` — (name, args, consts, shape, launches)
+    each — then this checkout's again, so that the trees meet the same
+    tensors on one card, the other trees between two turns of this one.
+    Another tree's modules take the place of this one's for the length of
+    its turn; its build lands in its own ``kernels/build/``."""
     mine = {k: m for k, m in sys.modules.items()
             if k == "repro_torch" or k.startswith("repro_torch.")}
-    for tree in (src, None):
+    for tree in (*srcs, None):
         for k in list(sys.modules):
             if k == "repro_torch" or k.startswith("repro_torch."):
                 del sys.modules[k]
@@ -737,18 +746,19 @@ def compare_trees(src, cases) -> None:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--compare", metavar="SRC",
+    ap.add_argument("--compare", metavar="SRC", action="append", default=[],
                     help="also time the force kernels of the repro_torch "
-                         "in the src/ directory SRC on phase 3's inputs")
+                         "in the src/ directory SRC on phase 3's inputs "
+                         "(repeatable)")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    other = Path(opts.compare).resolve() if opts.compare else None
+    others = [Path(p).resolve() for p in opts.compare]
     src = Path(__file__).resolve().parent / "src"
-    for tree in (src, other):
-        if tree is not None and not (tree / "repro_torch").is_dir():
+    for tree in (src, *others):
+        if not (tree / "repro_torch").is_dir():
             print(f"chip_smoke: {tree}/repro_torch not found",
                   file=sys.stderr)
             return 2
@@ -798,7 +808,7 @@ def main(argv=None) -> int:
     random_cases = random_input_cases(graphs, scheds, device)
     rows = [time_force_case(name, args, consts, shape, "random")
             for name, args, consts, shape in random_cases]
-    random_cases = [c + (0,) for c in random_cases if c[0] != "neighbor_force"]
+    random_cases = [c + (0,) for c in random_cases]
     del graphs, g0
     torch.cuda.empty_cache()
 
@@ -829,10 +839,10 @@ def main(argv=None) -> int:
                              f", the timed run {launches}")
     print(json.dumps(dict(profile=prof)), flush=True)
 
-    # 3b. nbody, grid_near and grid_far on the path's own inputs, one row a
-    # shape with that shape's launches
+    # 3b. the force kernels on the path's own inputs, one row a shape with
+    # that shape's launches
     path_cases = rec.by_level(stats.level_sizes)
-    for name in ("nbody", "grid_near", "grid_far"):
+    for name in _FORCE_KERNELS:
         per_shape = sum(c[4] for c in path_cases if c[0] == name)
         if per_shape != launches[name]:
             raise AssertionError(f"{name}: {per_shape} calls recorded, "
@@ -840,8 +850,8 @@ def main(argv=None) -> int:
     for name, args, consts, shape, calls in path_cases:
         rows.append(time_force_case(name, args, consts, shape, "path",
                                     launches=calls))
-    if other is not None:
-        compare_trees(other, random_cases + path_cases)
+    if others:
+        compare_trees(others, random_cases + path_cases)
     del rec, path_cases, random_cases
     torch.cuda.empty_cache()
 

@@ -49,8 +49,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "nbody_repulsion_launch": [_P, _P, _P, _I, _F, _F, _P, _P],
     "grid_far_launch": [_P, _I, _P, _I, _F, _F, _P, _P],
-    "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P,
-                                  _P],
+    "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _F, _P, _P, _P],
     "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P,
                          _P, _P],
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -107,19 +107,59 @@ def test_nbody_kernel_matches_plain(cuda, n, mask):
     assert (out[~vmask] == 0).all()
 
 
-@pytest.mark.parametrize("n,K", [(1001, 40), (4096, 128)])
-def test_neighbor_kernel_matches_plain(cuda, n, K):
+def _lists(n, K, kind, seed, dev):
+    """(nbr_idx, nbr_mask) of n rows of K slots, sentinel n, and the same
+    lists with every slot the kernel must ignore masked off (what the plain
+    version can take): "random" masks ~75% of the slots anywhere, "prefix"
+    fills each row from slot 0 to a random length (0 to K) as the k-hop
+    lists do, "holes" masks a third of a prefix's slots in its middle, and
+    "bad" adds masked-in slots that hold the sentinel, an index past it, or
+    a negative one."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, size=(n, K))
+    if kind == "random":
+        nmask = rng.random((n, K)) > 0.25
+    else:
+        length = rng.integers(0, K + 1, size=(n, 1))
+        nmask = np.arange(K)[None, :] < length
+        if kind == "holes":
+            nmask &= ~((rng.random((n, K)) < 0.33)
+                       & (np.arange(K)[None, :] < length - 1))
+    nbr = np.where(nmask, nbr, n)
+    if kind == "bad":
+        bad = nmask & (rng.random((n, K)) < 0.1)
+        nbr = np.where(bad, rng.choice([n, n + 3, 2 ** 31 - 1, -1, -n], (n, K)),
+                       nbr)
+    ok = nmask & (nbr >= 0) & (nbr < n)
+    as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)
+                                          ).to(dev)
+    return (as_t(nbr, np.int32), as_t(nmask, bool),
+            as_t(np.where(ok, nbr, n), np.int32), as_t(ok, bool))
+
+
+@pytest.mark.parametrize("n,K,lists", [
+    (1001, 40, "random"),     # K not a power of two
+    (4096, 128, "random"),
+    (777, 32, "prefix"),      # the schedule's caps 32 … 256
+    (2000, 64, "prefix"),
+    (11932, 128, "prefix"),   # the layout path's level-2 lists
+    (2062, 192, "prefix"),    # and its level-3 lists
+    (3000, 256, "prefix"),
+    (4096, 192, "holes"),     # masked slots inside a row
+    (1500, 128, "bad"),       # sentinel, out-of-range and negative indices
+    (500, 37, "bad"),         # K % 4 ≠ 0: the scalar path, with a tail
+])
+def test_neighbor_kernel_matches_plain(cuda, n, K, lists):
     pos, mass, vmask = _vertices(n, K, cuda, scale=5.0)
-    rng = np.random.default_rng(n)
-    nbr = rng.integers(0, n + 1, size=(n, K))
-    nmask = rng.random((n, K)) > 0.25
-    nbr = torch.from_numpy(np.where(nmask, nbr, n).astype(np.int32)).to(cuda)
-    nmask = torch.from_numpy(nmask).to(cuda)
-    out = _launched("neighbor_force", lambda: neighbor_repulsion(
+    nbr, nmask, nbr_ok, nmask_ok = _lists(n, K, lists, n, cuda)
+    out = _twice("neighbor_force", lambda: neighbor_repulsion(
         pos, mass, nbr, nmask, vmask, C, L, MD))
     cl2, md2 = _build.force_consts(C, L, MD)
-    _close(out, neighbor_repulsion_ref(pos, mass, nbr, nmask, vmask,
+    _close(out, neighbor_repulsion_ref(pos, mass, nbr_ok, nmask_ok, vmask,
                                        cl2, md2))
+    assert (out[~vmask] == 0).all()
+    # the lists hold neighbors outside vmask too
+    assert (~vmask[nbr_ok.clamp(max=n - 1).long()] & nmask_ok).any()
 
 
 def _skewed(n, seed, dev):
@@ -218,9 +258,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     nbr = torch.zeros((300, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)
+    # lists that are views 4 bytes (1 byte) past a 16-byte (4-byte)
+    # boundary take the scalar path: the same bits as the vector path
+    nbr, nmask, _, _ = _lists(300, 64, "prefix", 1, cuda)
+    flat = torch.zeros(300 * 64 + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = nbr.reshape(-1)
+    flat_m = torch.zeros(300 * 64 + 1, dtype=torch.bool, device=cuda)
+    flat_m[1:] = nmask.reshape(-1)
+    odd_nbr, odd_mask = flat[1:].view(300, 64), flat_m[1:].view(300, 64)
+    assert odd_nbr.data_ptr() % 16 and odd_mask.data_ptr() % 4
+    want = neighbor_repulsion(pos, mass, nbr, nmask, vmask, C, L, MD)
+    for nb, nm in ((odd_nbr, nmask), (nbr, odd_mask), (odd_nbr, odd_mask)):
+        got = _launched("neighbor_force", lambda: neighbor_repulsion(
+            pos, mass, nb, nm, vmask, C, L, MD))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
     odd = torch.zeros(601, device=cuda)[1:].view(300, 2)   # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
         grid_ops.grid_far(odd, torch.zeros((4, 3), device=cuda), C, L, MD)
+    with pytest.raises(ValueError, match="aligned"):
+        neighbor_repulsion(odd, mass, nbr, nmask, vmask, C, L, MD)
 
 
 def _attn_inputs(B, Sq, Sk, H, KV, hd, seed, dev):

@@ -25,7 +25,8 @@ from repro.kernels.neighbor_force.ref import \
     neighbor_repulsion_ref as jax_neighbor_ref
 from repro_torch.kernels.grid_force import ops as grid_ops
 from repro_torch.kernels.nbody.ops import nbody_repulsion
-from repro_torch.kernels.neighbor_force.ops import neighbor_repulsion
+from repro_torch.kernels.neighbor_force.ops import (neighbor_repulsion,
+                                                    neighbor_split)
 
 C, L, MD = 1.3, 0.8, 1e-2
 RTOL = 1e-5
@@ -61,7 +62,7 @@ def test_nbody_plain_matches_jax(n):
             MD, block_rows=128, block_cols=128, interpret=True))
 
 
-@pytest.mark.parametrize("n,K", [(200, 32), (384, 64)])
+@pytest.mark.parametrize("n,K", [(200, 32), (384, 64), (256, 128), (512, 192)])
 def test_neighbor_plain_matches_jax(n, K):
     pos, mass, vmask = _vertices(n, K, scale=5.0)
     rng = np.random.default_rng(n)
@@ -82,6 +83,16 @@ def test_neighbor_plain_matches_jax(n, K):
             jnp.asarray(pos), jnp.asarray(pos_p[nbr]), jnp.asarray(nw),
             C, L, MD, block_rows=128, interpret=True))
         _close(port, out * vmask[:, None])
+
+
+@pytest.mark.parametrize("K", [1, 32, 37, 40, 64, 128, 192, 256])
+def test_neighbor_split_covers_a_row_in_one_pass(K):
+    """The wrapper's (rows a warp, groups a lane) for the schedule's caps and
+    ragged K: a pair the kernel is built for, whose lanes cover a row of K
+    slots in one pass."""
+    R, G = neighbor_split(K)
+    assert (R, G) in {(4, 1), (2, 1), (1, 1), (1, 2)}
+    assert 4 * G * (32 // R) >= K
 
 
 def _binned(n, seed, G, cap):
