@@ -18,6 +18,10 @@ of them passed):
         level of phase 4's profiled run, one row a shape with that shape's
         launches, which sum to the kernel's launches in phase 4
         (``inputs: "path"``).
+     c. after 3a, the stress engine's two extreme entropy constants: each
+        force kernel against its plain version on 3a's inputs at C = α·C
+        for α = ALPHA0 and ALPHA0·ALPHA_SHRINK (``core/stress.py``), within
+        phase 3's tolerance (the force is linear in C);
      One JSON line a row: ``ms`` is device time per call (calls captured in
      a CUDA graph, replayed between CUDA events), ``eager_ms`` the same
      calls made back to back from Python (the median of a few batches,
@@ -33,10 +37,30 @@ of them passed):
      launch counts are printed; then one more run under torch.profiler:
      device time by kernel and the device's busy share of the wall, with
      the force kernels' arguments recorded for phase 3b (``PathInputs``);
+     b. the stress path: ``multigila_layout`` with
+        ``LayoutConfig(engine="stress")`` and per-edge weights drawn from a
+        seed, on the same graph: finite positions, wall, phase seconds,
+        level sizes and modes, every force kernel launched (as often as in
+        phase 4: the schedule is the gila path's), and a profiled run;
+     c. the ``flat`` driver on the same graph (one grid level of 300
+        iterations): wall and NELD beside phase 4's. ``centralized`` is not
+        run at this size (exact all-pairs over 10^6 vertices);
+     d. the weighted hierarchy of the same graph built on the card and on
+        the CPU: level sizes and every array, ``ewt`` included, equal bit
+        for bit, and the CPU build's seconds;
   5. a ~5,000-vertex delaunay with exact_threshold=64, grid_threshold=512
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
      CPU layout's NELD and CRE;
+     b. the same graph, card against CPU, through the ported engine and
+        drivers: the stress engine with weights (three modes; weighted
+        hierarchy equal, ``ewt`` included; NELD and CRE within the deltas),
+        ``centralized`` (NELD and CRE within the deltas) and ``flat`` (the
+        random init equal, the first 5 iterations within FLAT_EARLY_TOL,
+        NELD within the delta; the final CRE is printed, not compared:
+        a flat run from a random init is chaotic at this size);
+     c. the layout CLI, ``repro_torch.launch.layout.main`` with
+        ``--engine stress``, in process on the card;
   6. the LM serving path, internlm2-1.8b at its published width and depth
      (24 layers) in bf16, weights drawn from a seed on the card:
      a. the flash-attention kernel against its plain version at the path's
@@ -88,6 +112,13 @@ MUFU_PER_S = 16 * 132 * 1.98e9
 RTOL = 1e-4                      # kernel vs plain: sums in another order
 ATOL_FRAC = 1e-5                 # atol = ATOL_FRAC * max|plain|
 NELD_DELTA, CRE_DELTA = 0.05, 0.15
+# flat driver, card vs CPU after 5 iterations from one random init: max
+# |Δpos|. On the CPU, the port's distance from JAX there is 0.0039 and JAX's
+# distance from its own rerun from an init moved by one float32 ulp 0.014
+# (tests/test_torch_drivers.py); later the run is chaotic (final CRE moves
+# by up to 9 on delaunay(5000) when the init moves by one ulp)
+FLAT_EARLY_TOL = 0.05
+WEIGHT_LO, WEIGHT_HI = 0.5, 2.0       # per-edge weights, uniform from seed 0
 N_MAIN = 1_000_000
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
@@ -313,7 +344,8 @@ def random_input_cases(graphs, scheds, device) -> list:
     exact, neighbor and grid levels of the main path's hierarchy, with
     positions drawn from a seed."""
     import torch
-    from repro_torch.core import bucketing, gila
+    from repro_torch.core import gila
+    from repro_torch.core.engine import get_engine
     from repro_torch.kernels.grid_force import ops as grid_ops
 
     consts = (1.0, 1.0, 1e-3)
@@ -330,7 +362,7 @@ def random_input_cases(graphs, scheds, device) -> list:
     cases.append(("nbody", (pos, g.mass, g.vmask), consts,
                   dict(level=i, n=g.n, n_pad=g.n_pad)))
     i, g, pos = level("neighbor")
-    nbr_idx, nbr_mask = bucketing.init_state(g, scheds[i], seed=i)
+    nbr_idx, nbr_mask = get_engine("gila").init_state(g, scheds[i], seed=i)
     cases.append(("neighbor_force", (pos, g.mass, nbr_idx, nbr_mask, g.vmask),
                   consts, dict(level=i, n=g.n, n_pad=g.n_pad,
                                K=int(nbr_idx.shape[1]))))
@@ -708,6 +740,258 @@ def lm_card_vs_cpu(device) -> dict:
                 tol=LOGIT_TOL)
 
 
+def stress_constant_checks(cases) -> list:
+    """Phase 3c: each force kernel against its plain version on phase 3a's
+    inputs at the stress engine's first and last entropy constants, C = α·C
+    for α = ALPHA0 and ALPHA0·ALPHA_SHRINK, rounded to float32 as the stress
+    loop rounds them. The force is linear in C, so phase 3's tolerance (rtol
+    RTOL, atol ATOL_FRAC·max|plain|) holds at any C."""
+    import numpy as np
+    import torch
+    from repro_torch.core.stress import ALPHA0, ALPHA_SHRINK
+
+    out_rows = []
+    for name, args, consts, shape in cases:
+        C, L, md = consts
+        for alpha in (ALPHA0, ALPHA0 * ALPHA_SHRINK):
+            ca = float(np.float32(alpha) * np.float32(C))
+            f, p, _, _ = _force_case(name, args, (ca, L, md))
+            out, again = f(), f()
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} at C={ca}: two calls differ")
+            ref = p()
+            row = dict(stress_constant=name, alpha=alpha, C=ca,
+                       shape=_shape_label(shape),
+                       max_abs_err=_compare(name, out, ref),
+                       max_abs_plain=float(ref.abs().max()),
+                       tol=dict(rtol=RTOL, atol_frac_of_max=ATOL_FRAC))
+            print(json.dumps(row), flush=True)
+            out_rows.append(row)
+    return out_rows
+
+
+def _path_run(label, fn, n, want_kernels) -> tuple:
+    """One run of a layout path with the launch counts set to 0 just before
+    it and read just after: (pos, stats, wall seconds, launches). Fails if a
+    kernel of ``want_kernels`` was never launched, or unless the positions
+    are n finite rows."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    pos, stats = fn()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if pos.shape != (n, 2) or not np.isfinite(pos).all():
+        raise AssertionError(f"{label}: positions not finite / wrong shape")
+    missing = [k for k in want_kernels if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label} never launched: {missing}")
+    return pos, stats, wall, launches
+
+
+def stress_path(edges, n, weights, gila) -> dict:
+    """Phase 4b: the weighted stress layout of the main path's graph, timed
+    once and profiled once. ``gila`` is phase 4's (stats, launches): the
+    stress engine keeps the gila path's schedule, so its levels, modes and
+    launches must be the same."""
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.graphs.metrics import neld
+    from repro_torch.kernels import _build
+
+    cfg = LayoutConfig(engine="stress")
+    run = lambda: multigila_layout(edges, n, cfg, weights=weights)
+    pos, stats, wall, launches = _path_run("stress path", run, n,
+                                           _FORCE_KERNELS)
+    g_stats, g_launches = gila
+    if (stats.level_sizes, stats.level_modes, launches) != (
+            g_stats.level_sizes, g_stats.level_modes, g_launches):
+        raise AssertionError(f"stress path: levels {stats.level_sizes} "
+                             f"{stats.level_modes}, launches {launches}; "
+                             f"the gila path's {g_launches}")
+    _build.launches.clear()
+    prof = profile_run(run)
+    if dict(_build.launches) != launches:
+        raise AssertionError(f"profiled stress run launched "
+                             f"{dict(_build.launches)}, the timed {launches}")
+    res = dict(stress_path=f"delaunay({n}), weights U({WEIGHT_LO}, "
+                           f"{WEIGHT_HI}) from seed 0",
+               wall_s=wall, phase_s=stats.phase_seconds,
+               level_sizes=stats.level_sizes, level_modes=stats.level_modes,
+               launches=launches, launches_equal_gila_path=True,
+               positions_finite=True, neld=neld(pos, edges), profile=prof)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def flat_path(edges, n, main_wall, main_neld) -> dict:
+    """Phase 4c: the single-level ``flat`` driver on the main path's graph
+    beside phase 4's multilevel numbers (the paper's multilevel-versus-
+    single-level comparison)."""
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.graphs.metrics import neld
+
+    pos, stats, wall, launches = _path_run(
+        "flat path", lambda: multigila_layout(
+            edges, n, LayoutConfig(driver="flat")), n,
+        ("grid_near", "grid_far"))
+    res = dict(flat_path=f"delaunay({n})", wall_s=wall,
+               phase_s=stats.phase_seconds, level_sizes=stats.level_sizes,
+               level_modes=stats.level_modes, launches=launches,
+               neld=neld(pos, edges), multigila_wall_s=main_wall,
+               multigila_neld=main_neld)
+    print(json.dumps(res), flush=True)
+    print(f"centralized: not run at delaunay({n}): exact all-pairs repulsion "
+          f"over all {n} vertices at each of the finest level's 50 "
+          f"iterations ({n * n:.3g} pairs an iteration)", flush=True)
+    return res
+
+
+def _assert_hierarchies_equal(label, card, cpu) -> None:
+    """Level sizes and every coarse-graph and LevelInfo array equal, bit for
+    bit (card tensors against CPU tensors)."""
+    import torch
+    (gc, ic), (gh, ih) = card, cpu
+    if [(g.n, g.m) for g in gc] != [(g.n, g.m) for g in gh]:
+        raise AssertionError(f"{label}: level sizes differ, card vs CPU")
+    for a, b in zip(ic, ih):
+        for field in ("parent_coarse", "sun_of", "depth", "state",
+                      "sun_pos_index"):
+            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
+                raise AssertionError(f"{label}: {field} differs, card vs CPU")
+    for a, b in zip(gc, gh):
+        for field in ("src", "dst", "vmask", "emask", "mass", "ewt"):
+            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
+                raise AssertionError(f"{label}: coarse graph {field} differs")
+
+
+def _hierarchy(edges, n, cfg, device, weights=None):
+    """(graphs, infos) of the pruned, weighted hierarchy, and its seconds
+    (the device synchronised at the end)."""
+    import torch
+    from repro_torch.core import build_hierarchy
+    from repro_torch.core.pruning import prune_degree_one
+    from repro_torch.graphs.graph import build_graph
+    t0 = time.perf_counter()
+    pr = prune_degree_one(edges, n, weights=weights)
+    g = build_graph(pr.edges, pr.n, mass=pr.mass, ewt=pr.ewt, bucket=True,
+                    device=device)
+    h = build_hierarchy(g, cfg, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return h, time.perf_counter() - t0
+
+
+def weighted_hierarchy_card_vs_cpu(edges, n, weights) -> dict:
+    """Phase 4d: the main path's graph with its weights, hierarchy built on
+    the card and on the CPU: equal bit for bit, ``ewt`` included."""
+    from repro_torch.core import LayoutConfig
+    cfg = LayoutConfig()
+    card, card_s = _hierarchy(edges, n, cfg, "cuda", weights)
+    cpu, cpu_s = _hierarchy(edges, n, cfg, "cpu", weights)
+    _assert_hierarchies_equal(f"weighted delaunay({n})", card, cpu)
+    res = dict(weighted_hierarchy=f"delaunay({n})",
+               level_sizes=[(g.n, g.m) for g in card[0]],
+               card_build_s=card_s, cpu_build_s=cpu_s, equal=True)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def engines_card_vs_cpu(e5, n5, cfg5) -> dict:
+    """Phase 5b: the ported engine and drivers, card against CPU, on the
+    phase-5 graph (see the module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import LayoutConfig, bucketing, gila
+    from repro_torch.core import multigila_layout
+    from repro_torch.core.multilevel import _schedule
+    from repro_torch.graphs.graph import build_graph
+    from repro_torch.graphs.metrics import cre, neld
+
+    w5 = np.random.default_rng(0).uniform(WEIGHT_LO, WEIGHT_HI,
+                                          len(e5)).astype(np.float32)
+    res = {}
+    cases = (("stress_weighted", dataclasses.replace(cfg5, engine="stress"),
+              w5, True),
+             ("centralized", LayoutConfig(driver="centralized"), None, True),
+             ("flat", LayoutConfig(driver="flat"), None, False))
+    for name, cfg, w, cre_compared in cases:
+        if w is not None:
+            _assert_hierarchies_equal(
+                f"{name} delaunay({n5})", _hierarchy(e5, n5, cfg, "cuda", w)[0],
+                _hierarchy(e5, n5, cfg, "cpu", w)[0])
+        t0 = time.perf_counter()
+        p_card, s_card = multigila_layout(e5, n5, cfg, weights=w)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_cpu, s_cpu = multigila_layout(e5, n5, cfg, weights=w, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if not np.isfinite(p_card).all():
+            raise AssertionError(f"{name} on the card: non-finite")
+        if s_card.level_sizes != s_cpu.level_sizes:
+            raise AssertionError(f"{name}: level sizes differ")
+        q = {k: (neld(p, e5), cre(p, e5)) for k, p in
+             (("cuda", p_card), ("cpu", p_cpu))}
+        row = dict(level_sizes=s_card.level_sizes,
+                   level_modes=s_card.level_modes, neld_cre=q,
+                   card_s=card_s, cpu_s=cpu_s,
+                   hierarchy_equal=True if w is not None else None,
+                   cre_compared=cre_compared)
+        if name == "flat":
+            # the driver's own random init, then 5 iterations of its level
+            gs = {d: build_graph(e5, n5, bucket=True, device=d)
+                  for d in ("cuda", "cpu")}
+            sched = dataclasses.replace(
+                _schedule(cfg, 0, 1, gs["cpu"]), iters=5)
+            scale = cfg.ideal_len * max(n5, 4) ** 0.5
+            p0 = {d: gila.random_init(g, scale, cfg.seed)
+                  for d, g in gs.items()}
+            if not torch.equal(p0["cuda"].cpu(), p0["cpu"]):
+                raise AssertionError("flat: random init differs")
+            early = {d: bucketing.refine_level(
+                g, p0[d], sched, ideal_len=cfg.ideal_len,
+                rep_const=cfg.rep_const, seed=cfg.seed).cpu()
+                for d, g in gs.items()}
+            row["first_5_iterations_max_abs_diff"] = float(
+                (early["cuda"] - early["cpu"]).abs().max())
+            row["flat_early_tol"] = FLAT_EARLY_TOL
+            if row["first_5_iterations_max_abs_diff"] > FLAT_EARLY_TOL:
+                raise AssertionError(f"flat: {row}")
+        print(json.dumps({f"small_{name}": row}), flush=True)
+        if (abs(q["cuda"][0] - q["cpu"][0]) > NELD_DELTA
+                or (cre_compared
+                    and abs(q["cuda"][1] - q["cpu"][1]) > CRE_DELTA)):
+            raise AssertionError(f"{name}: quality differs, card vs CPU: {q}")
+        res[name] = row
+    return res
+
+
+def cli_on_card() -> dict:
+    """Phase 5c: the layout CLI in process, on the card by default."""
+    import contextlib
+    import io
+    from repro_torch.kernels import _build
+    from repro_torch.launch import layout as cli
+
+    argv = ["--graph", "delaunay", "--args", "20000", "3", "--engine",
+            "stress", "--no-cre"]
+    _build.launches.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = cli.main(argv)
+    lines = buf.getvalue().splitlines()
+    launches = dict(_build.launches)
+    if not launches or not (rep["neld"] == rep["neld"]):
+        raise AssertionError(f"CLI: launches {launches}, report {rep}")
+    res = dict(cli=" ".join(argv), printed=lines, report=rep,
+               launches=launches)
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def compare_trees(srcs, cases) -> None:
     """``--compare SRC``: the force kernels of the ``repro_torch`` under
     each of ``srcs`` on ``cases`` — (name, args, consts, shape, launches)
@@ -808,28 +1092,24 @@ def main(argv=None) -> int:
     random_cases = random_input_cases(graphs, scheds, device)
     rows = [time_force_case(name, args, consts, shape, "random")
             for name, args, consts, shape in random_cases]
+    # 3c. the same inputs at the stress engine's entropy constants
+    stress_constant_checks(random_cases)
     random_cases = [c + (0,) for c in random_cases]
     del graphs, g0
     torch.cuda.empty_cache()
 
     # 4. the main path
-    _build.launches.clear()
-    t0 = time.perf_counter()
-    pos, stats = multigila_layout(edges, n, cfg)
-    wall = time.perf_counter() - t0
-    launches = dict(_build.launches)
-    if pos.shape != (n, 2) or not np.isfinite(pos).all():
-        raise AssertionError("main path: positions not finite / wrong shape")
-    missing = [r["name"] for r in rows if launches.get(r["name"], 0) == 0]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
+    pos, stats, wall, launches = _path_run(
+        "main path", lambda: multigila_layout(edges, n, cfg), n,
+        [r["name"] for r in rows])
     for r in rows:
         r["launches"] = launches[r["name"]]
+    main_neld = neld(pos, edges)
     print(json.dumps(dict(
         main_path=f"delaunay({N_MAIN})", n=n, m=int(len(edges)),
         wall_s=wall, phase_s=stats.phase_seconds,
         level_sizes=stats.level_sizes, level_modes=stats.level_modes,
-        launches=launches, neld=neld(pos, edges))), flush=True)
+        launches=launches, neld=main_neld)), flush=True)
     # the profiled run, its force calls' first arguments at each level kept
     _build.launches.clear()
     with PathInputs() as rec:
@@ -855,27 +1135,24 @@ def main(argv=None) -> int:
     del rec, path_cases, random_cases
     torch.cuda.empty_cache()
 
+    # 4b-4d. the weighted stress path, the flat driver, the weighted
+    # hierarchy card vs CPU, all on the main path's graph
+    weights = np.random.default_rng(0).uniform(
+        WEIGHT_LO, WEIGHT_HI, len(edges)).astype(np.float32)
+    stress = stress_path(edges, n, weights, (stats, launches))
+    for r in rows:              # a random row carries the kernel's totals
+        if r["inputs"] == "random":
+            r["stress_launches"] = stress["launches"][r["name"]]
+    flat_path(edges, n, wall, main_neld)
+    weighted_hierarchy_card_vs_cpu(edges, n, weights)
+    torch.cuda.empty_cache()
+
     # 5. small graph: card hierarchy == CPU hierarchy; layouts agree
     e5, n5 = generators.delaunay(5000, seed=3)
     cfg5 = LayoutConfig(exact_threshold=64, grid_threshold=512)
-    hier = {}
-    for dev in ("cuda", "cpu"):
-        pr5 = prune_degree_one(e5, n5)
-        g5 = build_graph(pr5.edges, pr5.n, mass=pr5.mass, bucket=True,
-                         device=dev)
-        hier[dev] = build_hierarchy(g5, cfg5, device=dev)
-    (gc, ic), (gh, ih) = hier["cuda"], hier["cpu"]
-    if [(g.n, g.m) for g in gc] != [(g.n, g.m) for g in gh]:
-        raise AssertionError("hierarchy level sizes differ: card vs CPU")
-    for a, b in zip(ic, ih):
-        for field in ("parent_coarse", "sun_of", "depth", "state",
-                      "sun_pos_index"):
-            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
-                raise AssertionError(f"hierarchy {field} differs: card vs CPU")
-    for a, b in zip(gc, gh):
-        for field in ("src", "dst", "vmask", "emask", "mass", "ewt"):
-            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
-                raise AssertionError(f"coarse graph {field} differs")
+    _assert_hierarchies_equal("delaunay(5000)",
+                              _hierarchy(e5, n5, cfg5, "cuda")[0],
+                              _hierarchy(e5, n5, cfg5, "cpu")[0])
     p_card, s_card = multigila_layout(e5, n5, cfg5)
     p_cpu, _ = multigila_layout(e5, n5, cfg5, device="cpu")
     q = {k: (neld(p, e5), cre(p, e5)) for k, p in
@@ -889,9 +1166,12 @@ def main(argv=None) -> int:
                           level_sizes=s_card.level_sizes,
                           level_modes=s_card.level_modes,
                           hierarchy_equal=True, neld_cre=q)), flush=True)
+    # 5b-5c. the stress engine and the other drivers, card vs CPU; the CLI
+    engines_card_vs_cpu(e5, n5, cfg5)
+    cli_on_card()
 
     # 6. the LM serving path
-    del p_card, p_cpu, hier
+    del p_card, p_cpu
     torch.cuda.empty_cache()
     rows += attention_checks(device)
     lm = lm_main_path(device)

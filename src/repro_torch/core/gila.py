@@ -143,20 +143,28 @@ def _attraction(g: PaddedGraph, pos, L: float, md2: float):
     return segment_sum(vec, g.dst_l, n_pad + 1)[:n_pad]
 
 
+def repulsion(g: PaddedGraph, pos, nbr_idx, nbr_mask, *, C: float,
+              L: float, min_dist: float, mode: str, grid_dim: int = 0,
+              cell_cap: int = 0) -> torch.Tensor:
+    """FR repulsion per vertex through the kernel of ``mode`` — GiLA's
+    repulsion and the stress engine's entropy term (which passes α·C)."""
+    if mode == "exact":
+        return nbody_repulsion(pos, g.mass, g.vmask, C, L, min_dist)
+    if mode == "grid":
+        return grid_repulsion(pos, g.mass, g.vmask, C, L, min_dist,
+                              grid_dim=grid_dim, cell_cap=cell_cap)
+    if mode == "neighbor":
+        return neighbor_repulsion(pos, g.mass, nbr_idx, nbr_mask, g.vmask,
+                                  C, L, min_dist)
+    raise ValueError(f"unknown repulsion mode {mode!r}")
+
+
 def gila_forces(g: PaddedGraph, pos, nbr_idx, nbr_mask, *, C: float,
                 L: float, min_dist: float, mode: str = "neighbor",
                 grid_dim: int = 0, cell_cap: int = 0) -> torch.Tensor:
     """Total force per vertex: repulsion of ``mode`` plus attraction."""
-    if mode == "exact":
-        rep = nbody_repulsion(pos, g.mass, g.vmask, C, L, min_dist)
-    elif mode == "grid":
-        rep = grid_repulsion(pos, g.mass, g.vmask, C, L, min_dist,
-                             grid_dim=grid_dim, cell_cap=cell_cap)
-    elif mode == "neighbor":
-        rep = neighbor_repulsion(pos, g.mass, nbr_idx, nbr_mask, g.vmask,
-                                 C, L, min_dist)
-    else:
-        raise ValueError(f"unknown repulsion mode {mode!r}")
+    rep = repulsion(g, pos, nbr_idx, nbr_mask, C=C, L=L, min_dist=min_dist,
+                    mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
     _, md2 = _build.force_consts(C, L, min_dist)
     return rep + _attraction(g, pos, _build.f32(L), md2)
 
@@ -174,7 +182,8 @@ def layout_iteration(g: PaddedGraph, pos, nbr_idx, nbr_mask, temp: float, *,
 
 
 def temperatures(temp0: float, temp_decay: float, iters: int) -> list[float]:
-    """The float32 cooling schedule: temp_i = temp_{i-1}·decay in float32."""
+    """The float32 cooling schedule: temp_i = temp_{i-1}·decay in float32
+    (the stress engine anneals its α the same way)."""
     t, d = np.float32(temp0), np.float32(temp_decay)
     out = []
     for _ in range(iters):

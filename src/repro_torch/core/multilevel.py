@@ -2,10 +2,22 @@
 
 pruning → coarsening* → coarsest layout → [placement → single-level
 refinement]* → reinsertion, applied per connected component, components
-packed on a shelf grid at the end. This is the JAX package's
-``core/multilevel.py`` main path: driver ``multigila``, engine ``gila``.
+packed on a shelf grid at the end: the JAX package's ``core/multilevel.py``.
 Host work (pruning, components, k-hop lists, reinsertion) stays numpy; the
 hierarchy, placement and refinement run on ``device`` (default: the card).
+
+The same pipeline powers three DRIVERS (``LayoutConfig.driver``):
+  * ``multigila``   — the paper's algorithm;
+  * ``centralized`` — FM³ stand-in baseline: the same hierarchy, exact
+                      all-pairs repulsion at every level;
+  * ``flat``        — single-level GiLA baseline (the paper's predecessor):
+                      no pruning, no hierarchy, one level from a random
+                      init.
+The JAX package's fourth, ``multigila_dist`` (the sharded superstep), is
+not ported yet. Orthogonally, ``LayoutConfig.engine`` selects the
+per-level refinement engine (core/engine.py): ``"gila"`` —
+Fruchterman–Reingold forces — or ``"stress"`` — maxent-stress
+(core/stress.py).
 """
 from __future__ import annotations
 
@@ -17,12 +29,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import bucketing, gila
+from repro_torch.core.engine import get_engine
 from repro_torch.core.pruning import prune_degree_one, reinsert
 from repro_torch.core.schedule import LevelSchedule, make_schedule
 from repro_torch.core.solar_merger import LevelInfo, next_level, run_merger
 from repro_torch.core.solar_placer import solar_placer
 from repro_torch.graphs.graph import PaddedGraph, build_graph
 from repro_torch.utils.device import resolve_device, synchronize
+
+
+_DRIVERS = ("multigila", "multigila_dist", "centralized", "flat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +54,17 @@ class LayoutConfig:
     ideal_len: float = 1.0
     rep_const: float = 1.0
     seed: int = 0
-    driver: str = "multigila"        # only "multigila" is ported
-    engine: str = "gila"             # only "gila" is ported
+    driver: str = "multigila"        # multigila | centralized | flat
+    engine: str = "gila"             # per-level refinement engine: gila | stress
+    prune: bool = True               # degree-one pruning (never under flat)
+
+    def __post_init__(self):
+        # the JAX package's shim: ``engine=`` used to name the DRIVER; a
+        # driver name passed there selects the driver and leaves the engine
+        # at gila (frozen dataclass, so rebind via object.__setattr__)
+        if self.engine in _DRIVERS:
+            object.__setattr__(self, "driver", self.engine)
+            object.__setattr__(self, "engine", "gila")
 
 
 @dataclasses.dataclass
@@ -48,7 +73,8 @@ class LayoutStats:
     level_sizes: tuple = ()          # ((n, m), ...) finest first
     level_modes: tuple = ()          # repulsion mode per level, finest first
     #: wall-clock seconds per phase (coarsen / place / refine), each phase
-    #: ended by a device synchronize
+    #: ended by a device synchronize; coarsen includes the input graph's
+    #: build, which is all it holds under the flat driver
     phase_seconds: dict = dataclasses.field(
         default_factory=lambda: {"coarsen": 0.0, "place": 0.0,
                                  "refine": 0.0})
@@ -73,12 +99,14 @@ def connected_components(edges: np.ndarray, n: int) -> np.ndarray:
 
 
 def _check_supported(cfg: LayoutConfig) -> None:
-    if cfg.driver != "multigila":
+    if cfg.driver == "multigila_dist":
         raise NotImplementedError(
-            f"driver {cfg.driver!r}: only 'multigila' is ported")
-    if cfg.engine != "gila":
-        raise NotImplementedError(
-            f"engine {cfg.engine!r}: only 'gila' is ported")
+            "driver 'multigila_dist' (the sharded path) is not ported yet: "
+            "ROADMAP.md queue 1, item 11")
+    if cfg.driver not in _DRIVERS:
+        raise ValueError(f"unknown driver {cfg.driver!r}; known: "
+                         f"{list(_DRIVERS)}")
+    get_engine(cfg.engine)                  # ValueError for an unknown one
 
 
 def build_hierarchy(g0: PaddedGraph, cfg: LayoutConfig, *, device=None
@@ -120,47 +148,64 @@ def _phase(stats: LayoutStats, device: torch.device, name: str):
 
 def _schedule(cfg: LayoutConfig, i: int, L: int, g: PaddedGraph
               ) -> LevelSchedule:
-    return make_schedule(i, L, g.n, g.m, exact_threshold=cfg.exact_threshold,
+    """Level i of L; the centralized driver lifts the exact threshold."""
+    exact = 10 ** 9 if cfg.driver == "centralized" else cfg.exact_threshold
+    return make_schedule(i, L, g.n, g.m, exact_threshold=exact,
                          grid_threshold=cfg.grid_threshold,
                          coarsest_iters=cfg.coarsest_iters,
                          finest_iters=cfg.finest_iters,
-                         ideal_len=cfg.ideal_len, n_pad=g.n_pad)
+                         ideal_len=cfg.ideal_len, n_pad=g.n_pad,
+                         engine=cfg.engine)
 
 
 def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
-                     device=None):
+                     weights=None, device=None):
     """Multi-GiLA on one connected component → (pos float32[n, 2] on the
-    host, LayoutStats)."""
+    host, LayoutStats).
+
+    ``weights`` (float[m], optional) are per-edge weights: the attraction
+    term's ideal length ℓ_e = w_e·L, and the stress engine's target
+    distances. They thread prune → build_graph → hierarchy (the solar
+    merger compounds them into coarse ``ewt``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     stats = LayoutStats()
     if n == 1:
         return np.zeros((1, 2), np.float32), stats
-    pr = prune_degree_one(edges, n)
-    if pr.n == 0 or len(pr.edges) == 0:
+    pr = (prune_degree_one(edges, n, weights=weights)
+          if cfg.prune and cfg.driver != "flat" else None)
+    if pr is not None:
+        work_edges, work_n, mass, work_ewt = pr.edges, pr.n, pr.mass, pr.ewt
+    else:
+        work_edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        work_n, mass, work_ewt = n, None, weights
+    if work_n == 0 or len(work_edges) == 0:
         # star graphs collapse entirely under pruning: lay out leaves only
-        return reinsert(pr, np.zeros((max(pr.n, 1), 2), np.float32),
-                        pr.edges), stats
+        pos = (reinsert(pr, np.zeros((max(work_n, 1), 2), np.float32),
+                        work_edges)
+               if pr is not None else np.zeros((n, 2), np.float32))
+        return pos, stats
 
     with _phase(stats, dev, "coarsen"):
-        g0 = build_graph(pr.edges, pr.n, mass=pr.mass, bucket=True,
-                         device=dev)
-        graphs, infos = build_hierarchy(g0, cfg, device=dev)
+        g0 = build_graph(work_edges, work_n, mass=mass, ewt=work_ewt,
+                         bucket=True, device=dev)
+        graphs, infos = ([g0], []) if cfg.driver == "flat" else \
+            build_hierarchy(g0, cfg, device=dev)
     L = len(graphs)
     scheds = [_schedule(cfg, i, L, g) for i, g in enumerate(graphs)]
     stats.levels = L
     stats.level_sizes = tuple((g.n, g.m) for g in graphs)
     stats.level_modes = tuple(s.mode for s in scheds)
 
-    # coarsest level: random init + layout
+    # coarsest level (flat: the only one): random init + layout
     gk = graphs[-1]
     with _phase(stats, dev, "refine"):
         pos = gila.random_init(gk, cfg.ideal_len * max(gk.n, 4) ** 0.5,
                                cfg.seed)
-        pos = bucketing.refine_level(gk, pos, scheds[-1],
-                                     ideal_len=cfg.ideal_len,
-                                     rep_const=cfg.rep_const,
-                                     seed=cfg.seed + L)
+        pos = bucketing.refine_level(
+            gk, pos, scheds[-1], ideal_len=cfg.ideal_len,
+            rep_const=cfg.rep_const,
+            seed=cfg.seed if cfg.driver == "flat" else cfg.seed + L)
 
     # walk the hierarchy back down: place, then refine
     for i in range(L - 2, -1, -1):
@@ -175,7 +220,7 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
                                          seed=cfg.seed + i)
 
     pos = pos.cpu().numpy().astype(np.float32)[: g0.n]
-    return reinsert(pr, pos, pr.edges), stats
+    return (reinsert(pr, pos, work_edges) if pr is not None else pos), stats
 
 
 def _pack_components(layouts: list[np.ndarray], pad: float = 2.0) -> list:
@@ -202,18 +247,24 @@ def _pack_components(layouts: list[np.ndarray], pad: float = 2.0) -> list:
 
 
 def multigila_layout(edges: np.ndarray, n: int,
-                     cfg: LayoutConfig | None = None, *, device=None):
+                     cfg: LayoutConfig | None = None, *, weights=None,
+                     device=None):
     """Full pipeline on a possibly-disconnected graph → (pos float32[n, 2]
-    on the host, LayoutStats). ``device=None`` means the card; with no card
-    present the call raises."""
+    on the host, LayoutStats). ``weights`` (float[m], optional) are the
+    per-edge weights (see ``layout_component``). ``device=None`` means the
+    card; with no card present the call raises."""
     cfg = cfg or LayoutConfig()
     _check_supported(cfg)
     dev = resolve_device(device)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    if weights is not None:
+        weights = np.asarray(weights, np.float32).reshape(-1)
+        if len(weights) != len(edges):
+            raise ValueError(f"{len(weights)} weights for {len(edges)} edges")
     labels = connected_components(edges, n)
     comps = np.unique(labels)
     if len(comps) == 1:
-        return layout_component(edges, n, cfg, device=dev)
+        return layout_component(edges, n, cfg, weights=weights, device=dev)
 
     stats = LayoutStats()
     layouts, index_maps = [], []
@@ -223,7 +274,8 @@ def multigila_layout(edges: np.ndarray, n: int,
         remap[vs] = np.arange(vs.size)
         emask = labels[edges[:, 0]] == c
         ce = np.stack([remap[edges[emask, 0]], remap[edges[emask, 1]]], 1)
-        p, s = layout_component(ce, vs.size, cfg, device=dev)
+        cw = weights[emask] if weights is not None else None
+        p, s = layout_component(ce, vs.size, cfg, weights=cw, device=dev)
         stats.levels = max(stats.levels, s.levels)
         for k, v in s.phase_seconds.items():
             stats.phase_seconds[k] += v

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.engine import get_engine
 from repro_torch.kernels.grid_force.ops import choose_grid
 
 
@@ -42,15 +43,18 @@ class LevelSchedule:
     mode: str            # "exact" | "neighbor" | "grid"
     grid_dim: int = 0    # G (grid mode only): G×G spatial cells
     cell_cap: int = 0    # bucket capacity per cell (grid mode only)
+    engine: str = "gila"  # refinement engine id (core/engine.py registry)
 
 
 def make_schedule(level: int, n_levels: int, n: int, m: int,
                   *, n_pad: int, exact_threshold: int = 2048,
                   grid_threshold: int = 32768,
                   coarsest_iters: int = 300, finest_iters: int = 50,
-                  ideal_len: float = 1.0) -> LevelSchedule:
+                  ideal_len: float = 1.0,
+                  engine: str = "gila") -> LevelSchedule:
     """level = 0 is the input graph; level = n_levels-1 is the coarsest;
-    ``n_pad`` is the level's padded size, which keys the grid."""
+    ``n_pad`` is the level's padded size, which keys the grid. The engine's
+    ``tune`` hook has the last word (no engine changes the schedule yet)."""
     k = paper_k_schedule(m)
     cap = {1: 32, 2: 64, 3: 128, 4: 192, 5: 256, 6: 256}[k]
     if n_levels <= 1:
@@ -68,7 +72,8 @@ def make_schedule(level: int, n_levels: int, n: int, m: int,
     else:
         mode = "grid"
         grid_dim, cell_cap = choose_grid(n_pad)
-    return LevelSchedule(
+    sched = LevelSchedule(
         k=k, cap=cap, iters=max(iters, 10), temp0=temp0,
         temp_decay=0.985 if level == n_levels - 1 else 0.96,
-        mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
+        mode=mode, grid_dim=grid_dim, cell_cap=cell_cap, engine=engine)
+    return get_engine(engine).tune(sched)

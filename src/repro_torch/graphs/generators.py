@@ -229,6 +229,16 @@ def with_degree_one_fringe(edges: np.ndarray, n: int, frac: float = 0.2,
     return _dedup(np.concatenate([edges, extra], axis=0), n + k), n + k
 
 
+def from_cli(name: str, args) -> tuple[np.ndarray, int, tuple]:
+    """Resolve a generator by name with CLI-style float args (integral
+    floats become ints): returns (edges, n, resolved_args)."""
+    gen = globals()[name]
+    gargs = tuple(int(a) if float(a).is_integer() else float(a)
+                  for a in args)
+    edges, n = gen(*gargs)
+    return edges, n, gargs
+
+
 # Named suite approximating the paper's benchmark families --------------------
 
 def regulargraphs_suite(small: bool = False):

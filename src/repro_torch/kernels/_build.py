@@ -27,6 +27,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent
@@ -159,15 +160,16 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def f32(x) -> float:
     """A float32-rounded Python float (kernel scalars are float32)."""
-    return float(torch.tensor(float(x), dtype=torch.float32))
+    return float(np.float32(x))
 
 
 @functools.lru_cache(maxsize=64)
 def force_consts(C, L, min_dist) -> tuple[float, float]:
     """``(C·L·L, md·md)`` rounded as float32 arithmetic rounds them — the
     two constants of the force law that every kernel and plain version
-    shares. Cached: every force call of a level passes the same three
-    numbers, and the wrappers' host work stays off the launch path."""
-    c, l, md = (torch.tensor(float(v), dtype=torch.float32)
-                for v in (C, L, min_dist))
+    shares. numpy float32 scalars round each product as a float32 tensor
+    would, at a fraction of a tensor's host cost: the stress engine passes
+    a new C on every iteration. Cached: every force call of a gila level
+    passes the same three numbers."""
+    c, l, md = np.float32(C), np.float32(L), np.float32(min_dist)
     return float(c * l * l), float(md * md)

@@ -7,8 +7,11 @@
 //   f_v = Σ_k C·L²·w_u · (p_v − p_u) / (|p_v − p_u|² + md²),
 //   u = nbr_idx[v, k], w_u = mass_u·vmask_u, over slots with nbr_mask set;
 //
-// a slot whose index lies outside [0, n) adds 0, and a row outside vmask
-// gets 0.
+// a slot's index u is resolved as the JAX package's gather from the
+// (n+1)-row padded tables resolves it: a negative u gets n+1 added, then u
+// is clamped to [0, n]. Row n is the zero sentinel (the slot adds 0); row 0
+// is a real vertex, so an index below -(n+1) reads vertex 0. A row outside
+// vmask gets 0.
 //
 // Bound on the H100: the yardstick is device-memory bytes (per slot a 4 B
 // index and a 1 B mask, per valid slot a gathered position, mass and mask
@@ -35,8 +38,9 @@
 //        indices of empty groups and of rows outside vmask are never read;
 //      * waits for the pack (griddepcontrol.wait), then issues all its
 //        gathers before any arithmetic: one float4 per valid slot, valid
-//        meaning mask byte set, index in [0, n) and row in vmask; an
-//        invalid slot's load is predicated off and it adds weight 0. A
+//        meaning mask byte set, index resolving to a row below n and row in
+//        vmask; an invalid slot's load is predicated off and it adds
+//        weight 0. A
 //        group that is empty in every lane of the warp (one __ballot_sync)
 //        skips its gathers and its arithmetic: k-hop lists fill from slot
 //        0, so their tails are such stretches;
@@ -153,10 +157,12 @@ neighbor_kernel(const float2* __restrict__ pos,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int s = slot_of(u[j], i);
+        // JAX's gather: wrap a negative index once, then clamp; s + n + 1
+        // cannot overflow for s < 0
+        const int r = s < 0 ? max(s + n + 1, 0) : s;
         t[j][i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if ((any >> j & 1u) && ((m[j] >> (8 * i)) & 0xffu) != 0u &&
-            (unsigned)s < (unsigned)n)
-          t[j][i] = __ldca(packed + s);
+        if ((any >> j & 1u) && ((m[j] >> (8 * i)) & 0xffu) != 0u && r < n)
+          t[j][i] = __ldca(packed + r);
       }
     }
     // the reference's order of operations: inv = (C·L²·w)·(1/d²), then

@@ -30,7 +30,13 @@ def neighbor_split(K: int) -> tuple[int, int]:
 def neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask, C, L, min_dist
                        ) -> torch.Tensor:
     """pos f32[n, 2]; mass f32[n]; nbr_idx int32[n, K] (sentinel n);
-    nbr_mask bool[n, K]; vmask bool[n] → forces f32[n, 2]."""
+    nbr_mask bool[n, K]; vmask bool[n] → forces f32[n, 2].
+
+    Any int32 index is taken, as the JAX package's gather from the (n+1)-row
+    padded tables takes it (``ref.resolve_slots``): a negative index gets
+    n+1 added, then the index is clamped to [0, n]. A masked-in slot that
+    resolves to row n (the sentinel, an index ≥ n, or −1) adds 0; one below
+    −(n+1) reads vertex 0."""
     cl2, md2 = _build.force_consts(C, L, min_dist)
     if pos.device.type == "cpu":
         return neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask, vmask,

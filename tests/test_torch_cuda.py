@@ -108,13 +108,13 @@ def test_nbody_kernel_matches_plain(cuda, n, mask):
 
 
 def _lists(n, K, kind, seed, dev):
-    """(nbr_idx, nbr_mask) of n rows of K slots, sentinel n, and the same
-    lists with every slot the kernel must ignore masked off (what the plain
-    version can take): "random" masks ~75% of the slots anywhere, "prefix"
-    fills each row from slot 0 to a random length (0 to K) as the k-hop
-    lists do, "holes" masks a third of a prefix's slots in its middle, and
-    "bad" adds masked-in slots that hold the sentinel, an index past it, or
-    a negative one."""
+    """(nbr_idx, nbr_mask) of n rows of K slots, sentinel n: "random" masks
+    ~75% of the slots anywhere, "prefix" fills each row from slot 0 to a
+    random length (0 to K) as the k-hop lists do, "holes" masks a third of a
+    prefix's slots in its middle, and "bad" adds masked-in slots that hold
+    the sentinel, an index past it, −1, −n, −(n+1) or one below it (read as
+    JAX's gather reads them: a negative index gets n+1 added, then the
+    index is clamped to [0, n])."""
     rng = np.random.default_rng(seed)
     nbr = rng.integers(0, n, size=(n, K))
     if kind == "random":
@@ -128,13 +128,12 @@ def _lists(n, K, kind, seed, dev):
     nbr = np.where(nmask, nbr, n)
     if kind == "bad":
         bad = nmask & (rng.random((n, K)) < 0.1)
-        nbr = np.where(bad, rng.choice([n, n + 3, 2 ** 31 - 1, -1, -n], (n, K)),
-                       nbr)
-    ok = nmask & (nbr >= 0) & (nbr < n)
+        odd = rng.choice([n, n + 3, 2 ** 31 - 1, -1, -2, -n, -(n + 1),
+                          -(n + 2), -2 ** 31], (n, K))
+        nbr = np.where(bad, odd, nbr)
     as_t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)
                                           ).to(dev)
-    return (as_t(nbr, np.int32), as_t(nmask, bool),
-            as_t(np.where(ok, nbr, n), np.int32), as_t(ok, bool))
+    return as_t(nbr, np.int32), as_t(nmask, bool)
 
 
 @pytest.mark.parametrize("n,K,lists", [
@@ -146,20 +145,26 @@ def _lists(n, K, kind, seed, dev):
     (2062, 192, "prefix"),    # and its level-3 lists
     (3000, 256, "prefix"),
     (4096, 192, "holes"),     # masked slots inside a row
-    (1500, 128, "bad"),       # sentinel, out-of-range and negative indices
+    (1500, 128, "bad"),       # out-of-range and negative indices, masked
+    (2062, 256, "bad"),       # in: the vector path, 1 and 2 groups a lane
     (500, 37, "bad"),         # K % 4 ≠ 0: the scalar path, with a tail
 ])
 def test_neighbor_kernel_matches_plain(cuda, n, K, lists):
     pos, mass, vmask = _vertices(n, K, cuda, scale=5.0)
-    nbr, nmask, nbr_ok, nmask_ok = _lists(n, K, lists, n, cuda)
+    vmask[0] = True           # row 0, which indices below −(n+1) read
+    nbr, nmask = _lists(n, K, lists, n, cuda)
     out = _twice("neighbor_force", lambda: neighbor_repulsion(
         pos, mass, nbr, nmask, vmask, C, L, MD))
     cl2, md2 = _build.force_consts(C, L, MD)
-    _close(out, neighbor_repulsion_ref(pos, mass, nbr_ok, nmask_ok, vmask,
+    _close(out, neighbor_repulsion_ref(pos, mass, nbr, nmask, vmask,
                                        cl2, md2))
     assert (out[~vmask] == 0).all()
     # the lists hold neighbors outside vmask too
-    assert (~vmask[nbr_ok.clamp(max=n - 1).long()] & nmask_ok).any()
+    ok = nmask & (nbr >= 0) & (nbr < n)
+    assert (~vmask[nbr.clamp(0, n - 1).long()] & ok).any()
+    if lists == "bad":
+        assert (nmask & (nbr < -(n + 1))).any()
+        assert (nmask & (nbr >= n)).any()
 
 
 def _skewed(n, seed, dev):
@@ -260,7 +265,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)
     # lists that are views 4 bytes (1 byte) past a 16-byte (4-byte)
     # boundary take the scalar path: the same bits as the vector path
-    nbr, nmask, _, _ = _lists(300, 64, "prefix", 1, cuda)
+    nbr, nmask = _lists(300, 64, "prefix", 1, cuda)
     flat = torch.zeros(300 * 64 + 1, dtype=torch.int32, device=cuda)
     flat[1:] = nbr.reshape(-1)
     flat_m = torch.zeros(300 * 64 + 1, dtype=torch.bool, device=cuda)

@@ -85,6 +85,29 @@ def test_neighbor_plain_matches_jax(n, K):
         _close(port, out * vmask[:, None])
 
 
+@pytest.mark.parametrize("n,K", [(200, 32), (389, 37)])
+def test_neighbor_plain_matches_jax_on_out_of_range_slots(n, K):
+    """Masked-in slots holding the sentinel n, indices past it, −1, −n, and
+    indices below −(n+1): the port resolves each as JAX's gather from the
+    (n+1)-row tables does (a negative index gets n+1 added, then clamp to
+    [0, n]), so row 0 is read for the last kind."""
+    pos, mass, vmask = _vertices(n, K, scale=5.0)
+    vmask[0] = True                       # row 0 must carry weight
+    rng = np.random.default_rng(n + 1)
+    nbr = rng.integers(0, n, size=(n, K))
+    nmask = rng.random((n, K)) > 0.25
+    bad = nmask & (rng.random((n, K)) < 0.3)
+    odd = rng.choice([n, n + 1, n + 3, 2 ** 31 - 1, -1, -2, -n, -(n + 1),
+                      -(n + 2), -3 * n, -2 ** 31], (n, K))
+    nbr = np.where(bad, odd, nbr).astype(np.int32)
+    assert (nbr[nmask] < -(n + 1)).any()
+    port = neighbor_repulsion(_t(pos), _t(mass), _t(nbr), _t(nmask),
+                              _t(vmask), C, L, MD).numpy()
+    _close(port, jax_neighbor_ref(jnp.asarray(pos), jnp.asarray(mass),
+                                  jnp.asarray(nbr), jnp.asarray(nmask),
+                                  jnp.asarray(vmask), C, L, MD))
+
+
 @pytest.mark.parametrize("K", [1, 32, 37, 40, 64, 128, 192, 256])
 def test_neighbor_split_covers_a_row_in_one_pass(K):
     """The wrapper's (rows a warp, groups a lane) for the schedule's caps and
