@@ -32,19 +32,36 @@ of them passed):
      nbody, the MUFU ceiling (one reciprocal a pair at 16 a clock per SM),
      which the ``{"kernels": [...]}`` line leaves out;
   4. the main path, ``repro_torch.core.multigila_layout`` with the default
-     ``LayoutConfig()``, on delaunay(1_000_000) on the card: every position
-     finite and every kernel launched; level sizes, modes, phase seconds and
-     launch counts are printed; then one more run under torch.profiler:
-     device time by kernel and the device's busy share of the wall, with
-     the force kernels' arguments recorded for phase 3b (``PathInputs``);
-     b. the stress path: ``multigila_layout`` with
+     ``LayoutConfig()``, on delaunay(1_000_000) on the card, its refinement
+     through the step cache (``core/bucketing.py``: one captured CUDA graph
+     of one iteration per shape bucket, replayed once an iteration): a cold
+     run (cache cleared), then a warm one, then the eager loop beside them
+     (``EagerRefine`` patches ``bucketing.refine_level`` to the engine's
+     Python loop for the length of a run). Every position finite, every
+     kernel launched, the launches (replays included) and the levels and
+     modes of all three equal, NELD of the cached runs within NELD_DELTA
+     of the eager run's; wall, phase seconds (``compile``: warm-up and
+     capture of cold entries), the cache's entries/hits/misses and the
+     allocator's peak are printed for each. Then, under torch.profiler, the
+     warm cached run and the eager run (device busy and idle share), the
+     latter with the force kernels' arguments recorded for phase 3b
+     (``PathInputs``). Then, level by level, the host seconds of the k-hop
+     build and the iterations' wall and device span through the cache and
+     eagerly (``refine_breakdown``, 4f); last, at the largest level of each
+     mode, k = 10 iterations replayed from the cached entry against the
+     eager loop (4e): the median of its distances (mean per-vertex |Δpos|)
+     from EAGER_RUNS eager runs within twice the median distance between
+     two of them over the same k iterations, or its bits equal to an eager
+     run's (``index_add_``'s atomics change the bits from run to run);
+     b. the stress path: the same cold / warm / eager runs, profiles,
+        refine breakdown and replay check with
         ``LayoutConfig(engine="stress")`` and per-edge weights drawn from a
-        seed, on the same graph: finite positions, wall, phase seconds,
-        level sizes and modes, every force kernel launched (as often as in
-        phase 4: the schedule is the gila path's), and a profiled run;
+        seed, on the same graph: its levels, modes and launches equal phase
+        4's (the schedule is the gila path's);
      c. the ``flat`` driver on the same graph (one grid level of 300
-        iterations): wall and NELD beside phase 4's. ``centralized`` is not
-        run at this size (exact all-pairs over 10^6 vertices);
+        iterations), cached and eager: wall and NELD beside phase 4's.
+        ``centralized`` is not run at this size (exact all-pairs over 10^6
+        vertices);
      d. the weighted hierarchy of the same graph built on the card and on
         the CPU: level sizes and every array, ``ewt`` included, equal bit
         for bit, and the CPU build's seconds;
@@ -66,17 +83,23 @@ of them passed):
      a. the flash-attention kernel against its plain version at the path's
         two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, 16 heads
         over 8 KV heads, hd 128, causal; k/v = cache[:, :2048] of a
-        2088-row cache: the wgmma route) and decode (Sq 1 against
-        cache[:, :2080], rotating over 3 caches that together exceed the
-        L2: the split-KV route) — timed as device time per call (CUDA-graph
+        2088-row cache: the wgmma route) and decode (Sq 1 against the
+        whole 2088-row cache with ``kv_len`` an int32 on the device, as
+        ``decode_step`` calls it, checked at kv_len 2049, 2065 and 2080 and
+        timed at 2080, rotating over 3 caches that together exceed the L2:
+        the split-KV route) — timed as device time per call (CUDA-graph
         replay) and eagerly (host work included), beside
         ``scaled_dot_product_attention`` timed the same ways as a
         yardstick, with the bound max(bytes / 3.35 TB/s, flops / 989
         TFLOP/s bf16);
      b. ``repro_torch.models.prefill`` of a 4 × 2048-token prompt, then 32
-        greedy ``decode_step``s: prefill seconds, decode tokens/s, flash
-        launches in each (24 per prefill, 24 per step), every logit finite;
-        then each once more under torch.profiler (device busy share);
+        greedy steps of the captured decode (``models.compile_decode``: one
+        CUDA graph of a step, ``pos`` and ``kv_len`` on the device; a cold
+        sequence that captures, then a warm one that is timed) beside 32
+        eager ``decode_step``s: the same greedy tokens, prefill seconds,
+        decode ms a step and tokens/s of both, flash launches (24 per
+        prefill, 24 per step, replays included), every logit finite; then
+        prefill and each decode under torch.profiler (device busy share);
      c. a 2-layer model at full width, the same weights on the card and on
         the CPU (plain attention there): prefill's last-token logits and the
         first decode step's agree within LOGIT_TOL;
@@ -119,11 +142,23 @@ NELD_DELTA, CRE_DELTA = 0.05, 0.15
 # by up to 9 on delaunay(5000) when the init moves by one ulp)
 FLAT_EARLY_TOL = 0.05
 WEIGHT_LO, WEIGHT_HI = 0.5, 2.0       # per-edge weights, uniform from seed 0
+# eager runs whose pairwise distances give the spread a replay is held to.
+# A distance is the mean over the valid vertices of max(|Δx|, |Δy|): the
+# largest |Δpos| of two runs after k chaotic iterations is set by a few
+# vertices whose grid cell flips, so it takes a few discrete values (0.037,
+# 0.05, 0.10, 0.135 at level 0 of delaunay(1M) on an H100) and varies ~7×
+# from pair to pair at level 2. The medians of the two samples are compared: the
+# replay's distances from the 6 runs, and the 15 distances between them
+EAGER_RUNS = 6
 N_MAIN = 1_000_000
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
 DECODE_CACHES = 3                     # 3 × 34 MB of k/v: more than the L2
+# decode's device kv_len at phase 6a's checks: the path's first and last
+# (2049 reads one key of the last split chunk) and one between; it is timed
+# at the last
+DECODE_KV_LENS = (LM_PROMPT + 1, LM_PROMPT + 17, LM_PROMPT + LM_NEW)
 # attention kernel vs plain, bf16: both round the output to bf16 (one ulp is
 # 2^-8 relative) and round p to bf16 at different points. The atol follows
 # each shape's output size: a prefill row near the diagonal averages few
@@ -241,10 +276,14 @@ _REPS = dict(nbody=(50, 10, 200, 5), neighbor_force=(50, 10, 200, 5),
 
 def _force_case(name, args, consts):
     """(kernel call, plain call, bytes, pairs) of one force kernel on the
-    tensors ``args`` with the force constants ``consts`` = (C, L,
-    min_dist). Bytes count each input once and the output once, for the
-    valid vertices where padding rows are skipped; pairs are those that this
-    input needs."""
+    tensors ``args`` with the force constants ``consts``: host (C, L,
+    min_dist), staged on the card, or a tensor (C·L², md²) on the card as
+    the path passes them. A tree whose wrappers take host ``C, L,
+    min_dist`` (``--compare``) is handed those. Bytes count each input once
+    and the output once, for the valid vertices where padding rows are
+    skipped; pairs are those that this input needs."""
+    import inspect
+
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.grid_force import ops as grid_ops
@@ -254,19 +293,29 @@ def _force_case(name, args, consts):
     from repro_torch.kernels.neighbor_force.ops import neighbor_repulsion
     from repro_torch.kernels.neighbor_force.ref import neighbor_repulsion_ref
 
-    C, L, md = consts
-    cl2, md2 = _build.force_consts(C, L, md)
+    if isinstance(consts, tuple):             # host (C, L, min_dist)
+        host = consts
+        consts = torch.tensor(_build.force_consts(*host),
+                              dtype=torch.float32, device=args[0].device)
+    else:                                     # a path record's
+        host = None
+    cl2, md2 = consts[0], consts[1]
+    if "C" in inspect.signature(nbody_repulsion).parameters:
+        kw = dict(zip(("C", "L", "min_dist"),
+                      host or _host_consts(consts)))
+    else:
+        kw = dict(consts=consts)
     if name == "nbody":
         pos, mass, vmask = args
         nv = int(vmask.sum())
-        f = lambda: nbody_repulsion(pos, mass, vmask, C, L, md)
+        f = lambda: nbody_repulsion(pos, mass, vmask, **kw)
         p = lambda: nbody_repulsion_ref(pos, mass, vmask, cl2, md2)
         nbytes, pairs = 21 * pos.shape[0], nv * nv
     elif name == "neighbor_force":
         pos, mass, nbr_idx, nbr_mask, vmask = args
         K = int(nbr_idx.shape[1])
         f = lambda: neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask,
-                                       C, L, md)
+                                       **kw)
         p = lambda: neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask,
                                            vmask, cl2, md2)
         nv = int(vmask.sum())        # rows outside vmask skip their list
@@ -276,14 +325,14 @@ def _force_case(name, args, consts):
         pos, mass, vmask, bucket, table = args
         nc, cap = bucket.shape[0] - 1, bucket.shape[1]
         f = lambda: grid_ops.grid_near(pos, mass, vmask, bucket, table,
-                                       C, L, md)
+                                       **kw)
         p = lambda: grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2)
         nbytes = 21 * pos.shape[0] + 4 * (nc + 1) * cap + 36 * (nc + 1)
         pairs = _near_pairs(bucket, table, pos.shape[0])
     elif name == "grid_far":
         pos, cell_xyw, vmask = args
         nc = cell_xyw.shape[0]
-        f = lambda: grid_ops.grid_far(pos, cell_xyw, C, L, md)
+        f = lambda: grid_ops.grid_far(pos, cell_xyw, **kw)
         p = lambda: grid_far_ref(pos, cell_xyw, cl2, md2)
         nv = int(vmask.sum())        # padding rows' output is discarded
         nbytes, pairs = 16 * nv + 12 * nc, nv * nc
@@ -388,8 +437,11 @@ class PathInputs:
     arguments of the first call at each level and counts the calls at each.
     A level is its graph's vmask tensor, held here so its id stays its own;
     grid_far takes no vmask and is filed under the level of the grid_near
-    call that ``grid_repulsion`` makes just before it. The package itself
-    has no hook: the names are put back on exit."""
+    call that ``grid_repulsion`` makes just before it. The constants are the
+    call's last argument (C·L², md²), a view of the level's schedule row,
+    copied. Record during a run whose refine is the eager loop
+    (``EagerRefine``): a replayed step makes no Python call. The package
+    itself has no hook: the names are put back on exit."""
 
     def __init__(self):
         self.cases = {}     # (name, id(vmask)) → (args, consts, vmask)
@@ -399,13 +451,13 @@ class PathInputs:
     def _wrap(self, module, attr, name, record):
         real = getattr(module, attr)
 
-        def wrapper(*args, **kw):
+        def wrapper(*args):
             vmask, keep = record(*args)
             key = (name, id(vmask))
             if key not in self.cases:
-                self.cases[key] = (keep(), tuple(args[-3:]), vmask)
+                self.cases[key] = (keep(), args[-1].clone(), vmask)
             self.calls[key] = self.calls.get(key, 0) + 1
-            return real(*args, **kw)
+            return real(*args)
         self._saved.append((module, attr, real))
         setattr(module, attr, wrapper)
 
@@ -527,10 +579,13 @@ def _graph_ms(fn, calls: int, replays: int = 10) -> float:
 
 def attention_checks(device) -> list:
     """Phase 6a: the flash-attention kernel against its plain version at the
-    LM path's prefill and decode shapes, on the path's own layout: k/v are
-    slices ``cache[:, :kv_len]`` of LM_CACHE-row caches; decode rotates over
-    DECODE_CACHES caches (more than the 50 MB L2 together), as the 24 layers
-    each read their own. SDPA is timed on the same tensors as a yardstick.
+    LM path's prefill and decode shapes, on the path's own layout and
+    calls: prefill reads slices ``cache[:, :2048]`` of LM_CACHE-row caches;
+    decode reads the whole cache with ``kv_len`` on the device (checked at
+    each of DECODE_KV_LENS against the plain version on ``cache[:, :kv_len]``,
+    timed at the last) and rotates over DECODE_CACHES caches (more than the
+    50 MB L2 together), as the 24 layers each read their own. SDPA is timed
+    on the keys the kernel reads as a yardstick.
     ``ms`` and ``library_ms`` are device time per call (CUDA-graph replay);
     ``eager_ms`` and ``library_eager_ms`` time the same calls made back to
     back from Python, host work included."""
@@ -556,16 +611,21 @@ def attention_checks(device) -> list:
 
     kv_len = LM_PROMPT + LM_NEW
     cases = [
-        # name, q, caches, keys, causal, (query, key) pairs, calls per graph
+        # name, q, caches, keys read, kv_lens checked (None: the cache is
+        # sliced on the host), causal, (query, key) pairs, calls per graph
         ("flash_attention_prefill", draw(B, LM_PROMPT, H, hd), caches(1),
-         LM_PROMPT, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 10),
+         LM_PROMPT, None, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 10),
         ("flash_attention_decode", draw(B, 1, H, hd), caches(DECODE_CACHES),
-         kv_len, True, kv_len, 3 * DECODE_CACHES),
+         kv_len, DECODE_KV_LENS, True, kv_len, 3 * DECODE_CACHES),
     ]
     rows = []
-    for name, q, cs, Sk, causal, pairs, calls in cases:
+    for name, q, cs, Sk, checked, causal, pairs, calls in cases:
         Sq = q.shape[1]
-        kvs = [(ck[:, :Sk], cv[:, :Sk]) for ck, cv in cs]
+        # prefill hands the kernel cache[:, :Sk]; decode hands it the whole
+        # cache with kv_len on the device, as decode_step does
+        kvs = cs if checked else [(ck[:, :Sk], cv[:, :Sk]) for ck, cv in cs]
+        extra = {} if checked is None else dict(
+            kv_len=torch.tensor(Sk, dtype=torch.int32, device=device))
         turn = [0]
 
         def rotate():
@@ -574,25 +634,35 @@ def attention_checks(device) -> list:
 
         def f():
             k, v = rotate()
-            return flash_attention(q, k, v, causal=causal)
+            return flash_attention(q, k, v, causal=causal, **extra)
 
-        # SDPA's is_causal aligns top-left: the same mask when Sq == Sk, and
-        # none is needed for one query row at the end of the cache
+        # SDPA on the keys the kernel reads, cache[:, :Sk]. Its is_causal
+        # aligns top-left: the same mask when Sq == Sk, and none is needed
+        # for one query row at the end of the keys
         def lib():
             k, v = rotate()
             return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q.transpose(1, 2), k[:, :Sk].transpose(1, 2),
+                v[:, :Sk].transpose(1, 2),
                 is_causal=causal and Sq == Sk, enable_gqa=True)
 
         k, v = kvs[0]
-        out = flash_attention(q, k, v, causal=causal)
-        ref = flash_attention_ref(q, k.contiguous(), v.contiguous(),
-                                  causal=causal)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(), **ATTN_TOL[name])
-        err = float((out.float() - ref.float()).abs().max())
+        err = 0.0
+        for n in checked or (Sk,):
+            # the kernel at kv_len n against the plain version on the keys
+            # it may read, cache[:, :n]
+            kw = {} if checked is None else dict(
+                kv_len=torch.tensor(n, dtype=torch.int32, device=device))
+            out = flash_attention(q, k, v, causal=causal, **kw)
+            ref = flash_attention_ref(q, k[:, :n].contiguous(),
+                                      v[:, :n].contiguous(), causal=causal)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **ATTN_TOL[name])
+            err = max(err, float((out.float() - ref.float()).abs().max()))
         lib_out = F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), k[:, :Sk].transpose(1, 2),
+            v[:, :Sk].transpose(1, 2),
             is_causal=causal and Sq == Sk, enable_gqa=True)
         lib_err = float((lib_out.transpose(1, 2).float()
                          - ref.float()).abs().max())
@@ -601,8 +671,9 @@ def attention_checks(device) -> list:
         eager_ms = _per_call_ms(f, 20 * calls)
         library_eager_ms = _per_call_ms(lib, 20 * calls)
         plain_ms = _per_call_ms(
-            lambda: flash_attention_ref(q, k, v, causal=causal), 3,
+            lambda: flash_attention_ref(q, k, v, causal=causal, **extra), 3,
             batches=3)
+        k, v = k[:, :Sk], v[:, :Sk]           # the keys this call reads
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * B * H * hd * pairs
         bound, by = _bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
@@ -615,7 +686,10 @@ def attention_checks(device) -> list:
                    flash_route=flash_ops.route(Sq, H, KV))
         print(json.dumps(dict(row, shape=dict(
             B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd, causal=causal,
-            k_batch_stride=k.stride(0), caches=len(kvs)),
+            k_batch_stride=k.stride(0), caches=len(kvs),
+            capacity=cs[0][0].shape[1],
+            kv_len_on_device=checked is not None,
+            kv_lens_checked=list(checked or (Sk,))),
             eager_ms=eager_ms, library_eager_ms=library_eager_ms,
             library_max_abs_err=lib_err, tol=ATTN_TOL[name])), flush=True)
         rows.append(row)
@@ -624,8 +698,11 @@ def attention_checks(device) -> list:
 
 def lm_main_path(device) -> dict:
     """Phase 6b: internlm2-1.8b, full width and depth, bf16: prefill of a
-    LM_BATCH × LM_PROMPT prompt and LM_NEW greedy decode steps, with the
-    flash launches of each counted from 0."""
+    LM_BATCH × LM_PROMPT prompt, then LM_NEW greedy steps of the captured
+    decode (``compile_decode``) beside LM_NEW eager ``decode_step``s, with
+    the flash launches of each counted from 0. The captured decode runs
+    twice: the first sequence captures the step (its first step runs
+    eagerly), the second is timed; all three give the same tokens."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -652,9 +729,10 @@ def lm_main_path(device) -> dict:
     prefill_s = time.perf_counter() - t0
     prefill_launches = dict(_build.launches)
     finite = torch.isfinite(logits).all()
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    out = [tok]
+    first = logits[:, -1].argmax(-1, keepdim=True)
 
+    # the eager step, LM_NEW times
+    tok, out = first, [first]
     _build.launches.clear()
     t0 = time.perf_counter()
     for i in range(LM_NEW):
@@ -663,44 +741,81 @@ def lm_main_path(device) -> dict:
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out.append(tok)
     torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    decode_launches = dict(_build.launches)
+    eager_s = time.perf_counter() - t0
+    eager_launches = dict(_build.launches)
+    eager_seq = torch.cat(out, dim=1).cpu()
+    if logits.shape != (LM_BATCH, 1, cfg.vocab_padded):
+        raise AssertionError(f"LM path: logits shape {tuple(logits.shape)}")
+    del state
+
+    # the captured step: a cold sequence (capture), then a warm one (timed)
+    dec = M.compile_decode(model, LM_BATCH, LM_CACHE)
+    seqs, secs, launches = [], [], []
+    for _ in range(2):
+        _, state, pos = M.prefill(model, {"tokens": tokens}, LM_CACHE)
+        dec.start(state, first, pos)
+        del state
+        out = [first]
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        for i in range(LM_NEW):
+            finite &= torch.isfinite(dec.step()).all()
+            out.append(dec.token.clone())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(dict(_build.launches))
+        seqs.append(torch.cat(out, dim=1).cpu())
+    graph_s = secs[1]
 
     if not bool(finite):
         raise AssertionError("LM path: non-finite logits")
-    if logits.shape != (LM_BATCH, 1, cfg.vocab_padded):
-        raise AssertionError(f"LM path: logits shape {tuple(logits.shape)}")
+    for s in seqs:
+        if not torch.equal(s, eager_seq):
+            raise AssertionError(f"captured decode tokens {s[:, :12]}, "
+                                 f"eager {eager_seq[:, :12]}")
     want = {"flash_attention": cfg.n_layers}
     if prefill_launches != want:
         raise AssertionError(f"prefill launches {prefill_launches}, "
                              f"expected {want}")
     want = {"flash_attention": cfg.n_layers * LM_NEW}
-    if decode_launches != want:
-        raise AssertionError(f"decode launches {decode_launches}, "
-                             f"expected {want}")
-    seq = torch.cat(out, dim=1).cpu()
+    for got in (eager_launches, *launches):
+        if got != want:
+            raise AssertionError(f"decode launches {got}, expected {want}")
 
     prof_prefill = profile_run(
         lambda: M.prefill(model, {"tokens": tokens}, LM_CACHE))
     st = M.prefill(model, {"tokens": tokens}, LM_CACHE)[1]
-    t = seq[:, :1].to(device)
+    t = eager_seq[:, :1].to(device)
 
     def decode8():
         for i in range(8):
             M.decode_step(model, t, st, LM_PROMPT + i)
+
+    def graph8():
+        for _ in range(8):
+            dec.step()
     prof_decode = profile_run(decode8)
+    prof_graph = profile_run(graph8)
     return dict(
         lm=LM_ARCH, params=cfg.param_count(), dtype="bfloat16",
         batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
         cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
         prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
-        decode_s=decode_s, decode_tok_per_s=LM_BATCH * LM_NEW / decode_s,
-        decode_ms_per_step=decode_s / LM_NEW * 1e3,
+        decode_s=graph_s, decode_tok_per_s=LM_BATCH * LM_NEW / graph_s,
+        decode_ms_per_step=graph_s / LM_NEW * 1e3,
+        decode_capture_sequence_s=secs[0],
+        eager_decode_s=eager_s,
+        eager_decode_ms_per_step=eager_s / LM_NEW * 1e3,
+        eager_decode_tok_per_s=LM_BATCH * LM_NEW / eager_s,
+        tokens_equal_eager=True,
         launches=dict(prefill=prefill_launches["flash_attention"],
-                      decode=decode_launches["flash_attention"]),
-        logits_finite=True, sample=seq[0, :12].tolist(),
+                      decode=launches[1]["flash_attention"],
+                      eager_decode=eager_launches["flash_attention"]),
+        logits_finite=True, sample=eager_seq[0, :12].tolist(),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode)
+        profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode,
+        profile_graph_decode_8_steps=prof_graph)
 
 
 def lm_card_vs_cpu(device) -> dict:
@@ -791,56 +906,276 @@ def _path_run(label, fn, n, want_kernels) -> tuple:
     return pos, stats, wall, launches
 
 
-def stress_path(edges, n, weights, gila) -> dict:
-    """Phase 4b: the weighted stress layout of the main path's graph, timed
-    once and profiled once. ``gila`` is phase 4's (stats, launches): the
-    stress engine keeps the gila path's schedule, so its levels, modes and
-    launches must be the same."""
-    from repro_torch.core import LayoutConfig, multigila_layout
-    from repro_torch.graphs.metrics import neld
-    from repro_torch.kernels import _build
+class EagerRefine:
+    """For the length of one run, ``core.bucketing.refine_level`` — what the
+    multilevel driver calls for each level — is the engine's eager loop
+    (``RefinementEngine.refine``) on the same padded level: the layout
+    without the step cache, every other step the same. The package itself
+    has no knob for it: the name is put back on exit."""
 
-    cfg = LayoutConfig(engine="stress")
-    run = lambda: multigila_layout(edges, n, cfg, weights=weights)
-    pos, stats, wall, launches = _path_run("stress path", run, n,
-                                           _FORCE_KERNELS)
-    g_stats, g_launches = gila
-    if (stats.level_sizes, stats.level_modes, launches) != (
-            g_stats.level_sizes, g_stats.level_modes, g_launches):
-        raise AssertionError(f"stress path: levels {stats.level_sizes} "
-                             f"{stats.level_modes}, launches {launches}; "
-                             f"the gila path's {g_launches}")
-    _build.launches.clear()
-    prof = profile_run(run)
-    if dict(_build.launches) != launches:
-        raise AssertionError(f"profiled stress run launched "
-                             f"{dict(_build.launches)}, the timed {launches}")
-    res = dict(stress_path=f"delaunay({n}), weights U({WEIGHT_LO}, "
-                           f"{WEIGHT_HI}) from seed 0",
-               wall_s=wall, phase_s=stats.phase_seconds,
-               level_sizes=stats.level_sizes, level_modes=stats.level_modes,
-               launches=launches, launches_equal_gila_path=True,
-               positions_finite=True, neld=neld(pos, edges), profile=prof)
+    def __enter__(self):
+        from repro_torch.core import bucketing
+        from repro_torch.core.engine import get_engine
+        from repro_torch.utils.device import synchronize
+        self._real = bucketing.refine_level
+
+        def eager(g, pos0, sched, *, ideal_len, rep_const, min_dist=1e-3,
+                  seed=0, phases=None):
+            t0 = time.perf_counter()
+            eng = get_engine(sched.engine)
+            nbr_idx, nbr_mask = eng.init_state(g, sched, seed)
+            pos = eng.refine(g, pos0, nbr_idx, nbr_mask, sched,
+                             ideal_len=ideal_len, rep_const=rep_const,
+                             min_dist=min_dist)
+            if phases is not None:
+                synchronize(g.device)
+                phases["refine"] += time.perf_counter() - t0
+            return pos
+        bucketing.refine_level = eager
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import bucketing
+        bucketing.refine_level = self._real
+        return False
+
+
+def cached_and_eager(label, run, n, edges, want_kernels) -> dict:
+    """A layout path through the step cache, cold (cache cleared) and warm,
+    and through ``EagerRefine``: each with the launch counts set to 0 just
+    before it and read just after, and the allocator's peak. Fails unless
+    the three agree in levels, modes and launches and the cached runs' NELD
+    is within NELD_DELTA of the eager run's."""
+    import torch
+    from repro_torch.core import bucketing
+    from repro_torch.graphs.metrics import neld
+
+    out = {}
+    bucketing.STEP_CACHE.clear()
+    torch.cuda.empty_cache()
+    for name in ("cold", "warm", "eager"):
+        torch.cuda.reset_peak_memory_stats()
+        if name == "eager":
+            with EagerRefine():
+                pos, stats, wall, launches = _path_run(
+                    f"{label} ({name})", run, n, want_kernels)
+        else:
+            pos, stats, wall, launches = _path_run(
+                f"{label} ({name})", run, n, want_kernels)
+        out[name] = dict(wall_s=wall, phase_s=dict(stats.phase_seconds),
+                         level_sizes=stats.level_sizes,
+                         level_modes=stats.level_modes, launches=launches,
+                         neld=neld(pos, edges),
+                         cache=bucketing.cache_stats(),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         resident_gb=torch.cuda.memory_allocated() / 1e9)
+        print(json.dumps({f"{label}_{name}": out[name]}), flush=True)
+    for name in ("cold", "warm"):
+        a, e = out[name], out["eager"]
+        for key in ("level_sizes", "level_modes", "launches"):
+            if a[key] != e[key]:
+                raise AssertionError(f"{label} {name}: {key} {a[key]}, "
+                                     f"eager {e[key]}")
+        if abs(a["neld"] - e["neld"]) > NELD_DELTA:
+            raise AssertionError(f"{label} {name}: NELD {a['neld']}, eager "
+                                 f"{e['neld']}")
+    if out["warm"]["cache"]["misses"] != out["cold"]["cache"]["misses"]:
+        raise AssertionError(f"{label}: the warm run missed the cache: "
+                             f"{out['cold']['cache']} → {out['warm']['cache']}")
+    return out
+
+
+def refine_breakdown(graphs, scheds, engine) -> dict:
+    """Phase 4f (gila; stress in 4b): where the refine phase's time goes,
+    level by level, on the main path's hierarchy with its schedules from
+    drawn positions: the host seconds of ``init_state`` (the k-hop lists),
+    then the level's iterations through its warm cache entry and through
+    the eager loop, each as wall seconds (ended by a synchronize) and as the
+    device's span between CUDA events around it, which includes any gap
+    while the device waits for the host."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import bucketing, gila
+    from repro_torch.core.engine import get_engine
+
+    eng = get_engine(engine)
+    levels = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return time.perf_counter() - t0, a.elapsed_time(b) / 1e3
+
+    for i, (g, sched) in enumerate(zip(graphs, scheds)):
+        sched = dataclasses.replace(sched, engine=engine)
+        pos0 = gila.random_init(g, max(g.n, 4) ** 0.5, seed=3000 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbr_idx, nbr_mask = eng.init_state(g, sched, seed=i)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _, prog, fresh, args = bucketing.cached_refine(
+            g, pos0, sched, nbr_idx, nbr_mask, ideal_len=1.0, rep_const=1.0)
+        if fresh:
+            prog.run(*args)
+        cached = timed(lambda: prog.run(*args))
+        eager = timed(lambda: eng.refine(g, pos0, nbr_idx, nbr_mask, sched,
+                                         ideal_len=1.0, rep_const=1.0))
+        levels.append(dict(level=i, n=g.n, n_pad=g.n_pad, mode=sched.mode,
+                           iters=sched.iters, init_state_s=init_s,
+                           cached_wall_s=cached[0], cached_span_s=cached[1],
+                           eager_wall_s=eager[0], eager_span_s=eager[1]))
+    res = dict(refine_breakdown=engine, levels=levels, total={
+        k: sum(lv[k] for lv in levels)
+        for k in ("init_state_s", "cached_wall_s", "cached_span_s",
+                  "eager_wall_s", "eager_span_s")})
     print(json.dumps(res), flush=True)
     return res
 
 
+def replay_vs_eager(graphs, scheds, engine, k=10) -> list:
+    """Phase 4e (gila; stress in 4b): at the largest level of each mode of
+    the main path's hierarchy, k iterations replayed from the cached entry
+    against EAGER_RUNS runs of the engine's eager loop, from one drawn pos0:
+    the median of the replay's distances (mean over the valid vertices of
+    max(|Δx|, |Δy|)) from the eager runs within twice the median distance
+    between two eager runs (the spread of ``index_add_``'s atomics) — or
+    the replay's bits equal to an eager run's, which settles a level where
+    eager runs mostly repeat each other (a median spread of 0) — and the
+    replays' launches equal to the eager loop's. The largest |Δpos| of each
+    sample is printed beside them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import bucketing, gila
+    from repro_torch.core.engine import get_engine
+    from repro_torch.kernels import _build
+
+    eng = get_engine(engine)
+    rows = []
+    for mode in ("grid", "neighbor", "exact"):
+        i = max((i for i, s in enumerate(scheds) if s.mode == mode),
+                key=lambda i: graphs[i].n)
+        g = graphs[i]
+        sched = dataclasses.replace(scheds[i], engine=engine, iters=k)
+        pos0 = gila.random_init(g, max(g.n, 4) ** 0.5, seed=2000 + i)
+        nbr_idx, nbr_mask = eng.init_state(g, sched, seed=i)
+        _build.launches.clear()
+        eager = [eng.refine(g, pos0, nbr_idx, nbr_mask, sched, ideal_len=1.0,
+                            rep_const=1.0) for _ in range(EAGER_RUNS)]
+        torch.cuda.synchronize()
+        eager_launches = {name: c // EAGER_RUNS
+                          for name, c in _build.launches.items()}
+        _, prog, fresh, args = bucketing.cached_refine(
+            g, pos0, sched, nbr_idx, nbr_mask, ideal_len=1.0, rep_const=1.0)
+        if fresh:
+            prog.run(*args)                      # warm-up and capture
+        _build.launches.clear()
+        out = prog.run(*args)
+        torch.cuda.synchronize()
+        dist = lambda a, b: float((a - b).abs().amax(dim=1)[g.vmask].mean())
+        pairs = [dist(a, b) for j, a in enumerate(eager) for b in eager[j + 1:]]
+        replay = [dist(out, e) for e in eager]
+        row = dict(replay_vs_eager=engine, mode=mode, level=i, n=g.n,
+                   n_pad=g.n_pad, iterations=k, fresh_entry=fresh,
+                   replay_distance=float(np.median(replay)),
+                   eager_spread=float(np.median(pairs)),
+                   replay_distances=replay, eager_distances=pairs,
+                   max_abs_diff=max(float((out - e).abs().max())
+                                    for e in eager),
+                   eager_max_abs_diff=max(float((a - b).abs().max())
+                                          for j, a in enumerate(eager)
+                                          for b in eager[j + 1:]),
+                   launches=dict(_build.launches),
+                   eager_launches=eager_launches)
+        row["repeats_an_eager_run"] = min(replay) == 0.0
+        print(json.dumps(row), flush=True)
+        if (row["replay_distance"] > 2 * row["eager_spread"]
+                and not row["repeats_an_eager_run"]):
+            raise AssertionError(f"replay vs eager: {row}")
+        if row["launches"] != eager_launches:
+            raise AssertionError(f"replay launches: {row}")
+        rows.append(row)
+    return rows
+
+
+def stress_path(edges, n, weights, gila, graphs, scheds) -> dict:
+    """Phase 4b: the weighted stress layout of the main path's graph —
+    cached cold and warm, and eager (``cached_and_eager``), the warm cached
+    and the eager run profiled, the refine breakdown and the replay check
+    at the main path's levels. ``gila`` is phase 4's (stats, launches): the stress engine
+    keeps the gila path's schedule, so its levels, modes and launches must
+    be the same."""
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.kernels import _build
+
+    cfg = LayoutConfig(engine="stress")
+    run = lambda: multigila_layout(edges, n, cfg, weights=weights)
+    runs = cached_and_eager("stress_path", run, n, edges, _FORCE_KERNELS)
+    g_stats, g_launches = gila
+    warm = runs["warm"]
+    if (warm["level_sizes"], warm["level_modes"], warm["launches"]) != (
+            g_stats.level_sizes, g_stats.level_modes, g_launches):
+        raise AssertionError(f"stress path: levels {warm['level_sizes']} "
+                             f"{warm['level_modes']}, launches "
+                             f"{warm['launches']}; the gila path's "
+                             f"{g_launches}")
+    profiles = {}
+    for name in ("warm", "eager"):
+        _build.launches.clear()
+        if name == "eager":
+            with EagerRefine():
+                profiles[name] = profile_run(run)
+        else:
+            profiles[name] = profile_run(run)
+        if dict(_build.launches) != warm["launches"]:
+            raise AssertionError(f"profiled stress run ({name}) launched "
+                                 f"{dict(_build.launches)}, the timed "
+                                 f"{warm['launches']}")
+    res = dict(stress_path=f"delaunay({n}), weights U({WEIGHT_LO}, "
+                           f"{WEIGHT_HI}) from seed 0",
+               wall_s=warm["wall_s"], launches=warm["launches"],
+               launches_equal_gila_path=True, positions_finite=True,
+               profile_cached_warm=profiles["warm"],
+               profile_eager=profiles["eager"],
+               refine_breakdown=refine_breakdown(graphs, scheds, "stress"),
+               replay_vs_eager=replay_vs_eager(graphs, scheds, "stress"))
+    print(json.dumps(res), flush=True)
+    return dict(res, runs=runs)
+
+
 def flat_path(edges, n, main_wall, main_neld) -> dict:
-    """Phase 4c: the single-level ``flat`` driver on the main path's graph
-    beside phase 4's multilevel numbers (the paper's multilevel-versus-
-    single-level comparison)."""
+    """Phase 4c: the single-level ``flat`` driver on the main path's graph,
+    through the step cache and eagerly, beside phase 4's multilevel
+    numbers (the paper's multilevel-versus-single-level comparison)."""
     from repro_torch.core import LayoutConfig, multigila_layout
     from repro_torch.graphs.metrics import neld
 
-    pos, stats, wall, launches = _path_run(
-        "flat path", lambda: multigila_layout(
-            edges, n, LayoutConfig(driver="flat")), n,
-        ("grid_near", "grid_far"))
-    res = dict(flat_path=f"delaunay({n})", wall_s=wall,
-               phase_s=stats.phase_seconds, level_sizes=stats.level_sizes,
-               level_modes=stats.level_modes, launches=launches,
-               neld=neld(pos, edges), multigila_wall_s=main_wall,
+    res = dict(flat_path=f"delaunay({n})", multigila_wall_s=main_wall,
                multigila_neld=main_neld)
+    run = lambda: multigila_layout(edges, n, LayoutConfig(driver="flat"))
+    for name in ("cached", "eager"):
+        if name == "eager":
+            with EagerRefine():
+                pos, stats, wall, launches = _path_run(
+                    "flat path (eager)", run, n, ("grid_near", "grid_far"))
+        else:
+            pos, stats, wall, launches = _path_run(
+                "flat path", run, n, ("grid_near", "grid_far"))
+        res[name] = dict(wall_s=wall, phase_s=stats.phase_seconds,
+                         level_sizes=stats.level_sizes,
+                         level_modes=stats.level_modes, launches=launches,
+                         neld=neld(pos, edges))
+    if res["cached"]["launches"] != res["eager"]["launches"]:
+        raise AssertionError(f"flat path: launches {res}")
     print(json.dumps(res), flush=True)
     print(f"centralized: not run at delaunay({n}): exact all-pairs repulsion "
           f"over all {n} vertices at each of the finest level's 50 "
@@ -992,13 +1327,26 @@ def cli_on_card() -> dict:
     return res
 
 
+def _host_consts(consts) -> tuple:
+    """The default LayoutConfig's (C, L, min_dist), for a tree whose
+    wrappers take host numbers, in place of a path record's device
+    constants (C·L², md²) — checked to be the same numbers."""
+    from repro_torch.kernels import _build
+    host = (1.0, 1.0, 1e-3)
+    if _build.force_consts(*host) != tuple(consts.tolist()):
+        raise AssertionError(f"path constants {consts.tolist()} are not "
+                             f"those of {host}")
+    return host
+
+
 def compare_trees(srcs, cases) -> None:
     """``--compare SRC``: the force kernels of the ``repro_torch`` under
     each of ``srcs`` on ``cases`` — (name, args, consts, shape, launches)
     each — then this checkout's again, so that the trees meet the same
     tensors on one card, the other trees between two turns of this one.
     Another tree's modules take the place of this one's for the length of
-    its turn; its build lands in its own ``kernels/build/``."""
+    its turn; its build lands in its own ``kernels/build/``. A tree is
+    handed its wrappers' form of the constants (``_force_case``)."""
     mine = {k: m for k, m in sys.modules.items()
             if k == "repro_torch" or k.startswith("repro_torch.")}
     for tree in (*srcs, None):
@@ -1048,8 +1396,8 @@ def main(argv=None) -> int:
             return 2
     sys.path.insert(0, str(src))
     import numpy as np
-    from repro_torch.core import (LayoutConfig, build_hierarchy,
-                                  multigila_layout)
+    from repro_torch.core import (LayoutConfig, LayoutStats,
+                                  build_hierarchy, multigila_layout)
     from repro_torch.core.multilevel import _schedule
     from repro_torch.core.pruning import prune_degree_one
     from repro_torch.graphs import generators
@@ -1095,29 +1443,43 @@ def main(argv=None) -> int:
     # 3c. the same inputs at the stress engine's entropy constants
     stress_constant_checks(random_cases)
     random_cases = [c + (0,) for c in random_cases]
-    del graphs, g0
+    del g0
     torch.cuda.empty_cache()
 
-    # 4. the main path
-    pos, stats, wall, launches = _path_run(
-        "main path", lambda: multigila_layout(edges, n, cfg), n,
-        [r["name"] for r in rows])
+    # 4. the main path: through the step cache, cold and warm, and eagerly
+    run = lambda: multigila_layout(edges, n, cfg)
+    runs = cached_and_eager("main_path", run, n, edges,
+                            [r["name"] for r in rows])
+    launches, main_neld = runs["cold"]["launches"], runs["cold"]["neld"]
+    wall = runs["warm"]["wall_s"]
     for r in rows:
         r["launches"] = launches[r["name"]]
-    main_neld = neld(pos, edges)
+    stats = LayoutStats(levels=len(runs["cold"]["level_sizes"]),
+                        level_sizes=runs["cold"]["level_sizes"],
+                        level_modes=runs["cold"]["level_modes"])
     print(json.dumps(dict(
         main_path=f"delaunay({N_MAIN})", n=n, m=int(len(edges)),
-        wall_s=wall, phase_s=stats.phase_seconds,
         level_sizes=stats.level_sizes, level_modes=stats.level_modes,
         launches=launches, neld=main_neld)), flush=True)
-    # the profiled run, its force calls' first arguments at each level kept
+    # profiled: the warm cached run, then the eager run with its force
+    # calls' first arguments at each level kept
     _build.launches.clear()
-    with PathInputs() as rec:
-        prof = profile_run(lambda: multigila_layout(edges, n, cfg))
+    prof = profile_run(run)
     if dict(_build.launches) != launches:
         raise AssertionError(f"profiled run launched {dict(_build.launches)}"
                              f", the timed run {launches}")
-    print(json.dumps(dict(profile=prof)), flush=True)
+    _build.launches.clear()
+    with EagerRefine(), PathInputs() as rec:
+        prof_eager = profile_run(run)
+    if dict(_build.launches) != launches:
+        raise AssertionError(f"profiled eager run launched "
+                             f"{dict(_build.launches)}, the timed {launches}")
+    print(json.dumps(dict(profile=prof, profile_eager=prof_eager)),
+          flush=True)
+    # 4f. the refine phase level by level; 4e. replayed iterations against
+    # the eager loop at each mode's level
+    refine_breakdown(graphs, scheds, "gila")
+    replay_vs_eager(graphs, scheds, "gila")
 
     # 3b. the force kernels on the path's own inputs, one row a shape with
     # that shape's launches
@@ -1139,10 +1501,12 @@ def main(argv=None) -> int:
     # hierarchy card vs CPU, all on the main path's graph
     weights = np.random.default_rng(0).uniform(
         WEIGHT_LO, WEIGHT_HI, len(edges)).astype(np.float32)
-    stress = stress_path(edges, n, weights, (stats, launches))
+    stress = stress_path(edges, n, weights, (stats, launches), graphs,
+                         scheds)
     for r in rows:              # a random row carries the kernel's totals
         if r["inputs"] == "random":
             r["stress_launches"] = stress["launches"][r["name"]]
+    del graphs
     flat_path(edges, n, wall, main_neld)
     weighted_hierarchy_card_vs_cpu(edges, n, weights)
     torch.cuda.empty_cache()

@@ -11,9 +11,13 @@ repulsion, picked per level by the schedule:
   * ``grid``     — grid-bucketed approximate repulsion, rebinned every
                    iteration (kernels/grid_force).
 
-Attraction is a plain ``index_add_`` over the half-edges. The iteration loop
-runs in Python; the per-iteration temperatures are float32 on the host, as
-the JAX package anneals them in float32.
+Attraction is a plain ``index_add_`` over the half-edges. One iteration
+(``layout_iteration``) reads every number it needs from device tensors: a
+schedule row (temperature, C·L², md²) computed in float32 on the host, as
+the JAX package anneals in float32, and the ideal length L. So one captured
+CUDA graph of it serves every level, temperature and constant of its shape
+bucket (``core/bucketing.py``); ``engine.RefinementEngine.refine`` runs
+the same iteration in a Python loop.
 """
 from __future__ import annotations
 
@@ -128,9 +132,10 @@ def build_level_neighbors(g: PaddedGraph, k: int, cap: int, seed: int = 0
 
 # -- forces -------------------------------------------------------------------
 
-def _attraction(g: PaddedGraph, pos, L: float, md2: float):
+def _attraction(g: PaddedGraph, pos, L, md2):
     """FR attraction along edges with per-edge desired length ℓ_e = w_e·L:
-    f_a(d) = d² / ℓ_e, directed toward the neighbor."""
+    f_a(d) = d² / ℓ_e, directed toward the neighbor. ``L`` and ``md2`` are
+    float32 0-d tensors (or host floats: float32 arithmetic either way)."""
     n_pad = g.n_pad
     pos_src = edge_gather(g, pos)
     pos_dst = pos[torch.clamp(g.dst_l, 0, n_pad - 1)]
@@ -143,40 +148,34 @@ def _attraction(g: PaddedGraph, pos, L: float, md2: float):
     return segment_sum(vec, g.dst_l, n_pad + 1)[:n_pad]
 
 
-def repulsion(g: PaddedGraph, pos, nbr_idx, nbr_mask, *, C: float,
-              L: float, min_dist: float, mode: str, grid_dim: int = 0,
-              cell_cap: int = 0) -> torch.Tensor:
+def repulsion(g: PaddedGraph, pos, nbr_idx, nbr_mask, consts, *, mode: str,
+              grid_dim: int = 0, cell_cap: int = 0) -> torch.Tensor:
     """FR repulsion per vertex through the kernel of ``mode`` — GiLA's
-    repulsion and the stress engine's entropy term (which passes α·C)."""
+    repulsion and the stress engine's entropy term (whose C is α·C).
+    ``consts`` = float32[2] (C·L², md²) on pos's device: the kernels read it
+    from device memory."""
     if mode == "exact":
-        return nbody_repulsion(pos, g.mass, g.vmask, C, L, min_dist)
+        return nbody_repulsion(pos, g.mass, g.vmask, consts)
     if mode == "grid":
-        return grid_repulsion(pos, g.mass, g.vmask, C, L, min_dist,
+        return grid_repulsion(pos, g.mass, g.vmask, consts,
                               grid_dim=grid_dim, cell_cap=cell_cap)
     if mode == "neighbor":
         return neighbor_repulsion(pos, g.mass, nbr_idx, nbr_mask, g.vmask,
-                                  C, L, min_dist)
+                                  consts)
     raise ValueError(f"unknown repulsion mode {mode!r}")
 
 
-def gila_forces(g: PaddedGraph, pos, nbr_idx, nbr_mask, *, C: float,
-                L: float, min_dist: float, mode: str = "neighbor",
-                grid_dim: int = 0, cell_cap: int = 0) -> torch.Tensor:
-    """Total force per vertex: repulsion of ``mode`` plus attraction."""
-    rep = repulsion(g, pos, nbr_idx, nbr_mask, C=C, L=L, min_dist=min_dist,
-                    mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
-    _, md2 = _build.force_consts(C, L, min_dist)
-    return rep + _attraction(g, pos, _build.f32(L), md2)
-
-
-def layout_iteration(g: PaddedGraph, pos, nbr_idx, nbr_mask, temp: float, *,
-                     C: float, L: float, min_dist: float, mode: str,
-                     grid_dim: int = 0, cell_cap: int = 0) -> torch.Tensor:
-    """One GiLA iteration: forces + cooling displacement clamp."""
-    f = gila_forces(g, pos, nbr_idx, nbr_mask, C=C, L=L, min_dist=min_dist,
-                    mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
+def layout_iteration(g: PaddedGraph, pos, nbr_idx, nbr_mask, row, L, *,
+                     mode: str, grid_dim: int = 0, cell_cap: int = 0
+                     ) -> torch.Tensor:
+    """One GiLA iteration on tensors alone: forces + cooling displacement
+    clamp. ``row`` = float32[3] (temperature, C·L², md²), one row of
+    ``schedule_rows``; ``L`` the ideal length, a float32 0-d tensor."""
+    rep = repulsion(g, pos, nbr_idx, nbr_mask, row[1:], mode=mode,
+                    grid_dim=grid_dim, cell_cap=cell_cap)
+    f = rep + _attraction(g, pos, L, row[2])
     norm = torch.sqrt((f * f).sum(dim=1) + 1e-12)
-    step = torch.clamp(norm, max=temp)
+    step = torch.clamp(norm, max=row[0])
     pos = pos + f / norm[:, None] * step[:, None]
     return torch.where(g.vmask[:, None], pos, 0.0)
 
@@ -192,19 +191,15 @@ def temperatures(temp0: float, temp_decay: float, iters: int) -> list[float]:
     return out
 
 
-def gila_layout(g: PaddedGraph, pos0, nbr_idx, nbr_mask, *, mode: str,
-                iters: int, temp0: float, temp_decay: float,
-                ideal_len: float, rep_const: float, min_dist: float = 1e-3,
-                grid_dim: int = 0, cell_cap: int = 0) -> torch.Tensor:
-    """Run ``iters`` force iterations with a cooling displacement clamp.
-    In ``mode="grid"`` vertices are rebinned on every iteration."""
-    pos = pos0
-    for temp in temperatures(temp0, temp_decay, iters):
-        pos = layout_iteration(g, pos, nbr_idx, nbr_mask, temp,
-                               C=rep_const, L=ideal_len, min_dist=min_dist,
-                               mode=mode, grid_dim=grid_dim,
-                               cell_cap=cell_cap)
-    return pos
+def schedule_rows(temps, rep_consts, ideal_len: float, min_dist: float
+                  ) -> np.ndarray:
+    """float32[iters, 3]: per iteration (temperature, C·L², md²) for the
+    temperatures ``temps`` and repulsion constants ``rep_consts`` (one
+    each), rounded on the host as ``_build.force_consts`` rounds them."""
+    rows = np.empty((len(temps), 3), np.float32)
+    for i, (t, c) in enumerate(zip(temps, rep_consts, strict=True)):
+        rows[i] = (t, *_build.force_consts(c, ideal_len, min_dist))
+    return rows
 
 
 def random_init(g: PaddedGraph, scale: float, seed: int = 0) -> torch.Tensor:

@@ -17,7 +17,11 @@ The JAX package's fourth, ``multigila_dist`` (the sharded superstep), is
 not ported yet. Orthogonally, ``LayoutConfig.engine`` selects the
 per-level refinement engine (core/engine.py): ``"gila"`` —
 Fruchterman–Reingold forces — or ``"stress"`` — maxent-stress
-(core/stress.py).
+(core/stress.py). ``LayoutConfig.bucketing`` (default True) pads every level
+to pow2 shape buckets and refines it through the process-wide cache of
+captured step programs (core/bucketing.py); False is the JAX package's
+exact-shape path: round-256 padding, host compaction
+(``solar_merger.next_level_host``) and the engine's eager ``refine`` loop.
 """
 from __future__ import annotations
 
@@ -57,6 +61,9 @@ class LayoutConfig:
     driver: str = "multigila"        # multigila | centralized | flat
     engine: str = "gila"             # per-level refinement engine: gila | stress
     prune: bool = True               # degree-one pruning (never under flat)
+    # pow2 shape buckets + the cache of captured refine steps
+    # (core/bucketing.py); False = exact shapes and the eager refine loop
+    bucketing: bool = True
 
     def __post_init__(self):
         # the JAX package's shim: ``engine=`` used to name the DRIVER; a
@@ -72,12 +79,15 @@ class LayoutStats:
     levels: int = 0
     level_sizes: tuple = ()          # ((n, m), ...) finest first
     level_modes: tuple = ()          # repulsion mode per level, finest first
-    #: wall-clock seconds per phase (coarsen / place / refine), each phase
-    #: ended by a device synchronize; coarsen includes the input graph's
-    #: build, which is all it holds under the flat driver
+    #: wall-clock seconds per phase (coarsen / place / refine / compile),
+    #: each phase ended by a device synchronize; coarsen includes the input
+    #: graph's build, which is all it holds under the flat driver; compile
+    #: is the warm-up iteration and CUDA-graph capture of each cold step
+    #: program (core/bucketing.py), 0 on the CPU and when every bucket is
+    #: warm
     phase_seconds: dict = dataclasses.field(
         default_factory=lambda: {"coarsen": 0.0, "place": 0.0,
-                                 "refine": 0.0})
+                                 "refine": 0.0, "compile": 0.0})
 
 
 def connected_components(edges: np.ndarray, n: int) -> np.ndarray:
@@ -125,7 +135,7 @@ def build_hierarchy(g0: PaddedGraph, cfg: LayoutConfig, *, device=None
         if g.n <= cfg.coarsest_threshold:
             break
         st = run_merger(g, p_sun=cfg.p_sun, seed=cfg.seed + 101 * lvl)
-        cg, info = next_level(g, st)
+        cg, info = next_level(g, st, bucket=cfg.bucketing)
         if cg.n >= g.n * cfg.min_shrink or cg.n < 1:
             break
         graphs.append(cg)
@@ -158,6 +168,21 @@ def _schedule(cfg: LayoutConfig, i: int, L: int, g: PaddedGraph
                          engine=cfg.engine)
 
 
+def _refine(stats: LayoutStats, device, cfg: LayoutConfig, g: PaddedGraph,
+            pos, sched: LevelSchedule, seed: int) -> torch.Tensor:
+    """One level's refinement: the cached step program of its bucket, or,
+    with ``cfg.bucketing`` off, the engine's eager loop."""
+    if cfg.bucketing:
+        return bucketing.refine_level(g, pos, sched, ideal_len=cfg.ideal_len,
+                                      rep_const=cfg.rep_const, seed=seed,
+                                      phases=stats.phase_seconds)
+    with _phase(stats, device, "refine"):
+        eng = get_engine(sched.engine)
+        nbr_idx, nbr_mask = eng.init_state(g, sched, seed)
+        return eng.refine(g, pos, nbr_idx, nbr_mask, sched,
+                          ideal_len=cfg.ideal_len, rep_const=cfg.rep_const)
+
+
 def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
                      weights=None, device=None):
     """Multi-GiLA on one connected component → (pos float32[n, 2] on the
@@ -188,7 +213,7 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
 
     with _phase(stats, dev, "coarsen"):
         g0 = build_graph(work_edges, work_n, mass=mass, ewt=work_ewt,
-                         bucket=True, device=dev)
+                         bucket=cfg.bucketing, device=dev)
         graphs, infos = ([g0], []) if cfg.driver == "flat" else \
             build_hierarchy(g0, cfg, device=dev)
     L = len(graphs)
@@ -202,10 +227,8 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
     with _phase(stats, dev, "refine"):
         pos = gila.random_init(gk, cfg.ideal_len * max(gk.n, 4) ** 0.5,
                                cfg.seed)
-        pos = bucketing.refine_level(
-            gk, pos, scheds[-1], ideal_len=cfg.ideal_len,
-            rep_const=cfg.rep_const,
-            seed=cfg.seed if cfg.driver == "flat" else cfg.seed + L)
+    pos = _refine(stats, dev, cfg, gk, pos, scheds[-1],
+                  cfg.seed if cfg.driver == "flat" else cfg.seed + L)
 
     # walk the hierarchy back down: place, then refine
     for i in range(L - 2, -1, -1):
@@ -213,11 +236,7 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
         with _phase(stats, dev, "place"):
             pos = solar_placer(gi, infos[i], pos, seed=cfg.seed + i,
                                scatter_scale=0.5 * cfg.ideal_len)
-        with _phase(stats, dev, "refine"):
-            pos = bucketing.refine_level(gi, pos, scheds[i],
-                                         ideal_len=cfg.ideal_len,
-                                         rep_const=cfg.rep_const,
-                                         seed=cfg.seed + i)
+        pos = _refine(stats, dev, cfg, gi, pos, scheds[i], cfg.seed + i)
 
     pos = pos.cpu().numpy().astype(np.float32)[: g0.n]
     return (reinsert(pr, pos, work_edges) if pr is not None else pos), stats

@@ -28,8 +28,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.graphs.graph import (PaddedGraph, bucket_pad, edge_gather,
-                                      push_max, segment_max, segment_sum)
+from repro_torch.graphs.graph import (PaddedGraph, bucket_pad, build_graph,
+                                      edge_gather, push_max, segment_max,
+                                      segment_sum)
 from repro_torch.utils import prng
 
 UNASSIGNED, SUN, PLANET, MOON = 0, 1, 2, 3
@@ -172,7 +173,7 @@ class LevelInfo:
     sun_pos_index: torch.Tensor  # int32[n_coarse] — level-i vertex of each coarse vertex
 
 
-def next_level(g: PaddedGraph, st: MergerState
+def next_level(g: PaddedGraph, st: MergerState, *, bucket: bool = True
                ) -> tuple[PaddedGraph, LevelInfo]:
     """Collapse solar systems into suns → coarse graph, on g's device.
 
@@ -180,9 +181,13 @@ def next_level(g: PaddedGraph, st: MergerState
     = suns in ascending id order (mass = Σ member masses); coarse edges =
     unique inter-system links in ascending (lo, hi) order, weighted by the
     longest member path (depth_u + 1 + depth_v) times the edge weight, max
-    over the parallel links. The host reads only the two true sizes, to pick
-    the coarse graph's pow2 padding buckets (``bucket_pad``).
+    over the parallel links. ``bucket=True`` (the bucketed driver) compacts
+    on the device and reads only the two true sizes, to pick the coarse
+    graph's pow2 padding buckets (``bucket_pad``); ``bucket=False`` is the
+    exact-shape path, ``next_level_host``.
     """
+    if not bucket:
+        return next_level_host(g, st)
     n_pad, dev = g.n_pad, g.device
     vmask = g.vmask
     is_sun = (st.state == SUN) & vmask
@@ -238,4 +243,69 @@ def next_level(g: PaddedGraph, st: MergerState
         sun_of=sun_safe.to(torch.int32),
         depth=st.depth.clone(), state=st.state.clone(),
         sun_pos_index=torch.nonzero(is_sun).flatten().to(torch.int32))
+    return cg, info
+
+
+def next_level_host(g: PaddedGraph, st: MergerState
+                    ) -> tuple[PaddedGraph, LevelInfo]:
+    """Host-numpy compaction with round-256 padding: the JAX package's
+    ``next_level_host(bucket=False)``, line for line, its result moved to
+    g's device."""
+    n_pad, dev = g.n_pad, g.device
+    state = st.state.cpu().numpy()
+    sun = st.sun.cpu().numpy()
+    depth = st.depth.cpu().numpy()
+    vmask = g.vmask.cpu().numpy()
+    mass = g.mass.cpu().numpy()
+    src = g.src.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    emask = g.emask.cpu().numpy()
+    ewt = g.ewt.cpu().numpy()
+
+    is_sun = (state == SUN) & vmask
+    n_coarse = int(is_sun.sum())
+    new_idx = np.full((n_pad + 1,), -1, dtype=np.int64)
+    new_idx[:n_pad][is_sun] = np.arange(n_coarse)
+    sun_safe = np.where(vmask, sun, n_pad)
+    parent_coarse = new_idx[sun_safe]  # -1 for padding rows
+
+    # coarse masses
+    cmass = np.zeros((n_coarse,), dtype=np.float32)
+    member = vmask & (parent_coarse >= 0)
+    np.add.at(cmass, parent_coarse[member], mass[member])
+
+    # inter-system links → coarse edges
+    e_ok = emask & (src < n_pad) & (dst < n_pad)
+    su, sv = sun_safe[src[e_ok]], sun_safe[dst[e_ok]]
+    cross = su != sv
+    cu = new_idx[su[cross]]
+    cv = new_idx[sv[cross]]
+    plen = (depth[src[e_ok]][cross] + 1
+            + depth[dst[e_ok]][cross]).astype(np.float32)
+    plen = plen * ewt[e_ok][cross]  # compound desired lengths across levels
+    lo = np.minimum(cu, cv)
+    hi = np.maximum(cu, cv)
+    key = lo * (n_coarse + 1) + hi
+    order = np.argsort(key)
+    key_s, lo_s, hi_s, w_s = key[order], lo[order], hi[order], plen[order]
+    if key_s.size:
+        uniq_mask = np.concatenate([[True], key_s[1:] != key_s[:-1]])
+        seg_id = np.cumsum(uniq_mask) - 1
+        n_edges = int(seg_id[-1]) + 1
+        w_max = np.zeros((n_edges,), np.float32)
+        np.maximum.at(w_max, seg_id, w_s)
+        ce = np.stack([lo_s[uniq_mask], hi_s[uniq_mask]], axis=1)
+    else:
+        ce = np.zeros((0, 2), np.int64)
+        w_max = np.zeros((0,), np.float32)
+
+    sun_pos_index = np.nonzero(is_sun)[0].astype(np.int32)
+    cg = build_graph(ce, n_coarse, mass=cmass, ewt=w_max, bucket=False,
+                     device=dev)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    info = LevelInfo(
+        parent_coarse=t(parent_coarse[:n_pad].astype(np.int32)),
+        sun_of=t(sun_safe[:n_pad].astype(np.int32)),
+        depth=t(depth.astype(np.int32)), state=t(state.astype(np.int32)),
+        sun_pos_index=t(sun_pos_index))
     return cg, info

@@ -17,6 +17,7 @@ a CUDA tensor.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,18 +48,20 @@ build_log: dict[str, str] = {}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream: void*)
+# (the force kernels take their constants as a pointer to (C·L², md²), the
+# split-KV attention route an optional pointer to kv_len)
 _SIGNATURES = {
-    "nbody_repulsion_launch": [_P, _P, _P, _I, _F, _F, _P, _P],
-    "grid_far_launch": [_P, _I, _P, _I, _F, _F, _P, _P],
+    "nbody_repulsion_launch": [_P, _P, _P, _I, _P, _P, _P],
+    "grid_far_launch": [_P, _I, _P, _I, _P, _P, _P],
     "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _F, _F, _P, _P, _P],
-    "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P,
+                                  _P, _P, _P, _P],
+    "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                          _P, _P],
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _L, _L, _I, _P],
     "flash_attention_split_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _L, _L, _I, _I, _I, _P, _P, _P,
-                                     _P],
+                                     _P, _P],
 }
 
 
@@ -158,11 +161,6 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: not contiguous")
 
 
-def f32(x) -> float:
-    """A float32-rounded Python float (kernel scalars are float32)."""
-    return float(np.float32(x))
-
-
 @functools.lru_cache(maxsize=64)
 def force_consts(C, L, min_dist) -> tuple[float, float]:
     """``(C·L·L, md·md)`` rounded as float32 arithmetic rounds them — the
@@ -173,3 +171,26 @@ def force_consts(C, L, min_dist) -> tuple[float, float]:
     passes the same three numbers."""
     c, l, md = np.float32(C), np.float32(L), np.float32(min_dist)
     return float(c * l * l), float(md * md)
+
+
+def consts_tensor(C, L, min_dist, device) -> torch.Tensor:
+    """The force kernels' constants as every wrapper takes them: float32[2]
+    = (C·L², md²) on ``device``, rounded by ``force_consts``. The refine
+    step hands the kernels a row of its schedule buffer instead."""
+    return torch.tensor(force_consts(C, L, min_dist), dtype=torch.float32,
+                        device=device)
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA-graph capture: the wrappers called inside count their
+    launches as usual, but nothing runs then, so the counts are taken back
+    on exit and handed over (``Counter``) to be added once per replay."""
+    before = launches.copy()
+    made = collections.Counter()
+    try:
+        yield made
+    finally:
+        made.update(launches - before)
+        launches.clear()
+        launches.update(before)

@@ -48,7 +48,11 @@
 //    shared through shared memory), and writes its unnormalised float32 o
 //    with the chunk's max and sum to a scratch buffer. The last block of each
 //    (batch, KV head) to finish, found by an atomic ticket, merges the
-//    chunks by the log-sum-exp rule and writes bf16.
+//    chunks by the log-sum-exp rule and writes bf16. Given a kv_len pointer
+//    (an int32 on the device, as a captured decode step keeps it), the
+//    keys at or past *kv_len are masked and the causal mask is aligned at
+//    kv_len: the splits are planned from the cache's capacity Sk, and a
+//    block whose chunk starts at or past kv_len writes an empty partial.
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run
                    // time through cudaGetDriverEntryPoint, so no -lcuda
 #include <math.h>
@@ -541,9 +545,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, 3)   // 3 blocks an SM
 fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, int Sq, int Sk, int H, int KV,
                 long long k_bstride, long long v_bstride, float scale_log2,
-                int causal, float* __restrict__ part_o,
-                float* __restrict__ part_ml, int* __restrict__ tickets,
-                bf16* __restrict__ out) {
+                int causal, const int* __restrict__ kv_len,
+                float* __restrict__ part_o, float* __restrict__ part_ml,
+                int* __restrict__ tickets, bf16* __restrict__ out) {
   using namespace fa;
   constexpr int PROW = CHUNK + SPLIT_PAD; // shared row of p
   constexpr int KW = CHUNK / 4;           // keys per warp for S
@@ -565,12 +569,24 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
+  if (kv_len != nullptr) Sk = max(min(*kv_len, Sk), 0);
   const int c0 = split * CHUNK;
   const int c_end = min(c0 + CHUNK, Sk);
   const int shift = Sk - Sq;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t4 = lane % 4, mi = lane / 8;
 
+  float* po = part_o + (((long long)b * KV + kvh) * splits + split) * R * HD;
+  float* pml = part_ml + (((long long)b * KV + kvh) * splits + split) * R * 2;
+  if (c0 >= Sk) {
+    // no key of this chunk is visible: an empty partial (m = -inf, l = 0,
+    // o = 0), then on to the merge
+    for (int i = tid; i < R * HD; i += SPLIT_THREADS) po[i] = 0.f;
+    for (int r = tid; r < R; r += SPLIT_THREADS) {
+      pml[r * 2] = -INFINITY;
+      pml[r * 2 + 1] = 0.f;
+    }
+  } else {
   // q rows, and the chunk's keys and values (zeros past its end)
   for (int c = tid; c < MT * 16 * CH; c += SPLIT_THREADS) {
     const int row = c / CH, col = (c % CH) * 8;
@@ -593,8 +609,6 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait_all();
   __syncthreads();
 
-  float* po = part_o + (((long long)b * KV + kvh) * splits + split) * R * HD;
-  float* pml = part_ml + (((long long)b * KV + kvh) * splits + split) * R * 2;
   for (int mt = 0; mt < MT; ++mt) {
     // S for this warp's keys [kw0, kw0 + KW) of the chunk
     const int kw0 = warp * KW;
@@ -703,6 +717,7 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();                      // sP and red_* are reused
   }
+  }  // c0 < Sk
 
   // The last block of this (batch, KV head) to finish merges every chunk's
   // partial by the log-sum-exp rule, two columns of one row a thread: a
@@ -762,8 +777,9 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD, int CHUNK>
 int launch_split(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Sk, int H, int KV, long long k_bstride,
-                 long long v_bstride, int causal, int splits, float* part_o,
-                 float* part_ml, int* tickets, cudaStream_t stream) {
+                 long long v_bstride, int causal, const int* kv_len,
+                 int splits, float* part_o, float* part_ml, int* tickets,
+                 cudaStream_t stream) {
   static std::atomic<uint64_t> smem_done{0};
   cudaError_t e = allow_smem(fa_split_kernel<HD, CHUNK>,
                              split_smem_bytes<HD, CHUNK>(SPLIT_MAX_ROWS / 16),
@@ -777,7 +793,7 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
                                stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), Sq, Sk, H, KV, k_bstride, v_bstride,
-      LOG2E / sqrtf((float)HD), causal, part_o, part_ml, tickets,
+      LOG2E / sqrtf((float)HD), causal, kv_len, part_o, part_ml, tickets,
       static_cast<bf16*>(out));
   return (int)cudaGetLastError();
 }
@@ -805,16 +821,18 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
 // `chunk` keys, 64 or 128), float32 scratch (part_o holds
 // B·KV·splits·Sq·(H/KV)·hd values, part_ml twice B·KV·splits·Sq·(H/KV))
 // and B·KV int32 tickets, zero before the launch and left zero after it.
+// kv_len: null (all Sk keys), or an int32 on the device, read by each
+// block: keys at or past it are masked, the causal mask aligned at it.
 extern "C" int flash_attention_split_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int H, int KV, int hd, long long k_bstride, long long v_bstride,
-    int causal, int splits, int chunk, float* part_o, float* part_ml,
-    int* tickets, cudaStream_t stream) {
+    int causal, int splits, int chunk, const int* kv_len, float* part_o,
+    float* part_ml, int* tickets, cudaStream_t stream) {
 #define FA_SPLIT(HD, CHUNK)                                                  \
   if (hd == HD && chunk == CHUNK)                                            \
     return launch_split<HD, CHUNK>(q, k, v, out, B, Sq, Sk, H, KV, k_bstride, \
-                                   v_bstride, causal, splits, part_o,        \
-                                   part_ml, tickets, stream);
+                                   v_bstride, causal, kv_len, splits,        \
+                                   part_o, part_ml, tickets, stream);
   FA_SPLIT(64, 64)
   FA_SPLIT(64, 128)
   FA_SPLIT(128, 64)

@@ -14,9 +14,14 @@ On the card the shapes alone pick one of two routes (``route``):
   chunked prefill.
 
 Both read the grouped KV head of each query head in place (no ``repeat`` of
-k/v) and take the batch strides of k and v, so a decode step hands them
-``cache[:, :kv_len]`` without a copy. One wrapper call counts one launch of
-``flash_attention``, whichever route and however many device kernels it runs.
+k/v) and take the batch strides of k and v, so a caller may hand them
+``cache[:, :kv_len]`` without a copy. The split-KV route also takes
+``kv_len`` as an int32 tensor on the device (the JAX package's traced
+``_sdpa(kv_len=)``): it then reads the whole cache's capacity, plans its
+splits from it and masks the keys at or past ``kv_len`` on the device, so
+one captured decode step serves every position. One wrapper call counts one
+launch of ``flash_attention``, whichever route and however many device
+kernels it runs.
 """
 from __future__ import annotations
 
@@ -70,11 +75,15 @@ def _tickets_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Sq, H, hd]; k/v [B, Sk, KV, hd] → [B, Sq, H, hd] (ref.py has
-    the function: GQA, float32 softmax, bottom-right causal mask)."""
+    the function: GQA, float32 softmax, bottom-right causal mask). With
+    ``kv_len`` (an int32 0-d tensor on q's device, ≤ Sk) the keys at or
+    past it are masked and the causal mask is aligned at it, as if k/v were
+    ``[:, :kv_len]``; only the split-KV route takes it."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
@@ -102,15 +111,23 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     stream = _build.stream_of(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, hd, k.stride(0), v.stride(0), int(causal))
-    if route(Sq, H, KV) == "split_kv":
+    split = route(Sq, H, KV) == "split_kv"
+    if kv_len is not None:
+        if not split:
+            raise ValueError("flash_attention: a device kv_len is taken by "
+                             "the split-KV route only (Sq·H/KV ≤ "
+                             f"{SPLIT_ROWS}), not at Sq {Sq}")
+        _build.require(kv_len, "kv_len", torch.int32, (), dev)
+    if split:
         splits, chunk = split_plan(B, KV, Sk, _sm_count(dev.index))
         rows = B * KV * splits * Sq * (H // KV)
         part_o = torch.empty(rows * hd, dtype=torch.float32, device=dev)
         part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)
         tickets = _tickets_for(dev, stream, B * KV)
         err = lib.flash_attention_split_launch(
-            *args, splits, chunk, part_o.data_ptr(), part_ml.data_ptr(),
-            tickets.data_ptr(), stream)
+            *args, splits, chunk,
+            None if kv_len is None else kv_len.data_ptr(),
+            part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), stream)
     else:
         err = lib.flash_attention_wgmma_launch(*args, stream)
     _build.launches["flash_attention"] += 1

@@ -8,22 +8,29 @@ Pallas kernel's mask when Sq == Sk, and the model's ``q_offset``/``kv_len``
 mask on a cache sliced to ``kv_len = cache_pos + Sq``. A row that sees no
 key gives 0, not NaN. p is cast to v's dtype before the product with v,
 which is summed in float32 and rounded once to q's dtype, as the kernel
-does.
+does. ``kv_len`` (an int or a 0-d tensor, on any device) masks the keys at
+or past it and aligns the causal mask at it — the JAX package's
+``_sdpa(q_offset=kv_len − Sq, kv_len=kv_len)``, computed without reading
+the value on the host.
 """
 from __future__ import annotations
 
 import torch
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        kv_len=None) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (hd ** -0.5)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    end = Sk if kv_len is None else torch.as_tensor(kv_len).to(q.device)
+    if kv_len is not None:
+        s = s.masked_fill(kpos >= end, float("-inf"))
     if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
-        kpos = torch.arange(Sk, device=q.device)[None, :]
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (end - Sq)
         s = s.masked_fill(kpos > qpos, float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)   # fully masked rows
     p = torch.exp(s - m)

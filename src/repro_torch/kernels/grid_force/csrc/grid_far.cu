@@ -25,7 +25,9 @@
 // no special case arises, and one ulp of error is far inside the kernel's
 // tolerance against the plain version. Each target sums its sources in
 // order, so the result is deterministic run to run. Ragged edges of both
-// sets are masked (a missing source has weight 0 at the origin).
+// sets are masked (a missing source has weight 0 at the origin). C·L² and
+// md² are read from device memory (consts[0], consts[1]), so one captured
+// CUDA graph serves every value of them.
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,9 +46,10 @@ __device__ __forceinline__ float rcp_approx(float x) {
 // FAR_THREADS threads, each FAR_T targets; a tile of FAR_THREADS sources
 __global__ void __launch_bounds__(FAR_THREADS)
 grid_far_kernel(const float* __restrict__ pos, int n,
-                const float* __restrict__ cell_xyw, int nc, float cl2,
-                float md2, float* __restrict__ out) {
+                const float* __restrict__ cell_xyw, int nc,
+                const float* __restrict__ consts, float* __restrict__ out) {
   constexpr int T = FAR_T;
+  const float cl2 = __ldg(consts), md2 = __ldg(consts + 1);
   __shared__ float4 src[FAR_THREADS];
   // targets t0 + k·FAR_THREADS: a warp's loads and stores stay contiguous
   const int t0 = blockIdx.x * FAR_THREADS * T + threadIdx.x;
@@ -111,14 +114,15 @@ grid_far_kernel(const float* __restrict__ pos, int n,
 }  // namespace
 
 // pos f32[n, 2] and out f32[n, 2] (8-byte aligned: torch allocations are),
-// cell_xyw f32[nc, 3] = (x, y, mass) of each cell aggregate.
+// cell_xyw f32[nc, 3] = (x, y, mass) of each cell aggregate, consts f32[2]
+// = (C·L², md²).
 extern "C" int grid_far_launch(const float* pos, int n, const float* cell_xyw,
-                               int nc, float cl2, float md2, float* out,
+                               int nc, const float* consts, float* out,
                                cudaStream_t stream) {
   if (n > 0) {
     constexpr int per_block = FAR_THREADS * FAR_T;
     grid_far_kernel<<<(n + per_block - 1) / per_block, FAR_THREADS, 0,
-                      stream>>>(pos, n, cell_xyw, nc, cl2, md2, out);
+                      stream>>>(pos, n, cell_xyw, nc, consts, out);
   }
   return (int)cudaGetLastError();
 }

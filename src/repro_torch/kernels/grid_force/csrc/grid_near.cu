@@ -44,6 +44,8 @@
 //        with no atomics;
 //      * the weight over d² takes the approximate reciprocal (rcp.approx.ftz):
 //        d² ≥ md² > 0 and both are normal floats, so no special case arises.
+//   C·L² (pack) and md² (near) are read from device memory, consts[0] and
+//   consts[1], so one captured CUDA graph serves every value of them.
 //   The sources are read in place through L1, not staged in shared memory:
 //   a variant that copied each cell's 9 rows into shared memory (cp.async,
 //   compacted) measured slower on the H100 at both path grids, and needs no
@@ -66,8 +68,9 @@ __device__ __forceinline__ float rcp_approx(float x) {
 __global__ void __launch_bounds__(PACK_WARPS * 32)
 near_pack_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
                  const bool* __restrict__ vmask, const int* __restrict__ bucket,
-                 int n, int nc, int cap, float cl2, float4* __restrict__ packed,
-                 int* __restrict__ cnt, float2* __restrict__ f_near) {
+                 int n, int nc, int cap, const float* __restrict__ consts,
+                 float4* __restrict__ packed, int* __restrict__ cnt,
+                 float2* __restrict__ f_near) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
     f_near[i] = make_float2(0.f, 0.f);
@@ -75,6 +78,7 @@ near_pack_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
   const int lane = threadIdx.x % 32;
   if (c > nc) return;
   const int* row = bucket + (size_t)c * cap;
+  const float cl2 = __ldg(consts);
   int count = 0;
   for (int k = 0; k < cap; k += 32) {
     const int slot = k + lane;
@@ -168,8 +172,8 @@ __device__ __forceinline__ void near_rows(
 __global__ void __launch_bounds__(NEAR_WARPS * 32)
 near_kernel(const int* __restrict__ bucket, const int* __restrict__ table,
             const float4* __restrict__ packed, const int* __restrict__ cnt,
-            const int* __restrict__ split_of, int nc, int cap, float md2,
-            float2* __restrict__ f_near) {
+            const int* __restrict__ split_of, int nc, int cap,
+            const float* __restrict__ consts, float2* __restrict__ f_near) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cell = blockIdx.x * NEAR_WARPS + warp;
   if (cell >= nc) return;
@@ -182,6 +186,7 @@ near_kernel(const int* __restrict__ bucket, const int* __restrict__ table,
     len = cnt[c];
   }
   const int split = split_of[R];
+  const float md2 = __ldg(consts + 1);
   const int s = split & 0xff;
   const int* rows_of = bucket + (size_t)cell * cap;
   const float4* own = packed + (size_t)cell * cap;
@@ -206,24 +211,26 @@ near_kernel(const int* __restrict__ bucket, const int* __restrict__ table,
 // pos f32[n, 2] (8-byte aligned), mass f32[n], vmask bool[n];
 // bucket int32[(nc + 1) * cap], sentinel n; table int32[(nc + 1) * 9],
 // sentinel nc; split int32[cap + 1], (RT << 8) | s for each row count, from
-// ops.near_split; scratch packed f32[(nc + 1) * cap, 4] (16-byte aligned)
+// ops.near_split; consts f32[2] = (C·L², md²); scratch packed
+// f32[(nc + 1) * cap, 4] (16-byte aligned)
 // and cnt int32[nc + 1]; f_near f32[n, 2] (written whole).
 extern "C" int grid_near_launch(const float* pos, const float* mass,
                                 const bool* vmask, const int* bucket,
                                 const int* table, const int* split, int n,
-                                int nc, int cap, float cl2, float md2,
+                                int nc, int cap, const float* consts,
                                 float* packed, int* cnt, float* f_near,
                                 cudaStream_t stream) {
   auto* pk = reinterpret_cast<float4*>(packed);
   auto* out = reinterpret_cast<float2*>(f_near);
   near_pack_kernel<<<(nc + PACK_WARPS) / PACK_WARPS, PACK_WARPS * 32, 0,
                      stream>>>(reinterpret_cast<const float2*>(pos), mass,
-                               vmask, bucket, n, nc, cap, cl2, pk, cnt, out);
+                               vmask, bucket, n, nc, cap, consts, pk, cnt,
+                               out);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (nc > 0) {
     near_kernel<<<(nc + NEAR_WARPS - 1) / NEAR_WARPS, NEAR_WARPS * 32, 0,
-                  stream>>>(bucket, table, pk, cnt, split, nc, cap, md2, out);
+                  stream>>>(bucket, table, pk, cnt, split, nc, cap, consts, out);
   }
   return (int)cudaGetLastError();
 }

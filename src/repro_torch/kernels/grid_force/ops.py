@@ -137,7 +137,7 @@ def _rms(Q, M, S, centers):
         Q / torch.clamp_min(M, _EPS) - (mu_rel * mu_rel).sum(dim=1), 0.0))
 
 
-def _agg_field_9(pos, mu9, m9, cl2: float, md2: float, r9=None):
+def _agg_field_9(pos, mu9, m9, cl2, md2, r9=None):
     """Aggregate force field of each vertex's 9 gathered cells:
     pos [n, 2], mu9 [n, 9, 2], m9 [n, 9] → [n, 2], optionally
     Plummer-softened by the cells' RMS radii ``r9``."""
@@ -151,7 +151,7 @@ def _agg_field_9(pos, mu9, m9, cl2: float, md2: float, r9=None):
 
 
 def far_corrections(pos, w_out, cid_l, inb, M_full, S_full, Q_full,
-                    M_out, S_out, Q_out, cl2: float, md2: float, *,
+                    M_out, S_out, Q_out, cl2, md2, *,
                     table, centers):
     """The force to ADD to the all-cells aggregate term: minus the 9 near
     cells' full aggregates (counted exactly by the near field), plus the
@@ -212,15 +212,15 @@ def near_split_table(cap: int, device: torch.device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-def grid_near(pos, mass, vmask, bucket, table, C, L, min_dist
-              ) -> torch.Tensor:
+def grid_near(pos, mass, vmask, bucket, table, consts) -> torch.Tensor:
     """Exact 3×3 near field → f_near f32[n, 2] (0 for unbucketed vertices).
     pos f32[n, 2]; mass f32[n]; vmask bool[n]; bucket int32[nc+1, cap]
     (sentinel n; each row filled from slot 0); table int32[nc+1, 9]
-    (sentinel nc)."""
-    cl2, md2 = _build.force_consts(C, L, min_dist)
+    (sentinel nc); ``consts`` f32[2] = (C·L², md²) on pos's device
+    (``_build.consts_tensor``)."""
     if pos.device.type == "cpu":
-        return grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2)
+        return grid_near_ref(pos, mass, vmask, bucket, table, consts[0],
+                             consts[1])
     if pos.device.type != "cuda":
         raise ValueError(f"grid_near: unsupported device {pos.device}")
     n, dev = pos.shape[0], pos.device
@@ -232,25 +232,26 @@ def grid_near(pos, mass, vmask, bucket, table, C, L, min_dist
     _build.require(table, "table", torch.int32, (nc + 1, 9), dev)
     if pos.data_ptr() % 8:
         raise ValueError("grid_near: pos must be 8-byte aligned (float2 loads)")
+    _build.require(consts, "consts", torch.float32, (2,), dev)
     packed = torch.empty((nc + 1, cap, 4), dtype=torch.float32, device=dev)
     cnt = torch.empty((nc + 1,), dtype=torch.int32, device=dev)
     f_near = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_near_launch(
         pos.data_ptr(), mass.data_ptr(), vmask.data_ptr(), bucket.data_ptr(),
         table.data_ptr(), near_split_table(cap, dev).data_ptr(), n, nc, cap,
-        cl2, md2, packed.data_ptr(), cnt.data_ptr(), f_near.data_ptr(),
+        consts.data_ptr(), packed.data_ptr(), cnt.data_ptr(), f_near.data_ptr(),
         _build.stream_of(pos))
     _build.launches["grid_near"] += 1
     _build.check(err, "grid_near")
     return f_near
 
 
-def grid_far(pos, cell_xyw, C, L, min_dist) -> torch.Tensor:
+def grid_far(pos, cell_xyw, consts) -> torch.Tensor:
     """Every vertex against every cell aggregate: pos f32[n, 2],
-    cell_xyw f32[nc, 3] (x, y, mass) → f32[n, 2]."""
-    cl2, md2 = _build.force_consts(C, L, min_dist)
+    cell_xyw f32[nc, 3] (x, y, mass) → f32[n, 2]; ``consts`` as
+    ``grid_near`` takes it."""
     if pos.device.type == "cpu":
-        return grid_far_ref(pos, cell_xyw, cl2, md2)
+        return grid_far_ref(pos, cell_xyw, consts[0], consts[1])
     if pos.device.type != "cuda":
         raise ValueError(f"grid_far: unsupported device {pos.device}")
     n, nc, dev = pos.shape[0], cell_xyw.shape[0], pos.device
@@ -258,23 +259,26 @@ def grid_far(pos, cell_xyw, C, L, min_dist) -> torch.Tensor:
     _build.require(cell_xyw, "cell_xyw", torch.float32, (nc, 3), dev)
     if pos.data_ptr() % 8:
         raise ValueError("grid_far: pos must be 8-byte aligned (float2 loads)")
+    _build.require(consts, "consts", torch.float32, (2,), dev)
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_far_launch(
-        pos.data_ptr(), n, cell_xyw.data_ptr(), nc, cl2, md2, out.data_ptr(),
-        _build.stream_of(pos))
+        pos.data_ptr(), n, cell_xyw.data_ptr(), nc, consts.data_ptr(),
+        out.data_ptr(), _build.stream_of(pos))
     _build.launches["grid_far"] += 1
     _build.check(err, "grid_far")
     return out
 
 
-def grid_repulsion(pos, mass, vmask, C, L, min_dist, *,
-                   grid_dim: int, cell_cap: int) -> torch.Tensor:
-    """Grid-approximated FR repulsion: pos f32[n, 2] → forces f32[n, 2]."""
+def grid_repulsion(pos, mass, vmask, consts, *, grid_dim: int,
+                   cell_cap: int) -> torch.Tensor:
+    """Grid-approximated FR repulsion: pos f32[n, 2] → forces f32[n, 2].
+    ``consts`` as ``grid_near`` takes it; ``far_corrections`` reads its
+    two 0-d views."""
     if grid_dim < 2 or cell_cap < 1:
         raise ValueError(f"grid_dim={grid_dim}, cell_cap={cell_cap}")
     G, cap = grid_dim, cell_cap
     nc = G * G
-    cl2, md2 = _build.force_consts(C, L, min_dist)
+    cl2, md2 = consts[0], consts[1]
     w = torch.where(vmask, mass, 0.0)
 
     cid, bucket, inb = bin_vertices(pos, vmask, G, cap)
@@ -289,9 +293,9 @@ def grid_repulsion(pos, mass, vmask, C, L, min_dist, *,
     Q_out = segment_sum(w_out * q, cid_l, nc + 1)
 
     table = neighbor_table(G, pos.device)
-    f_near = grid_near(pos, mass, vmask, bucket, table, C, L, min_dist)
+    f_near = grid_near(pos, mass, vmask, bucket, table, consts)
     cell_xyw = torch.cat([mu_full[:nc], M_full[:nc, None]], dim=1)
-    f_far = grid_far(pos, cell_xyw, C, L, min_dist)
+    f_far = grid_far(pos, cell_xyw, consts)
     f_far = f_far + far_corrections(pos, w_out, cid_l, inb, M_full, S_full,
                                     Q_full, M_out, S_out, Q_out, cl2, md2,
                                     table=table, centers=centers)

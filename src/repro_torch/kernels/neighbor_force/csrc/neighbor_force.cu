@@ -48,6 +48,9 @@
 //        (rcp.approx.ftz): d² ≥ md² > 0 and both are normal floats.
 //      A row's S partial sums are joined by __shfl_down_sync in a fixed tree
 //      order: two calls give the same bits, with no atomics.
+//   C·L² (pack) and md² (main, after griddepcontrol.wait) are read from
+//   device memory, consts[0] and consts[1], so one captured CUDA graph
+//   serves every value of them.
 #include <cuda_runtime.h>
 
 namespace {
@@ -64,9 +67,10 @@ __device__ __forceinline__ float rcp_approx(float x) {
 
 __global__ void __launch_bounds__(NB_THREADS)
 pack_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
-            const unsigned char* __restrict__ vmask, int n, float cl2,
-            float4* __restrict__ packed) {
+            const unsigned char* __restrict__ vmask, int n,
+            const float* __restrict__ consts, float4* __restrict__ packed) {
   asm volatile("griddepcontrol.launch_dependents;");
+  const float cl2 = __ldg(consts);
   for (int i = blockIdx.x * NB_THREADS + threadIdx.x; i < n;
        i += gridDim.x * NB_THREADS) {
     const float2 p = pos[i];
@@ -115,7 +119,7 @@ neighbor_kernel(const float2* __restrict__ pos,
                 const unsigned char* __restrict__ vmask,
                 const float4* packed, const int* __restrict__ nbr_idx,
                 const unsigned char* __restrict__ nbr_mask, int n, int K,
-                float md2, float2* __restrict__ out) {
+                const float* __restrict__ consts, float2* __restrict__ out) {
   constexpr int S = 32 / R;
   const int q = threadIdx.x % S;
   const int v = (blockIdx.x * NB_THREADS + threadIdx.x) / S;
@@ -130,6 +134,7 @@ neighbor_kernel(const float2* __restrict__ pos,
     p = __ldg(pos + v);
   }
   float fx = 0.f, fy = 0.f;
+  float md2 = 0.f;
   // one pass when G·S groups cover the row (the host table sees to that up
   // to K 256), more for longer lists
   for (int base = 0; base < groups; base += G * S) {
@@ -151,6 +156,7 @@ neighbor_kernel(const float2* __restrict__ pos,
     // the pack is done and its table visible from here on (a no-op after
     // the first pass)
     asm volatile("griddepcontrol.wait;" ::: "memory");
+    md2 = __ldg(consts + 1);
     float4 t[G][4];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
@@ -194,8 +200,8 @@ neighbor_kernel(const float2* __restrict__ pos,
 template <int R, int G>
 cudaError_t launch(bool vec, const float2* pos, const unsigned char* vmask,
                    const float4* packed, const int* nbr_idx,
-                   const unsigned char* nbr_mask, int n, int K, float md2,
-                   float2* out, cudaStream_t stream) {
+                   const unsigned char* nbr_mask, int n, int K,
+                   const float* consts, float2* out, cudaStream_t stream) {
   constexpr int rows = NB_THREADS / 32 * R;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + rows - 1) / rows);
@@ -208,16 +214,17 @@ cudaError_t launch(bool vec, const float2* pos, const unsigned char* vmask,
   cfg.numAttrs = 1;
   return vec ? cudaLaunchKernelEx(&cfg, neighbor_kernel<R, G, true>, pos,
                                   vmask, packed, nbr_idx, nbr_mask, n, K,
-                                  md2, out)
+                                  consts, out)
              : cudaLaunchKernelEx(&cfg, neighbor_kernel<R, G, false>, pos,
                                   vmask, packed, nbr_idx, nbr_mask, n, K,
-                                  md2, out);
+                                  consts, out);
 }
 
 }  // namespace
 
 // pos f32[n, 2] (8-byte aligned), mass f32[n], vmask bool[n];
-// nbr_idx int32[n, K], nbr_mask bool[n, K]; scratch packed f32[n, 4]
+// nbr_idx int32[n, K], nbr_mask bool[n, K]; consts f32[2] = (C·L², md²);
+// scratch packed f32[n, 4]
 // (16-byte aligned); out f32[n, 2] (written whole). (rows, groups) is a
 // pair of ops.neighbor_split's table; vec = 1 only for K % 4 == 0 with
 // nbr_idx 16-byte and nbr_mask 4-byte aligned. Returns cudaErrorInvalidValue
@@ -226,7 +233,7 @@ extern "C" int neighbor_repulsion_launch(const float* pos, const float* mass,
                                          const bool* vmask, const int* nbr_idx,
                                          const bool* nbr_mask, int n, int K,
                                          int rows, int groups, int vec,
-                                         float cl2, float md2, float* packed,
+                                         const float* consts, float* packed,
                                          float* out, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   auto* p2 = reinterpret_cast<const float2*>(pos);
@@ -236,14 +243,14 @@ extern "C" int neighbor_repulsion_launch(const float* pos, const float* mass,
   auto* o2 = reinterpret_cast<float2*>(out);
   const int blocks = (n + NB_THREADS - 1) / NB_THREADS;
   const int pack_blocks = blocks < PACK_BLOCKS ? blocks : PACK_BLOCKS;
-  pack_kernel<<<pack_blocks, NB_THREADS, 0, stream>>>(p2, mass, vm, n, cl2,
-                                                      pk);
+  pack_kernel<<<pack_blocks, NB_THREADS, 0, stream>>>(p2, mass, vm, n,
+                                                      consts, pk);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 #define NB_CASE(r, g)                                                      \
   if (rows == r && groups == g)                                            \
-    return (int)launch<r, g>(vec != 0, p2, vm, pk, nbr_idx, nm, n, K, md2, \
-                             o2, stream);
+    return (int)launch<r, g>(vec != 0, p2, vm, pk, nbr_idx, nm, n, K,      \
+                             consts, o2, stream);
   NB_CASE(4, 1) NB_CASE(2, 1) NB_CASE(1, 1) NB_CASE(1, 2)
 #undef NB_CASE
   return (int)cudaErrorInvalidValue;

@@ -27,20 +27,20 @@ def neighbor_split(K: int) -> tuple[int, int]:
     return 32 // lanes, 1 if groups <= 32 else 2
 
 
-def neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask, C, L, min_dist
+def neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask, consts
                        ) -> torch.Tensor:
     """pos f32[n, 2]; mass f32[n]; nbr_idx int32[n, K] (sentinel n);
-    nbr_mask bool[n, K]; vmask bool[n] → forces f32[n, 2].
+    nbr_mask bool[n, K]; vmask bool[n] → forces f32[n, 2]. ``consts``
+    f32[2] = (C·L², md²) on pos's device (``_build.consts_tensor``).
 
     Any int32 index is taken, as the JAX package's gather from the (n+1)-row
     padded tables takes it (``ref.resolve_slots``): a negative index gets
     n+1 added, then the index is clamped to [0, n]. A masked-in slot that
     resolves to row n (the sentinel, an index ≥ n, or −1) adds 0; one below
     −(n+1) reads vertex 0."""
-    cl2, md2 = _build.force_consts(C, L, min_dist)
     if pos.device.type == "cpu":
         return neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask, vmask,
-                                      cl2, md2)
+                                      consts[0], consts[1])
     if pos.device.type != "cuda":
         raise ValueError(f"neighbor_repulsion: unsupported device {pos.device}")
     n, dev = pos.shape[0], pos.device
@@ -56,11 +56,12 @@ def neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask, C, L, min_dist
     vec = int(K % 4 == 0 and nbr_idx.data_ptr() % 16 == 0
               and nbr_mask.data_ptr() % 4 == 0)
     rows, groups = neighbor_split(K)
+    _build.require(consts, "consts", torch.float32, (2,), dev)
     packed = torch.empty((n, 4), dtype=torch.float32, device=dev)
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     err = _build.load().neighbor_repulsion_launch(
         pos.data_ptr(), mass.data_ptr(), vmask.data_ptr(), nbr_idx.data_ptr(),
-        nbr_mask.data_ptr(), n, K, rows, groups, vec, cl2, md2,
+        nbr_mask.data_ptr(), n, K, rows, groups, vec, consts.data_ptr(),
         packed.data_ptr(), out.data_ptr(), _build.stream_of(pos))
     _build.launches["neighbor_force"] += 1
     _build.check(err, "neighbor_repulsion")

@@ -82,18 +82,32 @@ def _qkv(p, x, rope):
 
 def apply_attention(p, x, rope, *, cache=None, cache_pos=None):
     """Causal attention block. ``cache`` = (k, v) [B, Smax, KV, hd] for
-    prefill/decode, written in place at ``cache_pos`` (an int, so kv_len is
-    known on the host); the JAX package updates it functionally and returns
-    it. The JAX package's ``_sdpa`` becomes the flash-attention kernel: its
-    causal mask, aligned bottom-right, on ``cache[:, :kv_len]`` (read where
-    it lies) is ``_sdpa``'s ``q_offset``/``kv_len`` mask."""
+    prefill/decode, written in place at ``cache_pos``; the JAX package
+    updates it functionally and returns it. The JAX package's ``_sdpa``
+    becomes the flash-attention kernel:
+
+    * ``cache_pos`` an int (prefill): the new rows are written by a slice
+      and attention reads ``cache[:, :kv_len]`` with the causal mask
+      aligned bottom-right — ``_sdpa``'s ``q_offset``/``kv_len`` mask;
+    * ``cache_pos`` an int32 0-d tensor on the device (decode, one new
+      row): the row is written by ``index_copy_`` at it and attention reads
+      the whole cache with ``kv_len = cache_pos + 1`` on the device, so no
+      host value changes from step to step."""
     if cache is not None:
         q, k_new, v_new = _qkv(p, x, rope)
         ck, cv = cache
-        kv_len = cache_pos + x.shape[1]
-        ck[:, cache_pos:kv_len] = k_new
-        cv[:, cache_pos:kv_len] = v_new
-        out = flash_attention(q, ck[:, :kv_len], cv[:, :kv_len], causal=True)
+        if isinstance(cache_pos, torch.Tensor):
+            at = cache_pos.reshape(1).long()
+            ck.index_copy_(1, at, k_new)
+            cv.index_copy_(1, at, v_new)
+            out = flash_attention(q, ck, cv, causal=True,
+                                  kv_len=cache_pos + x.shape[1])
+        else:
+            kv_len = cache_pos + x.shape[1]
+            ck[:, cache_pos:kv_len] = k_new
+            cv[:, cache_pos:kv_len] = v_new
+            out = flash_attention(q, ck[:, :kv_len], cv[:, :kv_len],
+                                  causal=True)
     else:
         q, k, v = _qkv(p, x, rope)
         out = flash_attention(q, k, v, causal=True)

@@ -10,8 +10,14 @@ weight keeps the JAX layout (``wq [D,H,hd]``, ``wo [H,hd,D]``,
 reshapes.
 
 The decode state is one (k, v) cache pair [B, cache_len, KV, hd] per layer,
-updated in place; ``pos`` is a Python int, so every ``kv_len`` is known on
-the host and attention reads ``cache[:, :kv_len]``.
+updated in place. ``decode_step`` takes ``pos`` as an int32 device scalar,
+as the JAX package's does: the cache row is written at it and attention
+masks the keys past it on the device. ``DecodeGraph``, built once per
+(model, batch, cache_len) by ``compile_decode``, is the counterpart of
+``jax.jit(decode_step, donate_argnums=…)``: one greedy step over static
+token, position and cache buffers, captured as a CUDA graph on the card and
+replayed; it writes the greedy token back and advances the position on the
+device. ``prefill`` stays eager.
 
 Families that need modules the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
@@ -23,6 +29,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
 
@@ -185,12 +192,65 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     return _head(model, x[:, -1:]), state, S
 
 
-def decode_step(model: LM, token, state: list, pos: int):
-    """One decode step. token int [B, 1] at position ``pos`` (an int) →
-    (logits [B, 1, vocab_padded], state); the caches are written in place."""
+def decode_step(model: LM, token, state: list, pos):
+    """One decode step. token int [B, 1] at position ``pos`` (an int32 0-d
+    tensor on the model's device; an int is moved there) → (logits
+    [B, 1, vocab_padded], state); the caches are written in place."""
     cfg = model.cfg
+    pos = torch.as_tensor(pos, dtype=torch.int32).to(model.device)
     x = L.apply_embedding(model.embed, token.to(model.device))
-    rope = L.rope_for(torch.arange(pos, pos + 1, device=model.device), cfg)
+    rope = L.rope_for(pos.reshape(1), cfg)
     for layer, cache in zip(model.layers, state):
         x = _apply_sublayer(layer, x, cfg, rope, cache=cache, cache_pos=pos)
     return _head(model, x), state
+
+
+class DecodeGraph:
+    """Greedy decoding for one (model, batch, cache_len): each ``step()``
+    runs ``decode_step`` on static buffers — ``token`` int64 [B, 1],
+    ``pos`` int32 0-d, ``state`` (the caches) — then writes the greedy
+    token into ``token`` and adds one to ``pos``, all on the device. On the
+    card the first step runs eagerly and captures the step as a CUDA graph
+    (``utils.cuda_graph.StepGraph``); later steps replay it. On the CPU each
+    step runs eagerly on the same buffers. ``logits`` is the static buffer
+    of the last step's logits [B, 1, vocab_padded]."""
+
+    def __init__(self, model: LM, batch: int, cache_len: int):
+        dev = model.device
+        self.model = model
+        self.token = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.state = init_decode_state(model, batch, cache_len)
+        self.logits = torch.empty((batch, 1, model.cfg.vocab_padded),
+                                  dtype=model.dtype, device=dev)
+        self._step = StepGraph(self._greedy, dev)
+
+    def _greedy(self) -> None:
+        logits, _ = decode_step(self.model, self.token, self.state, self.pos)
+        self.logits.copy_(logits)
+        self.token.copy_(logits[:, -1].argmax(-1, keepdim=True))
+        self.pos.add_(1)
+
+    def start(self, state: list, token, pos) -> None:
+        """Load a prefill's state, the token to feed next and its position
+        (an int or an int32 device scalar) into the static buffers."""
+        for (ck, cv), (sk, sv) in zip(self.state, state):
+            ck.copy_(sk)
+            cv.copy_(sv)
+        self.token.copy_(token)
+        self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32))
+
+    def step(self) -> torch.Tensor:
+        """One greedy step → the static logits buffer."""
+        self._step()
+        return self.logits
+
+
+def compile_decode(model: LM, batch: int, cache_len: int) -> DecodeGraph:
+    """The model's ``DecodeGraph`` for (batch, cache_len), built on first
+    use and kept on the model."""
+    graphs = model.__dict__.setdefault("_decode_graphs", {})
+    key = (batch, cache_len)
+    if key not in graphs:
+        graphs[key] = DecodeGraph(model, batch, cache_len)
+    return graphs[key]

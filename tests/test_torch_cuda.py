@@ -36,6 +36,11 @@ from repro_torch.kernels.neighbor_force.ref import neighbor_repulsion_ref
 C, L, MD = 1.3, 0.8, 1e-2
 
 
+def _consts(dev):
+    """The force wrappers' constants: f32[2] = (C·L², md²) on ``dev``."""
+    return _build.consts_tensor(C, L, MD, dev)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -101,7 +106,7 @@ def test_nbody_kernel_matches_plain(cuda, n, mask):
     pos, mass, _ = _vertices(n, n, cuda)
     vmask = _mask(n, mask, n, cuda)
     out = _twice("nbody", lambda: nbody_repulsion(pos, mass, vmask,
-                                                  C, L, MD))
+                                                  _consts(cuda)))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, nbody_repulsion_ref(pos, mass, vmask, cl2, md2))
     assert (out[~vmask] == 0).all()
@@ -154,7 +159,7 @@ def test_neighbor_kernel_matches_plain(cuda, n, K, lists):
     vmask[0] = True           # row 0, which indices below −(n+1) read
     nbr, nmask = _lists(n, K, lists, n, cuda)
     out = _twice("neighbor_force", lambda: neighbor_repulsion(
-        pos, mass, nbr, nmask, vmask, C, L, MD))
+        pos, mass, nbr, nmask, vmask, _consts(cuda)))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, neighbor_repulsion_ref(pos, mass, nbr, nmask, vmask,
                                        cl2, md2))
@@ -199,7 +204,7 @@ def test_grid_near_kernel_matches_plain(cuda, n, G, cap, drawing):
         rows = (bucket[:G * G] < n).sum(dim=1)
         assert int((rows == cap).sum()) >= 6 and int((rows == 0).sum()) > 0
     out = _twice("grid_near", lambda: grid_ops.grid_near(
-        pos, mass, vmask, bucket, table, C, L, MD))
+        pos, mass, vmask, bucket, table, _consts(cuda)))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2))
 
@@ -212,7 +217,7 @@ def test_grid_far_kernel_matches_plain(cuda, n, nc):
                             rng.random((nc, 1)) * 5], 1).astype(np.float32)
     cells = torch.from_numpy(cells).to(cuda)
     out = _twice("grid_far", lambda: grid_ops.grid_far(pos, cells,
-                                                       C, L, MD))
+                                                       _consts(cuda)))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, grid_far_ref(pos, cells, cl2, md2))
 
@@ -231,7 +236,7 @@ def test_grid_far_kernel_ragged_and_wide(cuda, n, nc, extent):
     cells = torch.from_numpy(cells.astype(np.float32)).to(cuda)
     pos = pos.to(cuda)
     out = _launched("grid_far", lambda: grid_ops.grid_far(pos, cells,
-                                                          C, L, MD))
+                                                          _consts(cuda)))
     cl2, md2 = _build.force_consts(C, L, MD)
     _close(out, grid_far_ref(pos, cells, cl2, md2))
 
@@ -243,26 +248,33 @@ def test_grid_repulsion_on_card_matches_cpu(cuda):
     from the all-cells term, so the bound is 1e-4 · max|f| here."""
     pos, mass, vmask = _vertices(4000, 5, torch.device("cpu"))
     kw = dict(grid_dim=16, cell_cap=24)
-    ref = grid_ops.grid_repulsion(pos, mass, vmask, C, L, MD, **kw)
+    ref = grid_ops.grid_repulsion(pos, mass, vmask, _consts("cpu"), **kw)
     out = grid_ops.grid_repulsion(pos.to(cuda), mass.to(cuda),
-                                  vmask.to(cuda), C, L, MD, **kw)
+                                  vmask.to(cuda), _consts(cuda), **kw)
     _close(out.cpu(), ref, atol_frac=1e-4)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     pos, mass, vmask = _vertices(300, 0, cuda)
     with pytest.raises(ValueError, match="dtype"):
-        nbody_repulsion(pos.double(), mass, vmask, C, L, MD)
+        nbody_repulsion(pos.double(), mass, vmask, _consts(cuda))
     with pytest.raises(ValueError, match="contiguous"):
-        nbody_repulsion(pos.t().contiguous().t(), mass, vmask, C, L, MD)
+        nbody_repulsion(pos.t().contiguous().t(), mass, vmask,
+                        _consts(cuda))
     with pytest.raises(ValueError, match="on cpu"):
-        nbody_repulsion(pos, mass.cpu(), vmask, C, L, MD)
+        nbody_repulsion(pos, mass.cpu(), vmask, _consts(cuda))
+    with pytest.raises(ValueError, match="on cpu"):
+        nbody_repulsion(pos, mass, vmask, _consts("cpu"))
+    with pytest.raises(ValueError, match="shape"):
+        grid_ops.grid_far(pos, torch.zeros((4, 3), device=cuda),
+                          _consts(cuda)[:1])
     with pytest.raises(ValueError, match="aligned"):
         nbody_repulsion(torch.zeros(601, device=cuda)[1:].view(300, 2),
-                        mass, vmask, C, L, MD)
+                        mass, vmask, _consts(cuda))
     nbr = torch.zeros((300, 8), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
-        neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask, C, L, MD)
+        neighbor_repulsion(pos, mass, nbr, nbr.bool(), vmask,
+                           _consts(cuda))
     # lists that are views 4 bytes (1 byte) past a 16-byte (4-byte)
     # boundary take the scalar path: the same bits as the vector path
     nbr, nmask = _lists(300, 64, "prefix", 1, cuda)
@@ -272,17 +284,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     flat_m[1:] = nmask.reshape(-1)
     odd_nbr, odd_mask = flat[1:].view(300, 64), flat_m[1:].view(300, 64)
     assert odd_nbr.data_ptr() % 16 and odd_mask.data_ptr() % 4
-    want = neighbor_repulsion(pos, mass, nbr, nmask, vmask, C, L, MD)
+    want = neighbor_repulsion(pos, mass, nbr, nmask, vmask, _consts(cuda))
     for nb, nm in ((odd_nbr, nmask), (nbr, odd_mask), (odd_nbr, odd_mask)):
         got = _launched("neighbor_force", lambda: neighbor_repulsion(
-            pos, mass, nb, nm, vmask, C, L, MD))
+            pos, mass, nb, nm, vmask, _consts(cuda)))
         torch.cuda.synchronize()
         assert torch.equal(got, want)
     odd = torch.zeros(601, device=cuda)[1:].view(300, 2)   # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
-        grid_ops.grid_far(odd, torch.zeros((4, 3), device=cuda), C, L, MD)
+        grid_ops.grid_far(odd, torch.zeros((4, 3), device=cuda),
+                          _consts(cuda))
     with pytest.raises(ValueError, match="aligned"):
-        neighbor_repulsion(odd, mass, nbr, nmask, vmask, C, L, MD)
+        neighbor_repulsion(odd, mass, nbr, nmask, vmask, _consts(cuda))
 
 
 def _attn_inputs(B, Sq, Sk, H, KV, hd, seed, dev):
@@ -407,3 +420,147 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention(q96, k96, v96)
     with pytest.raises(ValueError, match="on cpu"):
         flash_attention(q, k.cpu(), v)
+
+
+# -- constants and kv_len from device memory; captured steps ------------------
+
+def test_force_kernels_device_constants_equal_host_constants(cuda):
+    """Each force kernel reading its constants from a row of a schedule
+    buffer on the device, as the refine step hands them (a view 4 bytes
+    into the row a device counter selects, the buffer's other row holding
+    other values), gives the bits of the same kernel with the host-rounded
+    constants ``_build.consts_tensor`` stages."""
+    from repro_torch.core import gila
+    pos, mass, vmask = _vertices(3000, 11, cuda)
+    rows = torch.from_numpy(gila.schedule_rows([0.5, 0.25], [3 * C, C], L,
+                                               MD)).to(cuda)
+    row = rows.index_select(0, torch.ones(1, dtype=torch.long,
+                                          device=cuda))[0]
+    nbr, nmask = _lists(3000, 128, "prefix", 11, cuda)
+    _, bucket, _ = grid_ops.bin_vertices(pos, vmask, 16, 40)
+    table = grid_ops.neighbor_table(16, cuda)
+    cells = torch.cat([pos[:200], mass[:200, None]], dim=1).contiguous()
+    cases = [
+        ("nbody", lambda k: nbody_repulsion(pos, mass, vmask, k)),
+        ("neighbor_force", lambda k: neighbor_repulsion(
+            pos, mass, nbr, nmask, vmask, k)),
+        ("grid_near", lambda k: grid_ops.grid_near(
+            pos, mass, vmask, bucket, table, k)),
+        ("grid_far", lambda k: grid_ops.grid_far(pos, cells, k)),
+    ]
+    for name, f in cases:
+        host = _launched(name, lambda: f(_consts(cuda)))
+        dev = _launched(name, lambda: f(row[1:]))
+        torch.cuda.synchronize()
+        assert torch.equal(host, dev), name
+
+
+@pytest.mark.parametrize("kv_len", [1, 17, 2080])
+def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len):
+    """The split-KV route over a 2088-row cache with ``kv_len`` an int32 on
+    the device (the splits planned from the capacity) against the plain
+    version, within phase 6a's tolerance for the output's size: rtol 1e-2
+    and atol 2e-3 where a row averages 2080 values (|out| ~0.04), atol
+    1e-2 where it averages 1 or 17 (|out| up to ~1, a bf16 ulp ~0.004)."""
+    tol = dict(rtol=1e-2, atol=2e-3 if kv_len > 1024 else 1e-2)
+    q, ck, cv = _attn_inputs(4, 1, 2088, 16, 8, 128, kv_len, cuda)
+    n = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    out = _launched("flash_attention", lambda: flash_attention(
+        q, ck, cv, causal=True, kv_len=n))
+    ref = flash_attention_ref(q, ck[:, :kv_len].contiguous(),
+                              cv[:, :kv_len].contiguous(), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(
+        flash_attention_ref(q, ck, cv, causal=True, kv_len=n).float(),
+        ref.float(), **tol)
+    with pytest.raises(ValueError, match="split-KV route only"):
+        flash_attention(q.expand(4, 128, 16, 128).contiguous(), ck, cv,
+                        kv_len=n)
+
+
+@pytest.mark.parametrize("engine_name", ["gila", "stress"])
+@pytest.mark.parametrize("mode", ["exact", "neighbor", "grid"])
+def test_captured_refine_step_matches_eager(cuda, engine_name, mode):
+    """k = 10 iterations replayed from a captured step against the eager
+    loop: the median of the replay's distances from 6 eager runs within
+    twice the median distance between two of them, the eager-vs-eager
+    spread over the same k iterations (``index_add_`` sums with atomics on
+    the card, so eager does not repeat its own bits). A distance is the
+    mean over the valid vertices of max(|Δx|, |Δy|): the largest |Δpos| of
+    two runs is set by a few vertices whose grid cell flips and varies ~5×
+    from pair to pair (``chip_smoke.EAGER_RUNS``). Where eager runs mostly
+    repeat each other's bits (a median spread of 0), the replay must repeat
+    one of them. The launches of the replays equal the eager loop's."""
+    import dataclasses
+    from repro_torch.core import bucketing, schedule
+    from repro_torch.core.engine import get_engine
+    from repro_torch.graphs import generators as G
+    from repro_torch.graphs.graph import build_graph
+
+    edges, n = G.delaunay(5000, seed=2)
+    g = build_graph(edges, n, bucket=True, device=cuda)
+    kw = dict(exact=dict(exact_threshold=10 ** 6),
+              neighbor=dict(exact_threshold=64, grid_threshold=10 ** 6),
+              grid=dict(exact_threshold=64, grid_threshold=512))[mode]
+    sched = schedule.make_schedule(0, 3, g.n, g.m, n_pad=g.n_pad,
+                                   engine=engine_name, **kw)
+    sched = dataclasses.replace(sched, iters=10, temp0=0.5)
+    assert sched.mode == mode
+    eng = get_engine(engine_name)
+    rng = np.random.default_rng(3)
+    pos0 = torch.from_numpy((rng.random((g.n_pad, 2)) * 70).astype(
+        np.float32)).to(cuda)
+    nbr_idx, nbr_mask = eng.init_state(g, sched, 4)
+    _build.launches.clear()
+    eager = [eng.refine(g, pos0, nbr_idx, nbr_mask, sched, ideal_len=1.0,
+                        rep_const=1.0) for _ in range(6)]
+    torch.cuda.synchronize()
+    eager_launches = {k: v // 6 for k, v in _build.launches.items()}
+    dist = lambda a, b: float((a - b).abs().amax(dim=1)[g.vmask].mean())
+    spread = np.median([dist(a, b) for i, a in enumerate(eager)
+                        for b in eager[i + 1:]])
+    bucketing.STEP_CACHE.clear()
+    _, prog, fresh, args = bucketing.cached_refine(
+        g, pos0, sched, nbr_idx, nbr_mask, ideal_len=1.0, rep_const=1.0)
+    assert fresh
+    prog.run(*args)                              # warm-up and capture
+    _build.launches.clear()
+    out = prog.run(*args)                        # replays only
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == eager_launches
+    replay = [dist(out, e) for e in eager]
+    assert np.median(replay) <= 2 * spread or min(replay) == 0.0, (replay,
+                                                                    spread)
+
+
+def test_captured_decode_gives_the_eager_greedy_tokens(cuda):
+    """32 greedy steps of a 2-layer model with hd 64 in bf16: the captured
+    ``DecodeGraph`` picks the eager ``decode_step``'s tokens."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"),
+                              head_dim=64, n_layers=2)
+    model = M.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40))).to(cuda)
+    logits, state, pos = M.prefill(model, {"tokens": tokens}, 80)
+    first = logits[:, -1].argmax(-1, keepdim=True)
+    dec = M.compile_decode(model, 2, 80)
+    dec.start(state, first, pos)
+    tok, eager = first, []
+    for i in range(32):
+        lg, state = M.decode_step(model, tok, state, pos + i)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        eager.append(tok)
+    graph = []
+    _build.launches.clear()
+    for _ in range(32):
+        dec.step()
+        graph.append(dec.token.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
+    assert _build.launches["flash_attention"] == 2 * 32
+    assert int(dec.pos) == pos + 32

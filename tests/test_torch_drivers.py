@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 from repro.core import multigila_layout as jax_layout
 from repro.core.multilevel import LayoutConfig as JaxConfig
 from repro.graphs import generators as G
@@ -31,6 +33,7 @@ from repro_torch.graphs.metrics import quality_report
 from repro_torch.launch import layout as cli
 
 NELD_DELTA, CRE_DELTA = 0.05, 0.15
+
 
 # -- graph I/O -------------------------------------------------------------------
 
@@ -106,7 +109,7 @@ def _assert_matches(edges, n, kw, *, weights=None):
     assert pt.shape == (n, 2) and np.isfinite(pt).all()
     assert st.levels == sj.levels
     assert st.level_sizes == sj.level_sizes
-    assert set(st.phase_seconds) == {"coarsen", "place", "refine"}
+    assert set(st.phase_seconds) == {"coarsen", "place", "refine", "compile"}
     qj = jax_quality(jax_build_graph(edges, n), pj)
     qt = quality_report(build_graph(edges, n, device="cpu"), pt)
     assert abs(qt["neld"] - qj["neld"]) <= NELD_DELTA, (qt, qj)

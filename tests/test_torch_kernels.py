@@ -23,12 +23,14 @@ from repro.kernels.nbody.ref import nbody_repulsion_ref as jax_nbody_ref
 from repro.kernels.neighbor_force.kernel import neighbor_repulsion_pallas
 from repro.kernels.neighbor_force.ref import \
     neighbor_repulsion_ref as jax_neighbor_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.grid_force import ops as grid_ops
 from repro_torch.kernels.nbody.ops import nbody_repulsion
 from repro_torch.kernels.neighbor_force.ops import (neighbor_repulsion,
                                                     neighbor_split)
 
 C, L, MD = 1.3, 0.8, 1e-2
+CONSTS = _build.consts_tensor(C, L, MD, "cpu")     # what the wrappers take
 RTOL = 1e-5
 
 
@@ -53,7 +55,7 @@ def _vertices(n, seed, scale=10.0):
 @pytest.mark.parametrize("n", [200, 256, 389])
 def test_nbody_plain_matches_jax(n):
     pos, mass, vmask = _vertices(n, n)
-    port = nbody_repulsion(_t(pos), _t(mass), _t(vmask), C, L, MD).numpy()
+    port = nbody_repulsion(_t(pos), _t(mass), _t(vmask), CONSTS).numpy()
     _close(port, jax_nbody_ref(jnp.asarray(pos), jnp.asarray(mass),
                                jnp.asarray(vmask), C, L, MD))
     if n % 128 == 0:
@@ -70,7 +72,7 @@ def test_neighbor_plain_matches_jax(n, K):
     nmask = rng.random((n, K)) > 0.25
     nbr = np.where(nmask, nbr, n).astype(np.int32)
     port = neighbor_repulsion(_t(pos), _t(mass), _t(nbr), _t(nmask),
-                              _t(vmask), C, L, MD).numpy()
+                              _t(vmask), CONSTS).numpy()
     _close(port, jax_neighbor_ref(jnp.asarray(pos), jnp.asarray(mass),
                                   jnp.asarray(nbr), jnp.asarray(nmask),
                                   jnp.asarray(vmask), C, L, MD))
@@ -102,7 +104,7 @@ def test_neighbor_plain_matches_jax_on_out_of_range_slots(n, K):
     nbr = np.where(bad, odd, nbr).astype(np.int32)
     assert (nbr[nmask] < -(n + 1)).any()
     port = neighbor_repulsion(_t(pos), _t(mass), _t(nbr), _t(nmask),
-                              _t(vmask), C, L, MD).numpy()
+                              _t(vmask), CONSTS).numpy()
     _close(port, jax_neighbor_ref(jnp.asarray(pos), jnp.asarray(mass),
                                   jnp.asarray(nbr), jnp.asarray(nmask),
                                   jnp.asarray(vmask), C, L, MD))
@@ -135,7 +137,7 @@ def test_bin_vertices_and_grid_near_match_jax(n, G, cap):
     table = grid_ops.neighbor_table(G, torch.device("cpu"))
     np.testing.assert_array_equal(table.numpy(), jax_grid.neighbor_table(G))
     port = grid_ops.grid_near(_t(pos), _t(mass), _t(vmask), bucket, table,
-                              C, L, MD).numpy()
+                              CONSTS).numpy()
     # the JAX package's pre-gather + scatter around its near kernel
     nc = G * G
     b = bucket.numpy()
@@ -159,7 +161,7 @@ def test_grid_far_plain_matches_jax(n, nc):
     rng = np.random.default_rng(nc)
     cells = np.concatenate([rng.random((nc, 2)) * 10,
                             rng.random((nc, 1)) * 5], 1).astype(np.float32)
-    port = grid_ops.grid_far(_t(pos), _t(cells), C, L, MD).numpy()
+    port = grid_ops.grid_far(_t(pos), _t(cells), CONSTS).numpy()
     _close(port, jax_far_ref(jnp.asarray(pos), jnp.asarray(cells), C, L, MD))
     npad, ncpad = -(-n // 128) * 128, -(-nc // 128) * 128
     pp = np.zeros((npad, 2), np.float32)
@@ -177,7 +179,7 @@ def test_grid_repulsion_matches_jax(n, G, cap):
     cell against a cap of 12 overflows some buckets and not others, so both
     kinds of cell and the overflow terms are exercised."""
     pos, mass, vmask = _vertices(n, G)
-    port = grid_ops.grid_repulsion(_t(pos), _t(mass), _t(vmask), C, L, MD,
+    port = grid_ops.grid_repulsion(_t(pos), _t(mass), _t(vmask), CONSTS,
                                    grid_dim=G, cell_cap=cap).numpy()
     ref = np.asarray(jax_grid.grid_repulsion(
         jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(vmask), C, L, MD,
@@ -215,7 +217,7 @@ def test_nbody_plain_matches_jax_at_path_shapes(n, valid):
     prefix."""
     pos, mass, _ = _vertices(n, valid)
     vmask = _scattered_mask(n, valid, n + valid)
-    port = nbody_repulsion(_t(pos), _t(mass), _t(vmask), C, L, MD).numpy()
+    port = nbody_repulsion(_t(pos), _t(mass), _t(vmask), CONSTS).numpy()
     args = (jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(vmask), C, L, MD)
     _close(port, jax_nbody_ref(*args))
     _close(port, nbody_repulsion_pallas(*args, block_rows=128,
@@ -248,7 +250,7 @@ def test_bin_vertices_and_grid_near_match_jax_at_the_path_grid():
     assert full.sum() >= 4 and not inb.numpy()[vmask].all()
     table = grid_ops.neighbor_table(G, torch.device("cpu"))
     port = grid_ops.grid_near(_t(pos), _t(mass), _t(vmask), bucket, table,
-                              C, L, MD).numpy()
+                              CONSTS).numpy()
 
     occ = np.nonzero((b[:nc] < n).any(axis=1))[0]
     occ = np.concatenate([occ, np.full(-len(occ) % 8, nc)])  # 8 a block

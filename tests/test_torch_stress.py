@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 import jax.numpy as jnp
 
 from repro.core import bucketing as jax_bucketing
