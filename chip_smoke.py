@@ -22,7 +22,16 @@ of them passed):
         force kernel against its plain version on 3a's inputs at C = α·C
         for α = ALPHA0 and ALPHA0·ALPHA_SHRINK (``core/stress.py``), within
         phase 3's tolerance (the force is linear in C);
-     One JSON line a row: ``ms`` is device time per call (calls captured in
+     d. after phase 7, the lane rows: each force kernel over lanes on the
+        arguments of its first call at each batched group shape of phase 7
+        (``ManyRecorder``), against its plain version over lanes within
+        phase 3's tolerance and against B one-lane calls bit for bit; timed
+        as the other rows, with ``one_lane_ms`` (lane 0 alone at that
+        shape) beside, the bound counting the live lanes' work only, and
+        the launches of that shape in the suite's warm batched run, as the
+        wrappers count them by shape;
+     One JSON line a row (3a and 3b also time the same inputs handed over
+     as one lane, ``b1_ms``, whose bits must equal the call's): ``ms`` is device time per call (calls captured in
      a CUDA graph, replayed between CUDA events), ``eager_ms`` the same
      calls made back to back from Python (the median of a few batches,
      host work included); the plain version's ms; the least time the card
@@ -49,10 +58,11 @@ of them passed):
      build and the iterations' wall and device span through the cache and
      eagerly (``refine_breakdown``, 4f); last, at the largest level of each
      mode, k = 10 iterations replayed from the cached entry against the
-     eager loop (4e): the median of its distances (mean per-vertex |Δpos|)
-     from EAGER_RUNS eager runs within twice the median distance between
-     two of them over the same k iterations, or its bits equal to an eager
-     run's (``index_add_``'s atomics change the bits from run to run);
+     eager loop (4e), EAGER_RUNS runs of each: the median replay-to-eager
+     distance (mean per-vertex max |Δpos|) and the median distance between
+     two replays within REPLAY_FACTOR times the median distance between two
+     eager runs over the same k iterations (``index_add_``'s atomics change
+     the bits from run to run), that spread floored at FLOOR_ULPS ulps;
      b. the stress path: the same cold / warm / eager runs, profiles,
         refine breakdown and replay check with
         ``LayoutConfig(engine="stress")`` and per-edge weights drawn from a
@@ -78,6 +88,17 @@ of them passed):
         a flat run from a random init is chaotic at this size);
      c. the layout CLI, ``repro_torch.launch.layout.main`` with
         ``--engine stress``, in process on the card;
+     d. the batched driver, card against CPU: the first LANES_5D graphs of
+        suite A (below) with exact_threshold=64, grid_threshold=512 (all
+        three modes) through ``multigila_layout_many`` on both (on the card
+        once more with every seed moved by SPREAD_SEED): every lane's
+        hierarchy equal bit for bit and NELD within NELD_DELTA, the
+        sequential driver's on the card too; each batched lane's CRE within
+        max(CRE_DELTA, CRE_SPREAD_MULT × the median gap between the card's
+        runs of the two seeds) of the card's sequential run, and
+        against the CPU each driver's lanes' mean within
+        max(CRE_MEAN_DELTA, CRE_MEAN_SES standard errors), each lane
+        printed (``many_card_vs_cpu``);
   6. the LM serving path, internlm2-1.8b at its published width and depth
      (24 layers) in bf16, weights drawn from a seed on the card:
      a. the flash-attention kernel against its plain version at the path's
@@ -103,7 +124,34 @@ of them passed):
      c. a 2-layer model at full width, the same weights on the card and on
         the CPU (plain attention there): prefill's last-token logits and the
         first decode step's agree within LOGIT_TOL;
-  7. the ``{"kernels": [...]}`` summary, the card line, and
+  7. the batched driver, ``multigila_layout_many``, at the size a layout
+     service's tenants submit: suite A, SUITE_A graphs
+     ``generators.delaunay(5_000, seed=100+i)`` (L0 neighbor, coarser
+     levels exact; L0 lanes at n_pad 8192), default ``LayoutConfig()``,
+     cold (cache cleared), warm (profiled: device busy and idle share) and
+     through as many warm sequential ``multigila_layout`` calls; then the
+     same with ``engines=["stress"]*64`` and weights U(0.5, 2) from
+     ``default_rng(i)``; suite B, SUITE_B graphs
+     ``generators.delaunay(50_000, seed=200+i)`` (L0 grid, L1 neighbor),
+     the same runs. Each prints wall, graphs/s, phase seconds, the cache's
+     entries/hits/misses, resident and peak GB, waves, groups a wave and
+     launches by kernel and by shape, each shape's equal to the sum over
+     its groups of their largest iteration budget. Every lane's hierarchy,
+     levels and modes equal its sequential run's bit for bit, its positions
+     finite, its NELD within NELD_DELTA of the sequential one's (and on
+     suite A, CRE counted on the card by ``cre_card``: each lane within
+     max(CRE_DELTA, CRE_SPREAD_MULT × the median gap between the warm run
+     and one with every seed moved by SPREAD_SEED; the cold-vs-warm gaps
+     are printed), the lanes' mean within max(CRE_MEAN_DELTA,
+     CRE_MEAN_SES standard errors));
+     every exact and neighbor group with incidence tables repeats its bits
+     when run again; one
+     level's k = 10 batched iterations (suite A L0 neighbor, suite B L0
+     grid) held to the single-graph cached step, within twice its spread
+     (between its runs, or from the CPU's run of the step).
+     Sequential layouts sum edges with ``index_add_`` atomics on the card,
+     so batched and sequential cannot agree bit for bit there;
+  8. the ``{"kernels": [...]}`` summary, the card line, and
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports neither JAX nor the JAX package.
@@ -135,6 +183,26 @@ MUFU_PER_S = 16 * 132 * 1.98e9
 RTOL = 1e-4                      # kernel vs plain: sums in another order
 ATOL_FRAC = 1e-5                 # atol = ATOL_FRAC * max|plain|
 NELD_DELTA, CRE_DELTA = 0.05, 0.15
+# a batched lane's final CRE against its other run: each lane within
+# max(CRE_DELTA, CRE_SPREAD_MULT × CRE's spread over the seed), the median
+# over the lanes of the gap between the batched run and one of the same
+# graphs with every seed moved by SPREAD_SEED (phase 4e's rule: twice a
+# median spread); the lanes' mean gap within max(CRE_MEAN_DELTA,
+# CRE_MEAN_SES standard errors of that mean, from the lanes' own gaps).
+# The final CRE is chaotic: any change of rounding order (the sequential
+# driver's ``index_add_`` atomics, the placer's) may tip a lane into another
+# basin. On an NVIDIA H100 80GB HBM3 (700 W), suite A's lanes moved from
+# their sequential runs by up to 0.72 (gila) and 0.57 (stress), while two
+# batched runs of them, cold and warm, differed by up to 0.35 and 0.57 in
+# one call and by 0.18 and 0.088 in another: how many lanes the placer's
+# atomics tip over varies from run to run, so that gap is no yardstick (a
+# stress lane 0.37 from its sequential run failed a bound of 3 × a
+# cold-vs-warm gap under 0.05). A moved seed tips every lane, so the
+# median of 64 gaps is steady. The mean over 64 lanes moved by
+# 0.033 (standard error 0.015), over phase 5d's 8 lanes, card against CPU,
+# by 0.016 and 0.017 (0.018 and 0.017), sequential and batched
+CRE_SPREAD_MULT, CRE_MEAN_DELTA, CRE_MEAN_SES = 2.0, 0.05, 4.0
+SPREAD_SEED = 1
 # flat driver, card vs CPU after 5 iterations from one random init: max
 # |Δpos|. On the CPU, the port's distance from JAX there is 0.0039 and JAX's
 # distance from its own rerun from an init moved by one float32 ulp 0.014
@@ -142,15 +210,39 @@ NELD_DELTA, CRE_DELTA = 0.05, 0.15
 # by up to 9 on delaunay(5000) when the init moves by one ulp)
 FLAT_EARLY_TOL = 0.05
 WEIGHT_LO, WEIGHT_HI = 0.5, 2.0       # per-edge weights, uniform from seed 0
-# eager runs whose pairwise distances give the spread a replay is held to.
-# A distance is the mean over the valid vertices of max(|Δx|, |Δy|): the
-# largest |Δpos| of two runs after k chaotic iterations is set by a few
-# vertices whose grid cell flips, so it takes a few discrete values (0.037,
-# 0.05, 0.10, 0.135 at level 0 of delaunay(1M) on an H100) and varies ~7×
-# from pair to pair at level 2. The medians of the two samples are compared: the
-# replay's distances from the 6 runs, and the 15 distances between them
-EAGER_RUNS = 6
+# eager runs (and as many replays) whose pairwise distances give the spread
+# a replay is held to. A distance is the mean over the valid vertices of
+# max(|Δx|, |Δy|): the largest |Δpos| of two runs after k chaotic
+# iterations is set by a few vertices whose grid cell flips, so it takes a
+# few discrete values (0.037, 0.05, 0.10, 0.135 at level 0 of delaunay(1M)
+# on an H100) and varies ~7× from pair to pair at level 2. Medians are
+# compared: of the 100 replay-to-eager distances and of the 45 distances
+# between two replays, each against the 45 between two eager runs
+EAGER_RUNS = 10
+# how far those medians may lie from the eager runs' (phases 4e, 4b).
+# Replays order their ``index_add_`` sums from another distribution than
+# eager calls: at level 2 of delaunay(1M) (neighbor, k = 10; NVIDIA H100
+# 80GB HBM3, 700 W) the median distance between two replays ran 1.52 and
+# 2.20× that between two eager runs in two calls of one tree, the
+# replay-to-eager median 1.40 and 2.09×, from 6 runs of each. A
+# captured step that reads a stale buffer or races moves a vertex by a
+# force step, orders of magnitude past either
+REPLAY_FACTOR = 4.0
+# the floor of that eager spread, in float32 terms: the distance of two
+# runs in which FLOOR_ULPS vertices moved by one ulp of the level's largest
+# |coordinate|. At an exact level the eager runs mostly repeat their bits
+# (a spread of 0) while a replay sums its edges in another order: at level
+# 4 of delaunay(1M) (632 vertices, k = 10) a replay moved by at most
+# 9.5367431640625e-07 from six eager runs that agreed, a distance of
+# 7.2148029772733935e-09, about 2.4 such ulps over the level (NVIDIA H100
+# 80GB HBM3, 700 W)
+FLOOR_ULPS = 8
 N_MAIN = 1_000_000
+# the batched driver's suites: (graphs, vertices, first seed) of
+# generators.delaunay, as a layout service's tenants submit them
+SUITE_A = (64, 5_000, 100)
+SUITE_B = (8, 50_000, 200)
+LANES_5D = 8                          # suite A's first graphs, card vs CPU
 LM_ARCH = "internlm2-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
@@ -275,13 +367,15 @@ _REPS = dict(nbody=(50, 10, 200, 5), neighbor_force=(50, 10, 200, 5),
 
 
 def _force_case(name, args, consts):
-    """(kernel call, plain call, bytes, pairs) of one force kernel on the
-    tensors ``args`` with the force constants ``consts``: host (C, L,
-    min_dist), staged on the card, or a tensor (C·L², md²) on the card as
-    the path passes them. A tree whose wrappers take host ``C, L,
-    min_dist`` (``--compare``) is handed those. Bytes count each input once
-    and the output once, for the valid vertices where padding rows are
-    skipped; pairs are those that this input needs."""
+    """(kernel call, plain call, bytes, pairs, one-lane call) of one force
+    kernel on the tensors ``args`` with the force constants ``consts``: host
+    (C, L, min_dist), staged on the card, or a tensor (C·L², md²) on the
+    card as the path passes them. A tree whose wrappers take host ``C, L,
+    min_dist`` (``--compare``) is handed those, and has no one-lane call
+    (None). The one-lane call hands the wrapper the same inputs with a lane
+    axis of 1 (the batched driver's form). Bytes count each input once and
+    the output once, for the valid vertices where padding rows are skipped;
+    pairs are those that this input needs."""
     import inspect
 
     import torch
@@ -303,12 +397,23 @@ def _force_case(name, args, consts):
     if "C" in inspect.signature(nbody_repulsion).parameters:
         kw = dict(zip(("C", "L", "min_dist"),
                       host or _host_consts(consts)))
+        lane = None
     else:
         kw = dict(consts=consts)
+        lane = dict(consts=consts[None])
+
+    def one_lane(fn, *tensors, shared=()):
+        """``fn`` on ``tensors`` as one lane (``shared`` passed as they
+        are, after them)."""
+        if lane is None:
+            return None
+        t = [x[None] for x in tensors]
+        return lambda: fn(*t, *shared, **lane)
     if name == "nbody":
         pos, mass, vmask = args
         nv = int(vmask.sum())
         f = lambda: nbody_repulsion(pos, mass, vmask, **kw)
+        f1 = one_lane(nbody_repulsion, pos, mass, vmask)
         p = lambda: nbody_repulsion_ref(pos, mass, vmask, cl2, md2)
         nbytes, pairs = 21 * pos.shape[0], nv * nv
     elif name == "neighbor_force":
@@ -316,6 +421,8 @@ def _force_case(name, args, consts):
         K = int(nbr_idx.shape[1])
         f = lambda: neighbor_repulsion(pos, mass, nbr_idx, nbr_mask, vmask,
                                        **kw)
+        f1 = one_lane(neighbor_repulsion, pos, mass, nbr_idx, nbr_mask,
+                      vmask)
         p = lambda: neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask,
                                            vmask, cl2, md2)
         nv = int(vmask.sum())        # rows outside vmask skip their list
@@ -326,6 +433,9 @@ def _force_case(name, args, consts):
         nc, cap = bucket.shape[0] - 1, bucket.shape[1]
         f = lambda: grid_ops.grid_near(pos, mass, vmask, bucket, table,
                                        **kw)
+        f1 = (None if lane is None else
+              lambda: grid_ops.grid_near(pos[None], mass[None], vmask[None],
+                                         bucket[None], table, **lane))
         p = lambda: grid_near_ref(pos, mass, vmask, bucket, table, cl2, md2)
         nbytes = 21 * pos.shape[0] + 4 * (nc + 1) * cap + 36 * (nc + 1)
         pairs = _near_pairs(bucket, table, pos.shape[0])
@@ -333,12 +443,13 @@ def _force_case(name, args, consts):
         pos, cell_xyw, vmask = args
         nc = cell_xyw.shape[0]
         f = lambda: grid_ops.grid_far(pos, cell_xyw, **kw)
+        f1 = one_lane(grid_ops.grid_far, pos, cell_xyw)
         p = lambda: grid_far_ref(pos, cell_xyw, cl2, md2)
         nv = int(vmask.sum())        # padding rows' output is discarded
         nbytes, pairs = 16 * nv + 12 * nc, nv * nc
     else:
         raise ValueError(name)
-    return f, p, nbytes, pairs
+    return f, p, nbytes, pairs, f1
 
 
 def _shape_label(shape: dict) -> str:
@@ -358,16 +469,23 @@ def time_force_case(name, args, consts, shape, inputs, launches=0,
     included), beside the plain version's time (unless ``time_plain`` is
     false) and the bound. Returns the row for the ``{"kernels": [...]}``
     line; the printed line adds the pairs, for the grid kernels the MUFU
-    ceiling, and the ``tree`` timed where it is not this checkout."""
+    ceiling, the ``tree`` timed where it is not this checkout, and
+    ``b1_ms``: the same inputs handed over as one lane (``[None]``), timed
+    as ``ms`` is, whose bits must equal the call's."""
     import torch
-    f, p, nbytes, pairs = _force_case(name, args, consts)
+    f, p, nbytes, pairs, f1 = _force_case(name, args, consts)
+    if tree is not None:                # another tree's wrappers: no lanes
+        f1 = None
     out, again = f(), f()
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two calls on one input differ")
+    if f1 is not None and not torch.equal(f1()[0], out):
+        raise AssertionError(f"{name}: the one-lane call differs")
     err = _compare(name, out, p())
     calls, replays, eager, plain_reps = _REPS[name]
     ms = _graph_ms(f, calls, replays)
+    b1_ms = None if f1 is None else _graph_ms(f1, calls, replays)
     eager_ms = _per_call_ms(f, eager)
     plain_ms = _per_call_ms(p, plain_reps,
                             batches=1 if name == "grid_far" else 3) \
@@ -378,7 +496,7 @@ def time_force_case(name, args, consts, shape, inputs, launches=0,
                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by, library_ms=None, inputs=inputs,
                shape=_shape_label(shape), eager_ms=eager_ms)
-    more = dict(pairs=pairs)
+    more = dict(pairs=pairs, b1_ms=b1_ms)
     if name != "nbody":
         more["mufu_ms"] = pairs / MUFU_PER_S * 1e3
     if tree is not None:
@@ -423,7 +541,7 @@ def random_input_cases(graphs, scheds, device) -> list:
     cases.append(("grid_near", (pos, g.mass, g.vmask, bucket, table), consts,
                   dict(level=i, n=g.n, n_pad=g.n_pad, G=G, cap=cap)))
     w = torch.where(g.vmask, g.mass, 0.0)
-    M, _, mu = grid_ops._cell_aggregates(pos, w, cid.long(), nc)
+    M, _, mu = grid_ops._cell_aggregates(pos, w, cid.long(), nc + 1)
     cell_xyw = torch.cat([mu[:nc], M[:nc, None]], dim=1)
     cases.append(("grid_far", (pos, cell_xyw, g.vmask), consts,
                   dict(level=i, n=g.n, n_pad=g.n_pad, cells=nc)))
@@ -435,17 +553,18 @@ class PathInputs:
     ``core/gila.py`` (nbody, neighbor_force) and
     ``kernels/grid_force/ops.py`` (grid_near, grid_far) call: keeps the
     arguments of the first call at each level and counts the calls at each.
-    A level is its graph's vmask tensor, held here so its id stays its own;
-    grid_far takes no vmask and is filed under the level of the grid_near
-    call that ``grid_repulsion`` makes just before it. The constants are the
-    call's last argument (C·L², md²), a view of the level's schedule row,
-    copied. Record during a run whose refine is the eager loop
+    A level is its graph's vmask storage, held here so its address stays
+    its own; grid_far takes no vmask and is filed under the level of the
+    grid_near call that ``grid_repulsion`` makes just before it.
+    ``grid_repulsion`` hands both grid kernels its level as one lane
+    (``[1, ...]``), which is taken off here. The constants are the call's
+    last argument (C·L², md²), a view of the level's schedule row, copied. Record during a run whose refine is the eager loop
     (``EagerRefine``): a replayed step makes no Python call. The package
     itself has no hook: the names are put back on exit."""
 
     def __init__(self):
-        self.cases = {}     # (name, id(vmask)) → (args, consts, vmask)
-        self.calls = {}     # (name, id(vmask)) → calls
+        self.cases = {}     # (name, vmask address) → (args, consts, vmask)
+        self.calls = {}     # (name, vmask address) → calls
         self._near = None   # the last grid_near call's vmask
 
     def _wrap(self, module, attr, name, record):
@@ -453,21 +572,26 @@ class PathInputs:
 
         def wrapper(*args):
             vmask, keep = record(*args)
-            key = (name, id(vmask))
+            key = (name, vmask.data_ptr())
             if key not in self.cases:
-                self.cases[key] = (keep(), args[-1].clone(), vmask)
+                self.cases[key] = (keep(), args[-1].reshape(2).clone(),
+                                   vmask)
             self.calls[key] = self.calls.get(key, 0) + 1
             return real(*args)
         self._saved.append((module, attr, real))
         setattr(module, attr, wrapper)
 
     def _grid_far(self, pos, cells, *c):
+        if pos.dim() == 3:                       # one lane
+            pos, cells = pos[0], cells[0]
         if self._near is None or self._near.shape[0] != pos.shape[0]:
             raise AssertionError("grid_far without its level's grid_near")
         vmask = self._near
         return vmask, lambda: (pos.clone(), cells.clone(), vmask)
 
     def _grid_near(self, pos, mass, vmask, bucket, table, *c):
+        if pos.dim() == 3:                       # one lane
+            pos, mass, vmask, bucket = pos[0], mass[0], vmask[0], bucket[0]
         self._near = vmask
         return vmask, lambda: (pos.clone(), mass, vmask, bucket, table)
 
@@ -520,26 +644,29 @@ class PathInputs:
 
 def profile_run(fn) -> dict:
     """One more run of ``fn`` under torch.profiler — device time by kernel
-    and the device's busy share of the wall clock. The profiler slows the
-    host, so the wall here is longer than the unprofiled run's."""
+    and the device's busy share of the wall clock. Only device activity is
+    recorded, and read from the profiler's raw results: host ops would
+    inflate the idle share, and building the profiler's Python event tree
+    for the batched phase's runs takes longer than the runs. The profiler
+    still slows the host, so the wall here is longer than the unprofiled
+    run's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        ms, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
-                           cnt + 1)
+        s, t = e.start_ns() / 1e3, e.end_ns() / 1e3       # µs
+        spans.append((s, t))
+        ms, cnt = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + (t - s) / 1e3, cnt + 1)
     if not spans:
         raise AssertionError("profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
@@ -870,7 +997,7 @@ def stress_constant_checks(cases) -> list:
         C, L, md = consts
         for alpha in (ALPHA0, ALPHA0 * ALPHA_SHRINK):
             ca = float(np.float32(alpha) * np.float32(C))
-            f, p, _, _ = _force_case(name, args, (ca, L, md))
+            f, p, _, _, _ = _force_case(name, args, (ca, L, md))
             out, again = f(), f()
             torch.cuda.synchronize()
             if not torch.equal(out, again):
@@ -1040,17 +1167,29 @@ def refine_breakdown(graphs, scheds, engine) -> dict:
     return res
 
 
+def _spread_floor(pos, vmask) -> float:
+    """FLOOR_ULPS float32 ulps of the largest |coordinate| of ``pos``'s
+    valid rows, over the count of those rows: the distance of two runs in
+    which FLOOR_ULPS vertices moved by one such ulp."""
+    import math
+    scale = float(pos[vmask].abs().max())
+    ulp = 2.0 ** (math.frexp(scale)[1] - 24) if scale > 0 else 2.0 ** -149
+    return FLOOR_ULPS * ulp / int(vmask.sum())
+
+
 def replay_vs_eager(graphs, scheds, engine, k=10) -> list:
     """Phase 4e (gila; stress in 4b): at the largest level of each mode of
-    the main path's hierarchy, k iterations replayed from the cached entry
-    against EAGER_RUNS runs of the engine's eager loop, from one drawn pos0:
-    the median of the replay's distances (mean over the valid vertices of
-    max(|Δx|, |Δy|)) from the eager runs within twice the median distance
-    between two eager runs (the spread of ``index_add_``'s atomics) — or
-    the replay's bits equal to an eager run's, which settles a level where
-    eager runs mostly repeat each other (a median spread of 0) — and the
-    replays' launches equal to the eager loop's. The largest |Δpos| of each
-    sample is printed beside them."""
+    the main path's hierarchy, k iterations replayed from the cached entry,
+    EAGER_RUNS times, against EAGER_RUNS runs of the engine's eager loop,
+    from one drawn pos0. The yardstick is the median distance (mean over
+    the valid vertices of max(|Δx|, |Δy|)) between two eager runs — the
+    spread of ``index_add_``'s atomics — floored at FLOOR_ULPS float32 ulps
+    (``_spread_floor``: at an exact level the eager runs mostly agree while
+    a replay sums in another order, ``ROADMAP.md`` queue 3). Within
+    REPLAY_FACTOR times it must lie the median replay-to-eager distance and
+    the median distance between two replays (so replays that scatter among
+    themselves fail too); a replay's launches must equal an eager run's.
+    The largest |Δpos| of each sample is printed beside them."""
     import dataclasses
 
     import numpy as np
@@ -1079,27 +1218,33 @@ def replay_vs_eager(graphs, scheds, engine, k=10) -> list:
         if fresh:
             prog.run(*args)                      # warm-up and capture
         _build.launches.clear()
-        out = prog.run(*args)
+        outs = [prog.run(*args) for _ in range(EAGER_RUNS)]
         torch.cuda.synchronize()
         dist = lambda a, b: float((a - b).abs().amax(dim=1)[g.vmask].mean())
-        pairs = [dist(a, b) for j, a in enumerate(eager) for b in eager[j + 1:]]
-        replay = [dist(out, e) for e in eager]
+        within = lambda xs: [dist(a, b) for j, a in enumerate(xs)
+                             for b in xs[j + 1:]]
+        pairs, rpairs = within(eager), within(outs)
+        replay = [dist(o, e) for o in outs for e in eager]
+        floor = _spread_floor(eager[0], g.vmask)
         row = dict(replay_vs_eager=engine, mode=mode, level=i, n=g.n,
                    n_pad=g.n_pad, iterations=k, fresh_entry=fresh,
                    replay_distance=float(np.median(replay)),
                    eager_spread=float(np.median(pairs)),
+                   replay_spread=float(np.median(rpairs)),
+                   spread_floor=floor,
                    replay_distances=replay, eager_distances=pairs,
-                   max_abs_diff=max(float((out - e).abs().max())
-                                    for e in eager),
+                   replay_pair_distances=rpairs,
+                   max_abs_diff=max(float((o - e).abs().max())
+                                    for o in outs for e in eager),
                    eager_max_abs_diff=max(float((a - b).abs().max())
                                           for j, a in enumerate(eager)
                                           for b in eager[j + 1:]),
-                   launches=dict(_build.launches),
+                   launches={name: c // EAGER_RUNS
+                             for name, c in _build.launches.items()},
                    eager_launches=eager_launches)
-        row["repeats_an_eager_run"] = min(replay) == 0.0
+        row["bound"] = REPLAY_FACTOR * max(row["eager_spread"], floor)
         print(json.dumps(row), flush=True)
-        if (row["replay_distance"] > 2 * row["eager_spread"]
-                and not row["repeats_an_eager_run"]):
+        if max(row["replay_distance"], row["replay_spread"]) > row["bound"]:
             raise AssertionError(f"replay vs eager: {row}")
         if row["launches"] != eager_launches:
             raise AssertionError(f"replay launches: {row}")
@@ -1185,19 +1330,21 @@ def flat_path(edges, n, main_wall, main_neld) -> dict:
 
 def _assert_hierarchies_equal(label, card, cpu) -> None:
     """Level sizes and every coarse-graph and LevelInfo array equal, bit for
-    bit (card tensors against CPU tensors)."""
+    bit (two hierarchies on any devices: card against CPU, or two runs)."""
     import torch
     (gc, ic), (gh, ih) = card, cpu
     if [(g.n, g.m) for g in gc] != [(g.n, g.m) for g in gh]:
-        raise AssertionError(f"{label}: level sizes differ, card vs CPU")
+        raise AssertionError(f"{label}: level sizes differ")
     for a, b in zip(ic, ih):
         for field in ("parent_coarse", "sun_of", "depth", "state",
                       "sun_pos_index"):
-            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
-                raise AssertionError(f"{label}: {field} differs, card vs CPU")
+            if not torch.equal(getattr(a, field).cpu(),
+                               getattr(b, field).cpu()):
+                raise AssertionError(f"{label}: {field} differs")
     for a, b in zip(gc, gh):
         for field in ("src", "dst", "vmask", "emask", "mass", "ewt"):
-            if not torch.equal(getattr(a, field).cpu(), getattr(b, field)):
+            if not torch.equal(getattr(a, field).cpu(),
+                               getattr(b, field).cpu()):
                 raise AssertionError(f"{label}: coarse graph {field} differs")
 
 
@@ -1325,6 +1472,644 @@ def cli_on_card() -> dict:
                launches=launches)
     print(json.dumps(res), flush=True)
     return res
+
+
+# -- the batched driver (phases 3d, 5d, 7) ----------------------------------------
+
+def cre_card(pos, edges, block: int = 2048) -> float:
+    """``graphs.metrics.cre`` (crossings per edge over the canonical edge
+    list) computed on the card with the same float32 orientation tests:
+    the host count takes seconds a 5k layout, and the batched phase scores
+    hundreds. Checked against the host count in ``many_suite``."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.graph import canonical_edges
+
+    e = canonical_edges(edges)
+    m = int(e.shape[0])
+    if m < 2:
+        return 0.0
+    E = torch.from_numpy(e).cuda()
+    P = torch.from_numpy(np.asarray(pos, np.float32)).cuda()
+    P1, P2 = P[E[:, 0]], P[E[:, 1]]
+
+    def orient(a, b, c):
+        return ((b[:, None, 0] - a[:, None, 0]) * (c[None, :, 1] - a[:, None, 1])
+                - (b[:, None, 1] - a[:, None, 1]) * (c[None, :, 0] - a[:, None, 0]))
+
+    total = 0
+    ids = torch.arange(m, device="cuda")
+    for i0 in range(0, m, block):
+        i1 = min(i0 + block, m)
+        ei, ej = E[i0:i1], E[i0:]
+        share = ((ei[:, 0, None] == ej[None, :, 0])
+                 | (ei[:, 0, None] == ej[None, :, 1])
+                 | (ei[:, 1, None] == ej[None, :, 0])
+                 | (ei[:, 1, None] == ej[None, :, 1])
+                 | (ids[i0:] [None, :] <= ids[i0:i1, None]))
+        a1, a2, b1, b2 = P1[i0:i1], P2[i0:i1], P1[i0:], P2[i0:]
+        proper = ((orient(a1, a2, b1) * orient(a1, a2, b2) < 0)
+                  & (orient(b1, b2, a1).T * orient(b1, b2, a2).T < 0))
+        total += int((proper & ~share).sum())
+    return 2.0 * total / m
+
+
+class ManyRecorder:
+    """For the length of one run, wraps what the batched driver reaches
+    through module attributes, and puts each back on exit (the package has
+    no hook): ``WaveScheduler.step`` (each wave's groups),
+    ``bucketing.refine_level_many`` (each group: its key, lane bucket, live
+    lanes and largest iteration budget; with ``requests``, its requests,
+    keywords and outputs too) and ``multilevel.build_hierarchy`` (each
+    hierarchy built, in call order). With ``kernels`` (a dict), the force
+    kernels' arguments at their first eager call at each lane shape are
+    kept there, with the group that made the call — calls during a CUDA
+    graph capture read no data and are skipped (phase 3d)."""
+
+    def __init__(self, requests=False, kernels=None):
+        self.requests, self.kernels = requests, kernels
+        self.waves, self.groups, self.hierarchies = [], [], []
+        self._group = None
+
+    def _patch(self, owner, attr, fn):
+        self._saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, fn)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import bucketing, gila, multilevel
+        from repro_torch.graphs import packing
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        self._saved = []
+        real_step = multilevel.WaveScheduler.step
+        real_many = bucketing.refine_level_many
+        real_hier = multilevel.build_hierarchy
+
+        def step(sched, **kw):
+            out = real_step(sched, **kw)
+            if out["lanes"]:
+                self.waves.append([n for _, n in out["groups"]])
+            return out
+
+        def many(reqs, **kw):
+            grp = dict(key=bucketing.group_key(reqs[0]),
+                       lanes=packing.lane_bucket(len(reqs),
+                                                 kw.get("lanes_min", 8)),
+                       live=len(reqs),
+                       max_iters=max(r.sched.iters for r in reqs))
+            self.groups.append(grp)
+            self._group = grp
+            out = real_many(reqs, **kw)
+            if self.requests:
+                grp.update(reqs=reqs, kw=kw, out=[o.clone() for o in out])
+            return out
+
+        def hier(g0, cfg, *, device=None):
+            h = real_hier(g0, cfg, device=device)
+            self.hierarchies.append(h)
+            return h
+
+        self._patch(multilevel.WaveScheduler, "step", step)
+        self._patch(bucketing, "refine_level_many", many)
+        self._patch(multilevel, "build_hierarchy", hier)
+        if self.kernels is not None:
+            shapes = dict(
+                nbody=lambda pos, *a: (),
+                neighbor_force=lambda pos, mass, nbr, *a: (nbr.shape[2],),
+                grid_near=lambda pos, mass, vmask, bucket, *a:
+                    tuple(bucket.shape[1:]),
+                grid_far=lambda pos, cells, *a: (cells.shape[1],))
+            for owner, attr, name in (
+                    (gila, "nbody_repulsion", "nbody"),
+                    (gila, "neighbor_repulsion", "neighbor_force"),
+                    (grid_ops, "grid_near", "grid_near"),
+                    (grid_ops, "grid_far", "grid_far")):
+                self._patch(owner, attr, self._kernel(
+                    getattr(owner, attr), name, shapes[name], torch))
+        return self
+
+    def _kernel(self, real, name, shape_of, torch):
+        def wrapper(*args):
+            pos = args[0]
+            if pos.dim() == 3 and not torch.cuda.is_current_stream_capturing():
+                key = (name, pos.shape[0], pos.shape[1]) + shape_of(*args)
+                if key not in self.kernels:
+                    self.kernels[key] = (
+                        tuple(a.clone() for a in args[:-1]), args[-1].clone(),
+                        self._group)
+            return real(*args)
+        return wrapper
+
+    def __exit__(self, *exc):
+        for owner, attr, real in reversed(self._saved):
+            setattr(owner, attr, real)
+        return False
+
+    def launches(self) -> dict:
+        """What the recorded groups launch, by shape as the wrappers count
+        it (``_build.shape_launches``): each group its largest budget of
+        iterations, one launch an iteration of its mode's kernels, at
+        (name, lanes, n_pad, the kernel's other extents)."""
+        out = {}
+        for g in self.groups:
+            _, n_pad, _, K, _, mode, G, cap = g["key"]
+            B = g["lanes"]
+            shapes = dict(exact=[("nbody", B, n_pad)],
+                          neighbor=[("neighbor_force", B, n_pad, K)],
+                          grid=[("grid_near", B, n_pad, G * G + 1, cap),
+                                ("grid_far", B, n_pad, G * G)])[mode]
+            for key in shapes:
+                out[key] = out.get(key, 0) + g["max_iters"]
+        return out
+
+
+def _suite(n_graphs, n, seed0):
+    from repro_torch.graphs import generators
+    return [generators.delaunay(n, seed=seed0 + i) for i in range(n_graphs)]
+
+
+def _suite_weights(graphs):
+    import numpy as np
+    return [np.random.default_rng(i).uniform(WEIGHT_LO, WEIGHT_HI, len(e))
+            .astype(np.float32) for i, (e, _) in enumerate(graphs)]
+
+
+def _batched_run(label, graphs, cfg, *, engines=None, weights=None,
+                 device=None, kernels=None, requests=False,
+                 seeds=None) -> dict:
+    """One ``multigila_layout_many`` call with the launch counts set to 0
+    just before it and read just after, under a ``ManyRecorder``: wall,
+    graphs/s, phase seconds (the graphs' sums), the cache's
+    entries/hits/misses, resident and peak GB, waves and groups a wave,
+    launches by kernel and by shape (on the card, each shape's count must
+    equal the budgets of the groups at that shape), and every position
+    finite."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bucketing, multigila_layout_many
+    from repro_torch.kernels import _build
+
+    cuda = device is None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with ManyRecorder(requests=requests, kernels=kernels) as rec:
+        _build.launches.clear()
+        _build.shape_launches.clear()
+        t0 = time.perf_counter()
+        outs = multigila_layout_many(graphs, cfg, seeds=seeds,
+                                     engines=engines, weights=weights,
+                                     device=device)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        shape_launches = dict(_build.shape_launches)
+    for (e, n), (pos, _) in zip(graphs, outs):
+        if pos.shape != (n, 2) or not np.isfinite(pos).all():
+            raise AssertionError(f"{label}: positions not finite")
+    want = rec.launches()
+    by_name = {}
+    for key, c in shape_launches.items():
+        by_name[key[0]] = by_name.get(key[0], 0) + c
+    if cuda and (shape_launches != want or launches != by_name):
+        raise AssertionError(f"{label}: launched {shape_launches}, the "
+                             f"groups' budgets make {want}")
+    phases = {k: sum(s.phase_seconds[k] for _, s in outs)
+              for k in outs[0][1].phase_seconds}
+    res = dict(wall_s=wall, graphs_per_s=len(graphs) / wall,
+               phase_s=phases, waves=len(rec.waves),
+               groups_per_wave=[len(w) for w in rec.waves],
+               lanes_per_group=[g["live"] for g in rec.groups],
+               lane_buckets=[g["lanes"] for g in rec.groups],
+               launches=launches,
+               shape_launches={" ".join(map(str, k)): c
+                               for k, c in shape_launches.items()},
+               cache=bucketing.cache_stats())
+    if cuda:
+        res.update(resident_gb=torch.cuda.memory_allocated() / 1e9,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps({label: res}), flush=True)
+    return dict(res, outs=outs, rec=rec, shape_counts=shape_launches)
+
+
+def _sequential_run(label, graphs, cfg, *, engines=None, weights=None,
+                    device=None) -> dict:
+    """The same graphs through ``multigila_layout`` one at a time."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import multigila_layout
+    from repro_torch.kernels import _build
+    with ManyRecorder() as rec:
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        outs = [multigila_layout(
+            e, n, cfg if engines is None else dataclasses.replace(
+                cfg, engine=engines[i]),
+            weights=None if weights is None else weights[i], device=device)
+            for i, (e, n) in enumerate(graphs)]
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+    for (e, n), (pos, _) in zip(graphs, outs):
+        if pos.shape != (n, 2) or not np.isfinite(pos).all():
+            raise AssertionError(f"{label}: positions not finite")
+    phases = {k: sum(s.phase_seconds[k] for _, s in outs)
+              for k in outs[0][1].phase_seconds}
+    res = dict(wall_s=wall, graphs_per_s=len(graphs) / wall,
+               phase_s=phases, launches=launches)
+    print(json.dumps({label: res}), flush=True)
+    return dict(res, outs=outs, rec=rec)
+
+
+def _lanes_against(label, graphs, batched, other, *,
+                   cre_spread=None, lane_cre=True) -> dict:
+    """Each lane against the same graph's other run: hierarchy (level
+    sizes, modes, every array) bit for bit and NELD within NELD_DELTA.
+    With ``cre_spread`` (the median CRE gap between two batched runs of the
+    same graphs on the card, the seeds moved in one, ``_cre_gaps``), CRE
+    too (crossings counted on the card, ``cre_card``): each lane within
+    max(CRE_DELTA, CRE_SPREAD_MULT × cre_spread) (unless ``lane_cre`` is
+    False: then the lanes are printed, not held) and the lanes' mean gap
+    within max(CRE_MEAN_DELTA, CRE_MEAN_SES × its standard error).
+    A lane's final CRE is chaotic under the card's atomics (the placer's
+    and the sequential driver's ``index_add_``), so two batched runs of
+    one seed on the card differ by more than CRE_DELTA on some lanes
+    (``ROADMAP.md`` queue 3). Each lane's NELD and CRE on both sides are
+    printed, with both gaps, the bounds and the count of lanes past
+    CRE_DELTA."""
+    import numpy as np
+    from repro_torch.graphs.metrics import neld
+    ha, hb = batched["rec"].hierarchies, other["rec"].hierarchies
+    if len(ha) != len(graphs) or len(hb) != len(graphs):
+        raise AssertionError(f"{label}: {len(ha)} and {len(hb)} hierarchies "
+                             f"for {len(graphs)} graphs")
+    q = {"neld": [], "cre": []}
+    for i, ((e, n), (pa, sa), (pb, sb)) in enumerate(
+            zip(graphs, batched["outs"], other["outs"])):
+        _assert_hierarchies_equal(f"{label} graph {i}", ha[i], hb[i])
+        if (sa.level_sizes, sa.level_modes) != (sb.level_sizes,
+                                                sb.level_modes):
+            raise AssertionError(f"{label} graph {i}: levels or modes differ")
+        q["neld"].append((neld(pa, e), neld(pb, e)))
+        if cre_spread is not None:
+            q["cre"].append((cre_card(pa, e), cre_card(pb, e)))
+    gap = {k: [abs(a - b) for a, b in v] for k, v in q.items()}
+    res = dict(hierarchies_equal=len(graphs), levels_and_modes_equal=True,
+               max_neld_diff=max(gap["neld"]), neld=q["neld"],
+               cre=q["cre"] or None)
+    if cre_spread is not None:
+        d = np.array([a - b for a, b in q["cre"]])
+        se = float(d.std(ddof=1) / len(d) ** 0.5) if len(d) > 1 else 0.0
+        res.update(
+            max_cre_diff=max(gap["cre"]),
+            lane_cre_bound=(max(CRE_DELTA, CRE_SPREAD_MULT * cre_spread)
+                            if lane_cre else None),
+            cre_spread=cre_spread,
+            lanes_past_cre_delta=sum(x > CRE_DELTA for x in gap["cre"]),
+            mean_cre_diff=abs(float(d.mean())), mean_cre_se=se,
+            mean_cre_bound=max(CRE_MEAN_DELTA, CRE_MEAN_SES * se))
+    print(json.dumps({f"{label}_lanes": res}), flush=True)
+    if res["max_neld_diff"] > NELD_DELTA:
+        raise AssertionError(f"{label}: NELD {res['max_neld_diff']} apart")
+    if cre_spread is not None and (
+            (lane_cre and res["max_cre_diff"] > res["lane_cre_bound"])
+            or res["mean_cre_diff"] > res["mean_cre_bound"]):
+        raise AssertionError(f"{label}: CRE a lane {res['max_cre_diff']} "
+                             f"(bound {res['lane_cre_bound']}), the mean "
+                             f"{res['mean_cre_diff']} apart")
+    return res
+
+
+def _cre_gaps(label, graphs, one, two) -> dict:
+    """The card against itself: each lane's CRE in two batched runs of the
+    same graphs, their largest, median and mean gap printed and
+    returned."""
+    import numpy as np
+    gaps = [cre_card(a, e) - cre_card(b, e) for (e, _), (a, _), (b, _)
+            in zip(graphs, one["outs"], two["outs"])]
+    res = dict(max_abs=max(map(abs, gaps)),
+               median_abs=float(np.median(np.abs(gaps))),
+               mean=float(sum(gaps) / len(gaps)),
+               over_delta=sum(abs(x) > CRE_DELTA for x in gaps))
+    print(json.dumps({label: res}), flush=True)
+    return res
+
+
+def _repeats_its_bits(label, batched) -> dict:
+    """Each exact and neighbor group of a run with incidence tables (its
+    edge sums take no atomics) run again on its recorded requests: the
+    same bits. Grid groups sum their cells with ``index_add_``."""
+    import torch
+    from repro_torch.core import bucketing
+    checked = []
+    for g in batched["rec"].groups:
+        key = g["key"]
+        if key[5] == "grid" or key[4] == 0:
+            continue
+        again = bucketing.refine_level_many(g["reqs"], **g["kw"])
+        same = all(torch.equal(a, b) for a, b in zip(g["out"], again))
+        checked.append(dict(mode=key[5], n_pad=key[1], lanes=g["lanes"],
+                            live=g["live"], same_bits=same))
+        if not same:
+            raise AssertionError(f"{label}: a {key[5]} group at n_pad "
+                                 f"{key[1]} did not repeat its bits")
+    print(json.dumps({f"{label}_repeats_its_bits": checked}), flush=True)
+    return checked
+
+
+def batched_vs_single_step(label, batched, mode, k=10) -> dict:
+    """One level's k batched iterations (the first recorded group of
+    ``mode``) against the single-graph cached step on lane 0's request:
+    the median of the batched lane's distances from EAGER_RUNS
+    single-graph runs within twice the single step's own spread, the
+    larger of the median distance between two of its runs and the median
+    distance of its runs from the same step on the CPU, floored at
+    ``_spread_floor``. Replays of one captured step order their
+    ``index_add_`` sums alike, so two of them may agree far more closely
+    than either does with any other order of the same sums; the CPU sums
+    a level's edges in the batched lane's order (batched equals single
+    there bit for bit), so its distance from the card's single step
+    measures how far that other order moves a correct run in k
+    iterations (``ROADMAP.md`` queue 3)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import bucketing
+
+    g = next(g for g in batched["rec"].groups if g["key"][5] == mode)
+    reqs = [dataclasses.replace(r, sched=dataclasses.replace(r.sched,
+                                                             iters=k))
+            for r in g["reqs"]]
+    cfg_kw = dict(ideal_len=1.0, rep_const=1.0)
+    lane = bucketing.refine_level_many(reqs, **cfg_kw)[0]
+    r = reqs[0]
+    runs = [bucketing.refine_level(r.g, r.pos0, r.sched, seed=r.seed,
+                                   **cfg_kw) for _ in range(EAGER_RUNS)]
+    torch.cuda.synchronize()
+    g_cpu = dataclasses.replace(r.g, **{
+        f.name: getattr(r.g, f.name).cpu()
+        for f in dataclasses.fields(r.g)
+        if isinstance(getattr(r.g, f.name), torch.Tensor)})
+    on_cpu = bucketing.refine_level(g_cpu, r.pos0.cpu(), r.sched,
+                                    seed=r.seed, **cfg_kw)
+    vm = r.g.vmask.cpu()
+    dist = lambda a, b: float((a.cpu() - b.cpu()).abs().amax(dim=1)[vm]
+                              .mean())
+    pairs = [dist(a, b) for j, a in enumerate(runs) for b in runs[j + 1:]]
+    to_lane = [dist(lane, x) for x in runs]
+    to_cpu = [dist(on_cpu, x) for x in runs]
+    floor = _spread_floor(runs[0], r.g.vmask)
+    spread = max(float(np.median(pairs)), float(np.median(to_cpu)), floor)
+    row = dict(batched_vs_single=label, mode=mode, n_pad=r.g.n_pad,
+               lanes=g["lanes"], iterations=k,
+               batched_distance=float(np.median(to_lane)),
+               single_spread=float(np.median(pairs)),
+               single_to_cpu=float(np.median(to_cpu)),
+               batched_to_cpu=dist(lane, on_cpu), spread_floor=floor,
+               bound=2 * spread)
+    print(json.dumps(row), flush=True)
+    if row["batched_distance"] > row["bound"]:
+        raise AssertionError(f"batched vs single step: {row}")
+    return row
+
+
+def many_suite(label, graphs, cfg, *, kernels=None, engines=None,
+               weights=None, cre_too=False, single_step_mode=None) -> dict:
+    """Phase 7 for one suite: ``multigila_layout_many`` cold (cache
+    cleared) and warm, the warm run profiled, then the same graphs through
+    warm sequential ``multigila_layout`` calls; each lane against its
+    sequential run (``_lanes_against``), the groups' bits repeated, and the
+    speed of both. With ``cre_too``, the lanes' CRE too, held to a bound
+    set from the warm run against one with every seed moved by SPREAD_SEED
+    (CRE's spread over the seed on the card; the cold run against the warm
+    one is printed beside it), and ``cre_card`` is checked against the
+    host's count on one lane."""
+    import torch
+    from repro_torch.core import bucketing
+    from repro_torch.core import multigila_layout_many
+    from repro_torch.graphs.metrics import cre
+
+    runs = {}
+    bucketing.STEP_CACHE.clear()
+    torch.cuda.empty_cache()
+    runs["cold"] = _batched_run(f"{label}_batched_cold", graphs, cfg,
+                                engines=engines, weights=weights,
+                                kernels=kernels)
+    runs["warm"] = _batched_run(f"{label}_batched_warm", graphs, cfg,
+                                engines=engines, weights=weights,
+                                requests=True)
+    prof = profile_run(lambda: (multigila_layout_many(
+        graphs, cfg, engines=engines, weights=weights), None))
+    # the single-graph entries warmed by the first graph, then timed
+    _sequential_run(f"{label}_sequential_warm_up", graphs[:1], cfg,
+                    engines=engines, weights=weights and weights[:1])
+    runs["seq"] = _sequential_run(f"{label}_sequential", graphs, cfg,
+                                  engines=engines, weights=weights)
+    spread = cold_warm = None
+    if cre_too:
+        moved = _batched_run(f"{label}_batched_seeds_moved", graphs, cfg,
+                             engines=engines, weights=weights,
+                             seeds=[cfg.seed + SPREAD_SEED] * len(graphs))
+        spread = _cre_gaps(f"{label}_cre_seed_spread", graphs, runs["warm"],
+                           moved)
+        del moved
+        cold_warm = _cre_gaps(f"{label}_cre_cold_vs_warm", graphs,
+                              runs["cold"], runs["warm"])
+    lanes = _lanes_against(label, graphs, runs["warm"], runs["seq"],
+                           cre_spread=spread and spread["median_abs"])
+    if cre_too:
+        lanes["cre_seed_spread"] = spread
+        lanes["cre_cold_vs_warm"] = cold_warm
+        e, _ = graphs[0]
+        pos = runs["warm"]["outs"][0][0]
+        if abs(cre_card(pos, e) - cre(pos, e)) > 1e-3:
+            raise AssertionError(f"{label}: cre_card {cre_card(pos, e)}, "
+                                 f"host {cre(pos, e)}")
+    repeats = _repeats_its_bits(label, runs["warm"])
+    single = (batched_vs_single_step(label, runs["warm"], single_step_mode)
+              if single_step_mode else None)
+    w, s = runs["warm"], runs["seq"]
+    res = dict(suite=label, graphs=len(graphs), wall_s=w["wall_s"],
+               graphs_per_s=w["graphs_per_s"],
+               sequential_wall_s=s["wall_s"],
+               sequential_graphs_per_s=s["graphs_per_s"],
+               speedup=s["wall_s"] / w["wall_s"], launches=w["launches"],
+               sequential_launches=s["launches"], waves=w["waves"],
+               groups_per_wave=w["groups_per_wave"],
+               profile_batched_warm=prof, lanes=lanes,
+               groups_repeated=len(repeats), single_step=single,
+               cold={k: runs["cold"][k] for k in ("wall_s", "phase_s",
+                                                  "cache", "peak_gb")})
+    print(json.dumps(res), flush=True)
+    return dict(res, runs=runs)
+
+
+def _lane_force_case(name, args, consts, live):
+    """(kernel call, plain call, one-lane call of lane b, bytes, pairs) of
+    one force kernel over lanes, the bound's bytes and pairs counting the
+    ``live`` lanes (a group's dead lanes replicate lane 0)."""
+    import torch
+    from repro_torch.kernels.grid_force import ops as grid_ops
+    from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
+                                                    grid_near_lanes_ref)
+    from repro_torch.kernels.nbody.ops import nbody_repulsion
+    from repro_torch.kernels.nbody.ref import nbody_repulsion_lanes_ref
+    from repro_torch.kernels.neighbor_force.ops import neighbor_repulsion
+    from repro_torch.kernels.neighbor_force.ref import \
+        neighbor_repulsion_lanes_ref
+
+    n = args[0].shape[1]
+    if name == "nbody":
+        pos, mass, vmask = args
+        fn, plain = nbody_repulsion, nbody_repulsion_lanes_ref
+        nv = vmask[:live].sum(dim=1)
+        nbytes, pairs = 21 * n * live, int((nv * nv).sum())
+        shared = ()
+    elif name == "neighbor_force":
+        pos, mass, nbr_idx, nbr_mask, vmask = args
+        fn, plain = neighbor_repulsion, neighbor_repulsion_lanes_ref
+        K = nbr_idx.shape[2]
+        nv = int(vmask[:live].sum())
+        nbytes = 21 * n * live + 5 * nv * K
+        pairs = int((nbr_mask & vmask[..., None])[:live].sum())
+        shared = ()
+    elif name == "grid_near":
+        pos, mass, vmask, bucket, table = args
+        args = args[:4]
+        shared = (table,)
+        fn = lambda *a: grid_ops.grid_near(*a[:4], table, a[-1])
+        plain = lambda *a: grid_near_lanes_ref(*a[:4], table, a[-1])
+        nc, cap = bucket.shape[1] - 1, bucket.shape[2]
+        nbytes = live * (21 * n + 4 * (nc + 1) * cap) + 36 * (nc + 1)
+        pairs = sum(_near_pairs(bucket[b], table, n) for b in range(live))
+    else:
+        pos, cells = args
+        fn, plain = grid_ops.grid_far, grid_far_lanes_ref
+        nc = cells.shape[1]
+        nbytes, pairs = live * (16 * n + 12 * nc), live * n * nc
+        shared = ()
+    f = lambda: fn(*args, consts)
+    p = lambda: plain(*args, consts)
+    one = lambda b: fn(*(a[b] for a in args), consts[b])
+    return f, p, one, nbytes, pairs
+
+
+def lane_rows(cases, launches) -> list:
+    """Phase 3d: each lane kernel on the arguments of its first call at each
+    batched group shape of phase 7 (``ManyRecorder(kernels=...)``): against
+    its plain version within phase 3's tolerance, against B one-lane calls
+    bit for bit, against itself, then timed as phase 3 times a row: ``ms``
+    by graph replay, ``eager_ms``, the plain version's ms and, beside them,
+    ``one_lane_ms``: lane 0 alone at the same shape. ``launches`` maps a
+    case's key to its launches in the suite's warm batched run, as the
+    wrappers counted them by shape (``_build.shape_launches``)."""
+    import torch
+    rows = []
+    for key, (args, consts, grp) in sorted(cases.items(),
+                                           key=lambda kv: str(kv[0])):
+        name, B, n = key[:3]
+        live = grp["live"]
+        f, p, one, nbytes, pairs = _lane_force_case(name, args, consts, live)
+        out, again = f(), f()
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"{key}: two calls differ")
+        for b in range(B):
+            if not torch.equal(out[b], one(b)):
+                raise AssertionError(f"{key}: lane {b} differs from the "
+                                     f"lane alone")
+        err = _compare(name, out, p())
+        calls, replays, eager, plain_reps = _REPS[name]
+        ms = _graph_ms(f, calls, replays)
+        one_ms = _graph_ms(lambda: one(0), calls, replays)
+        eager_ms = _per_call_ms(f, eager)
+        plain_ms = _per_call_ms(p, 1, batches=1)
+        bound, by = _bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
+        source, replaces = _FORCE_KERNELS[name]
+        more = {"neighbor_force": lambda k: f", K {k[3]}",
+                "grid_near": lambda k: f", G {round((k[3] - 1) ** 0.5)}, "
+                                       f"cap {k[4]}",
+                "grid_far": lambda k: f" × {k[3]} cells"}.get(
+                    name, lambda k: "")(key)
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=launches.get(key, 0), max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None, inputs="lanes",
+                   shape=f"{B} lanes ({live} live) × n_pad {n}{more}",
+                   eager_ms=eager_ms)
+        extra = dict(pairs=pairs, one_lane_ms=one_ms,
+                     lanes_equal_one_lane_calls=True)
+        if name != "nbody":
+            extra["mufu_ms"] = pairs / MUFU_PER_S * 1e3
+        print(json.dumps(dict(row, **extra, tol=dict(
+            rtol=RTOL, atol_frac_of_max=ATOL_FRAC))), flush=True)
+        rows.append(row)
+    return rows
+
+
+def many_card_vs_cpu() -> dict:
+    """Phase 5d: the first LANES_5D graphs of suite A with
+    exact_threshold=64, grid_threshold=512 (all three modes) through
+    ``multigila_layout_many`` on the card (and again with every seed moved
+    by SPREAD_SEED) and on the CPU: each lane's hierarchy equal bit for
+    bit and NELD within NELD_DELTA, for the batched and the sequential
+    driver on the card against the CPU. CRE is held lane by lane on one
+    device, where its spread over the seed is measured: the batched lanes
+    against the sequential driver's on the card within max(CRE_DELTA,
+    CRE_SPREAD_MULT × the median gap between the card's batched runs with
+    the seeds as given and moved). Against the CPU each driver's lanes'
+    mean is held (``_lanes_against``) and each lane printed: the card's
+    arithmetic moves one lane's CRE from the CPU's by 0.10–0.18 under
+    either driver while two card runs differ by at most 0.06 there
+    (``ROADMAP.md`` queue 3)."""
+    from repro_torch.core import LayoutConfig
+    graphs = _suite(LANES_5D, SUITE_A[1], SUITE_A[2])
+    cfg = LayoutConfig(exact_threshold=64, grid_threshold=512)
+    card = _batched_run("many_5d_card", graphs, cfg)
+    moved = _batched_run("many_5d_card_seeds_moved", graphs, cfg,
+                         seeds=[cfg.seed + SPREAD_SEED] * len(graphs))
+    cpu = _batched_run("many_5d_cpu", graphs, cfg, device="cpu")
+    modes = {m for _, s in card["outs"] for m in s.level_modes}
+    if modes != {"exact", "neighbor", "grid"}:
+        raise AssertionError(f"phase 5d: modes {modes}")
+    spread = _cre_gaps("many_5d_card_seed_spread", graphs, card,
+                       moved)["median_abs"]
+    seq = _sequential_run("many_5d_card_sequential", graphs, cfg)
+    _lanes_against("many_5d_card_vs_card_sequential", graphs, card, seq,
+                   cre_spread=spread)
+    _lanes_against("many_5d_card_sequential_vs_cpu", graphs, seq, cpu,
+                   cre_spread=spread, lane_cre=False)
+    return _lanes_against("many_5d_card_vs_cpu", graphs, card, cpu,
+                          cre_spread=spread, lane_cre=False)
+
+
+def many_phase() -> tuple:
+    """Phase 7 (suites A and B), then 3d on the shapes it launched. Returns
+    (suite results, lane rows)."""
+    import dataclasses
+
+    from repro_torch.core import LayoutConfig
+    cfg = LayoutConfig()
+    cases, out = {}, {}
+    a = _suite(*SUITE_A)
+    out["A_gila"] = many_suite("suite_A_gila", a, cfg, kernels=cases,
+                               cre_too=True, single_step_mode="neighbor")
+    launches = dict(out["A_gila"]["runs"]["warm"]["shape_counts"])
+    out["A_stress"] = many_suite(
+        "suite_A_stress", a, cfg, engines=["stress"] * len(a),
+        weights=_suite_weights(a), cre_too=True)
+    del a
+    b = _suite(*SUITE_B)
+    b_cases = {}
+    out["B_gila"] = many_suite("suite_B_gila", b, cfg, kernels=b_cases,
+                               single_step_mode="grid")
+    b_cases = {k: v for k, v in b_cases.items() if k not in cases}
+    launches.update({k: c for k, c in out["B_gila"]["runs"]["warm"]
+                     ["shape_counts"].items() if k in b_cases})
+    cases.update(b_cases)
+    kernels = {k[0] for k in cases}
+    if kernels != set(_FORCE_KERNELS):
+        raise AssertionError(f"phase 7 launched only {kernels} over lanes")
+    return out, lane_rows(cases, launches)
 
 
 def _host_consts(consts) -> tuple:
@@ -1533,6 +2318,8 @@ def main(argv=None) -> int:
     # 5b-5c. the stress engine and the other drivers, card vs CPU; the CLI
     engines_card_vs_cpu(e5, n5, cfg5)
     cli_on_card()
+    # 5d. the batched driver, card vs CPU
+    many_card_vs_cpu()
 
     # 6. the LM serving path
     del p_card, p_cpu
@@ -1548,7 +2335,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device))), flush=True)
 
-    # 7. summary
+    # 7. the batched driver: suites A and B; 3d. the lane kernels on the
+    # shapes it launched
+    torch.cuda.empty_cache()
+    many, lane = many_phase()
+    rows += lane
+    del many
+    torch.cuda.empty_cache()
+
+    # 8. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

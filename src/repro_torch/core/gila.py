@@ -18,6 +18,13 @@ the JAX package anneals in float32, and the ideal length L. So one captured
 CUDA graph of it serves every level, temperature and constant of its shape
 bucket (``core/bucketing.py``); ``engine.RefinementEngine.refine`` runs
 the same iteration in a Python loop.
+
+The batched driver's groups run ``layout_iteration_many`` over ``[B,
+n_pad]`` lanes: element for element the arithmetic of ``layout_iteration``
+on each lane, with the edge sums taken without a scatter where the lanes'
+degrees allow (``lane_segment_sum``), so that every lane gives the bits of
+the same level refined alone on the CPU, and repeats its own bits on the
+card.
 """
 from __future__ import annotations
 
@@ -178,6 +185,86 @@ def layout_iteration(g: PaddedGraph, pos, nbr_idx, nbr_mask, row, L, *,
     step = torch.clamp(norm, max=row[0])
     pos = pos + f / norm[:, None] * step[:, None]
     return torch.where(g.vmask[:, None], pos, 0.0)
+
+
+# -- lanes: the batched driver's [B, n_pad] groups ------------------------------
+
+def lane_index(g: PaddedGraph, inc: torch.Tensor) -> tuple:
+    """The flat index tensors of a lane graph (``g`` with [B, n_pad] and
+    [B, m_pad] tensors, ``inc`` its int32[B, n_pad, k] incidence tables):
+    lane b's vertex v lives at b·(n_pad+1) + v of one flat index space, with
+    a zero sentinel row per lane at v = n_pad, and its half-edge slot e at
+    b·(m_pad+1) + e. Returns int64 (flat_src [B, m_pad], flat_dst_clip
+    [B, m_pad] (dst clamped to the lane's rows), flat_dst [B·m_pad],
+    flat_inc [B, n_pad, k])."""
+    B, n_pad = g.vmask.shape
+    m_pad = g.src.shape[1]
+    lane = torch.arange(B, dtype=torch.int64, device=g.device)[:, None]
+    offs = lane * (n_pad + 1)
+    flat_src = g.src.long() + offs
+    flat_dst_clip = torch.clamp(g.dst.long(), 0, n_pad - 1) + offs
+    flat_dst = (g.dst.long() + offs).reshape(-1)
+    flat_inc = inc.long() + (lane * (m_pad + 1))[..., None]
+    return flat_src, flat_dst_clip, flat_dst, flat_inc
+
+
+def flat_positions(pos: torch.Tensor) -> torch.Tensor:
+    """[B, n_pad, 2] → [B·(n_pad+1), 2] with a zero sentinel row per lane
+    (the dense-array 'empty inbox'), for gathers through ``lane_index``."""
+    B, n_pad = pos.shape[:2]
+    return torch.cat([pos, pos.new_zeros((B, 1, 2))], dim=1).reshape(
+        B * (n_pad + 1), 2)
+
+
+def lane_segment_sum(x: torch.Tensor, flat_inc: torch.Tensor,
+                     flat_dst: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Per-vertex sum of a per-edge quantity x [B, m_pad, ...] → [B, n_pad,
+    ...], each vertex's messages added in ``segment_sum``'s order (ascending
+    slot). With incidence tables (k = flat_inc.shape[2] > 0): k unrolled,
+    left-associated gathered adds, no scatter and so no atomics on the card;
+    hub-heavy groups (k = 0) take one flat ``segment_sum`` over the lanes'
+    fused index space instead."""
+    B, m_pad = x.shape[:2]
+    rest = x.shape[2:]
+    if flat_inc.shape[2] > 0:
+        xf = torch.cat([x, x.new_zeros((B, 1) + rest)], dim=1).reshape(
+            (B * (m_pad + 1),) + rest)
+        acc = x.new_zeros((B, n_pad) + rest)
+        for k in range(flat_inc.shape[2]):     # left-assoc: scatter order
+            acc = acc + xf[flat_inc[:, :, k]]
+        return acc
+    out = segment_sum(x.reshape((B * m_pad,) + rest), flat_dst,
+                      B * (n_pad + 1))
+    return out.reshape((B, n_pad + 1) + rest)[:, :n_pad]
+
+
+def _attraction_many(g: PaddedGraph, pos, terms, md2) -> torch.Tensor:
+    """``_attraction`` over lanes: ``terms`` = ``lane_index`` + (ℓ [B,
+    m_pad],), ``md2`` [B] per lane."""
+    flat_src, flat_dst_clip, flat_dst, flat_inc, ell = terms
+    flat = flat_positions(pos)
+    delta = flat[flat_src] - flat[flat_dst_clip]    # pull dst toward src
+    dist = torch.sqrt((delta * delta).sum(dim=-1) + md2[:, None])
+    f = (dist * dist) / ell                         # FR: d²/ℓ
+    vec = delta / dist[..., None] * f[..., None]
+    vec = torch.where(g.emask[..., None], vec, 0.0)
+    return lane_segment_sum(vec, flat_inc, flat_dst, pos.shape[1])
+
+
+def layout_iteration_many(g: PaddedGraph, pos, nbr_idx, nbr_mask, terms,
+                          row, *, mode: str, grid_dim: int = 0,
+                          cell_cap: int = 0) -> torch.Tensor:
+    """``layout_iteration`` on B lanes at once: ``g`` a lane graph, pos
+    [B, n_pad, 2], ``row`` [B, 3] each lane's schedule row (temperature,
+    C·L², md²), ``terms`` from ``GilaEngine.prepare_many``. The repulsion
+    kernels take all lanes in one launch."""
+    rep = repulsion(g, pos, nbr_idx, nbr_mask, row[:, 1:].contiguous(),
+                    mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
+    f = rep + _attraction_many(g, pos, terms, row[:, 2])
+    norm = torch.sqrt((f * f).sum(dim=-1) + 1e-12)
+    step = torch.minimum(norm, row[:, 0, None])
+    pos = pos + f / norm[..., None] * step[..., None]
+    return torch.where(g.vmask[..., None], pos, 0.0)
 
 
 def temperatures(temp0: float, temp_decay: float, iters: int) -> list[float]:

@@ -22,6 +22,13 @@ to pow2 shape buckets and refines it through the process-wide cache of
 captured step programs (core/bucketing.py); False is the JAX package's
 exact-shape path: round-256 padding, host compaction
 (``solar_merger.next_level_host``) and the engine's eager ``refine`` loop.
+
+``multigila_layout_many`` lays out many graphs at once: a ``WaveScheduler``
+walks every component's hierarchy (``_ComponentTask``, the pipeline that
+``layout_component`` walks too) one level a wave, and runs each wave's
+refinements grouped by shape bucket as batched programs
+(``bucketing.refine_level_many``); each graph's result equals its
+``multigila_layout`` call's.
 """
 from __future__ import annotations
 
@@ -39,7 +46,9 @@ from repro_torch.core.schedule import LevelSchedule, make_schedule
 from repro_torch.core.solar_merger import LevelInfo, next_level, run_merger
 from repro_torch.core.solar_placer import solar_placer
 from repro_torch.graphs.graph import PaddedGraph, build_graph
+from repro_torch.obs.clock import Clock, SystemClock
 from repro_torch.utils.device import resolve_device, synchronize
+from repro_torch.utils.timing import StepTimer
 
 
 _DRIVERS = ("multigila", "multigila_dist", "centralized", "flat")
@@ -84,7 +93,9 @@ class LayoutStats:
     #: graph's build, which is all it holds under the flat driver; compile
     #: is the warm-up iteration and CUDA-graph capture of each cold step
     #: program (core/bucketing.py), 0 on the CPU and when every bucket is
-    #: warm
+    #: warm. Under ``multigila_layout_many`` a graph's refine and compile
+    #: are its lanes' shares of the group dispatches they rode in (a
+    #: group's seconds over its lanes), so the graphs' sums are the run's
     phase_seconds: dict = dataclasses.field(
         default_factory=lambda: {"coarsen": 0.0, "place": 0.0,
                                  "refine": 0.0, "compile": 0.0})
@@ -186,7 +197,8 @@ def _refine(stats: LayoutStats, device, cfg: LayoutConfig, g: PaddedGraph,
 def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
                      weights=None, device=None):
     """Multi-GiLA on one connected component → (pos float32[n, 2] on the
-    host, LayoutStats).
+    host, LayoutStats): a ``_ComponentTask`` walked level by level, each
+    level refined on its own (``_refine``).
 
     ``weights`` (float[m], optional) are per-edge weights: the attraction
     term's ideal length ℓ_e = w_e·L, and the stress engine's target
@@ -194,52 +206,11 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
     merger compounds them into coarse ``ewt``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    stats = LayoutStats()
-    if n == 1:
-        return np.zeros((1, 2), np.float32), stats
-    pr = (prune_degree_one(edges, n, weights=weights)
-          if cfg.prune and cfg.driver != "flat" else None)
-    if pr is not None:
-        work_edges, work_n, mass, work_ewt = pr.edges, pr.n, pr.mass, pr.ewt
-    else:
-        work_edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-        work_n, mass, work_ewt = n, None, weights
-    if work_n == 0 or len(work_edges) == 0:
-        # star graphs collapse entirely under pruning: lay out leaves only
-        pos = (reinsert(pr, np.zeros((max(work_n, 1), 2), np.float32),
-                        work_edges)
-               if pr is not None else np.zeros((n, 2), np.float32))
-        return pos, stats
-
-    with _phase(stats, dev, "coarsen"):
-        g0 = build_graph(work_edges, work_n, mass=mass, ewt=work_ewt,
-                         bucket=cfg.bucketing, device=dev)
-        graphs, infos = ([g0], []) if cfg.driver == "flat" else \
-            build_hierarchy(g0, cfg, device=dev)
-    L = len(graphs)
-    scheds = [_schedule(cfg, i, L, g) for i, g in enumerate(graphs)]
-    stats.levels = L
-    stats.level_sizes = tuple((g.n, g.m) for g in graphs)
-    stats.level_modes = tuple(s.mode for s in scheds)
-
-    # coarsest level (flat: the only one): random init + layout
-    gk = graphs[-1]
-    with _phase(stats, dev, "refine"):
-        pos = gila.random_init(gk, cfg.ideal_len * max(gk.n, 4) ** 0.5,
-                               cfg.seed)
-    pos = _refine(stats, dev, cfg, gk, pos, scheds[-1],
-                  cfg.seed if cfg.driver == "flat" else cfg.seed + L)
-
-    # walk the hierarchy back down: place, then refine
-    for i in range(L - 2, -1, -1):
-        gi = graphs[i]
-        with _phase(stats, dev, "place"):
-            pos = solar_placer(gi, infos[i], pos, seed=cfg.seed + i,
-                               scatter_scale=0.5 * cfg.ideal_len)
-        pos = _refine(stats, dev, cfg, gi, pos, scheds[i], cfg.seed + i)
-
-    pos = pos.cpu().numpy().astype(np.float32)[: g0.n]
-    return (reinsert(pr, pos, work_edges) if pr is not None else pos), stats
+    task = _ComponentTask(edges, n, cfg, device=dev, weights=weights)
+    while not task.done:
+        _, g, pos, sched, seed = task.next_level()
+        task.feed(_refine(task.stats, dev, cfg, g, pos, sched, seed))
+    return task.final, task.stats
 
 
 def _pack_components(layouts: list[np.ndarray], pad: float = 2.0) -> list:
@@ -276,32 +247,357 @@ def multigila_layout(edges: np.ndarray, n: int,
     _check_supported(cfg)
     dev = resolve_device(device)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
-    if weights is not None:
-        weights = np.asarray(weights, np.float32).reshape(-1)
-        if len(weights) != len(edges):
-            raise ValueError(f"{len(weights)} weights for {len(edges)} edges")
-    labels = connected_components(edges, n)
-    comps = np.unique(labels)
+    weights = _check_weights(edges, weights)
+    comps = _components(edges, n, weights)
     if len(comps) == 1:
         return layout_component(edges, n, cfg, weights=weights, device=dev)
+    return _assemble(n, [vs for vs, _, _ in comps],
+                     [layout_component(ce, vs.size, cfg, weights=cw,
+                                       device=dev) for vs, ce, cw in comps])
 
-    stats = LayoutStats()
-    layouts, index_maps = [], []
-    for c in comps:
+
+def _check_weights(edges: np.ndarray, weights):
+    """``weights`` as float32[m], or None; a count other than the edges'
+    is a ValueError."""
+    if weights is None:
+        return None
+    weights = np.asarray(weights, np.float32).reshape(-1)
+    if len(weights) != len(edges):
+        raise ValueError(f"{len(weights)} weights for {len(edges)} edges")
+    return weights
+
+
+def _components(edges: np.ndarray, n: int, weights) -> list:
+    """(vertex ids, component-local edges, their weights or None) of each
+    connected component, in label order."""
+    labels = connected_components(edges, n)
+    out = []
+    for c in np.unique(labels):
         vs = np.nonzero(labels == c)[0]
         remap = np.full(n, -1, np.int64)
         remap[vs] = np.arange(vs.size)
         emask = labels[edges[:, 0]] == c
         ce = np.stack([remap[edges[emask, 0]], remap[edges[emask, 1]]], 1)
-        cw = weights[emask] if weights is not None else None
-        p, s = layout_component(ce, vs.size, cfg, weights=cw, device=dev)
+        out.append((vs, ce, weights[emask] if weights is not None else None))
+    return out
+
+
+def _assemble(n: int, index_maps: list, results: list):
+    """The components' (pos, stats) shelf-packed into one drawing of n
+    vertices → (pos, LayoutStats): levels the deepest, phase seconds
+    summed."""
+    stats = LayoutStats()
+    for _, s in results:
         stats.levels = max(stats.levels, s.levels)
         for k, v in s.phase_seconds.items():
             stats.phase_seconds[k] += v
-        layouts.append(np.asarray(p))
-        index_maps.append(vs)
-    packed = _pack_components(layouts)
+    packed = _pack_components([np.asarray(p) for p, _ in results])
     pos = np.zeros((n, 2), np.float32)
     for vs, P in zip(index_maps, packed):
         pos[vs] = P
     return pos, stats
+
+
+# -- the batched multi-graph driver -------------------------------------------
+
+class _ComponentTask:
+    """The pipeline of one connected component as a state machine, for
+    both drivers.
+
+    Construction runs everything up to refinement (pruning → hierarchy →
+    schedules, on ``device``); ``next_level`` then hands out one level at
+    a time (coarsest first: its random init; below it, the placer's
+    output) and ``feed`` takes its refined positions back, reinserting the
+    pruned leaves after the finest. ``layout_component`` refines each
+    level on its own; the batched driver re-pads it to its lane bucket
+    (``next_request``) and refines it in a group, which changes no real
+    vertex, so every fed-back position is the sequential driver's.
+    """
+
+    def __init__(self, edges: np.ndarray, n: int, cfg: LayoutConfig, *,
+                 device, lane: object = None, weights=None):
+        self.cfg, self.n, self.device = cfg, n, device
+        self.lane = lane             # label: "<job uid>.<component>"
+        self.stats = LayoutStats()
+        self.final: np.ndarray | None = None
+        self.pr = None
+        if n == 1:
+            self.final = np.zeros((1, 2), np.float32)
+            return
+        if cfg.prune and cfg.driver != "flat":
+            self.pr = prune_degree_one(edges, n, weights=weights)
+        if self.pr is not None:
+            self.work_edges, work_n = self.pr.edges, self.pr.n
+            mass, work_ewt = self.pr.mass, self.pr.ewt
+        else:
+            self.work_edges = np.asarray(edges, np.int64).reshape(-1, 2)
+            work_n, mass, work_ewt = n, None, weights
+        if work_n == 0 or len(self.work_edges) == 0:
+            # star graphs collapse entirely under pruning: leaves only
+            self.final = (reinsert(self.pr,
+                                   np.zeros((max(work_n, 1), 2), np.float32),
+                                   self.work_edges)
+                          if self.pr is not None
+                          else np.zeros((n, 2), np.float32))
+            return
+        with _phase(self.stats, device, "coarsen"):
+            self.g0 = build_graph(self.work_edges, work_n, mass=mass,
+                                  ewt=work_ewt, bucket=cfg.bucketing,
+                                  device=device)
+            self.graphs, self.infos = (
+                ([self.g0], []) if cfg.driver == "flat"
+                else build_hierarchy(self.g0, cfg, device=device))
+        L = len(self.graphs)
+        self.scheds = [_schedule(cfg, i, L, g)
+                       for i, g in enumerate(self.graphs)]
+        self.stats.levels = L
+        self.stats.level_sizes = tuple((g.n, g.m) for g in self.graphs)
+        self.stats.level_modes = tuple(s.mode for s in self.scheds)
+        self._level = L - 1          # next level to refine (coarsest first)
+        self._pos = None             # refined positions of the level above
+
+    @property
+    def done(self) -> bool:
+        return self.final is not None
+
+    def next_level(self) -> tuple:
+        """(level i, its graph, pos0, schedule, k-hop seed): the coarsest
+        level's random init (flat: the only level), below it the placer's
+        output from the level above's refined positions."""
+        cfg, i, L = self.cfg, self._level, len(self.graphs)
+        gi = self.graphs[i]
+        if i == L - 1:
+            with _phase(self.stats, self.device, "refine"):
+                pos0 = gila.random_init(
+                    gi, cfg.ideal_len * max(gi.n, 4) ** 0.5, cfg.seed)
+            seed = cfg.seed if cfg.driver == "flat" else cfg.seed + L
+        else:
+            with _phase(self.stats, self.device, "place"):
+                pos0 = solar_placer(gi, self.infos[i], self._pos,
+                                    seed=cfg.seed + i,
+                                    scatter_scale=0.5 * cfg.ideal_len)
+            seed = cfg.seed + i
+        return i, gi, pos0, self.scheds[i], seed
+
+    def next_request(self) -> bucketing.RefineRequest:
+        """The next level re-padded to its lane bucket, with its incidence
+        table (``bucketing.make_request``)."""
+        i, gi, pos0, sched, seed = self.next_level()
+        return bucketing.make_request(gi, pos0, sched, seed, level=i,
+                                      lane=self.lane)
+
+    def feed(self, pos: torch.Tensor) -> None:
+        """Take the refined positions of the current level; after the finest
+        one, reinsert the pruned leaves."""
+        self._pos = pos
+        self._level -= 1
+        if self._level >= 0:
+            return
+        p = pos.cpu().numpy().astype(np.float32)[: self.g0.n]
+        self.final = (reinsert(self.pr, p, self.work_edges)
+                      if self.pr is not None else p)
+
+
+class GraphJob:
+    """One submitted graph in a ``WaveScheduler``'s lane set: one
+    ``_ComponentTask`` lane per connected component, reassembled by
+    ``result()`` (shelf packing, as ``multigila_layout`` does) once every
+    lane has refined its finest level. A ``cancelled`` job's lanes are
+    skipped by the scheduler, without touching any sibling lane's floats."""
+
+    def __init__(self, edges, n: int, cfg: LayoutConfig, *, device,
+                 uid: int = -1, weights=None):
+        self.cfg, self.n = cfg, int(n)
+        self.uid = int(uid)          # the scheduler's admission rank
+        self.cancelled = False
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        weights = _check_weights(edges, weights)
+        comps = _components(edges, self.n, weights)
+        self.index_maps = [vs for vs, _, _ in comps]
+        self.tasks = [_ComponentTask(ce, vs.size, cfg, device=device,
+                                     lane=f"{self.uid}.{k}", weights=cw)
+                      for k, (vs, ce, cw) in enumerate(comps)]
+
+    @property
+    def lanes(self) -> int:
+        """Live (unfinished) lanes this job still occupies."""
+        return 0 if self.cancelled else sum(not t.done for t in self.tasks)
+
+    @property
+    def done(self) -> bool:
+        return self.cancelled or all(t.done for t in self.tasks)
+
+    def result(self):
+        """(pos float32[n, 2], LayoutStats), as ``multigila_layout``
+        returns them."""
+        if not self.done or self.cancelled:
+            raise RuntimeError(f"job {self.uid}: no result "
+                               f"({'cancelled' if self.cancelled else 'running'})")
+        if len(self.tasks) == 1:
+            return self.tasks[0].final, self.tasks[0].stats
+        return _assemble(self.n, self.index_maps,
+                         [(t.final, t.stats) for t in self.tasks])
+
+
+class WaveScheduler:
+    """Wave scheduler over a mutable lane set: ``admit`` / ``remove`` /
+    ``step`` / ``drain``.
+
+    Each ``step()`` dispatches ONE wave: every selected lane's next level,
+    its refinements grouped by ``bucketing.group_key`` and run as batched
+    programs through ``dispatch`` (default ``bucketing.refine_level_many``).
+    A job admitted between steps joins the next wave's grouping; lane counts
+    re-bucket to pow2 (floor 8, capped by ``lanes_cap``), so a warm cache
+    captures nothing for it. Lanes are independent, so wave membership
+    changes no lane's floats: every job's result is that of a dedicated
+    ``multigila_layout`` call with the same seed, whenever it joined and
+    whichever siblings rode along.
+
+    ``step(order=...)`` sorts jobs by that key before picking lanes, and
+    ``max_lanes`` truncates the wave to the first lanes: the others are
+    preempted (they ride when capacity frees). Pending requests are staged
+    once a level and kept across preempted waves, so placement never reruns.
+    ``clock`` times the waves for the straggler count (``StepTimer``).
+    ``waves``, ``lane_dispatches`` and ``straggler_waves`` count what ran.
+    """
+
+    def __init__(self, cfg: LayoutConfig | None = None, *,
+                 lanes_cap: int | None = None, dispatch=None,
+                 clock: Clock | None = None, device=None):
+        cfg = cfg or LayoutConfig()
+        if cfg.driver != "multigila":
+            raise ValueError("WaveScheduler supports driver='multigila' "
+                             f"only, got {cfg.driver!r}")
+        if not cfg.bucketing:
+            raise ValueError("WaveScheduler requires cfg.bucketing=True")
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.lanes_cap = lanes_cap
+        self.clock = clock or SystemClock()
+        self._wave_timer = StepTimer()
+        self._dispatch = dispatch or self._refine_group
+        self._group_phases = None
+        self._jobs: list[GraphJob] = []
+        self._staged: dict = {}       # _ComponentTask → RefineRequest
+        self._next_uid = 0
+        self.waves = 0
+        self.lane_dispatches = 0
+        self.straggler_waves = 0
+
+    def _refine_group(self, reqs):
+        """The default dispatch: one group through the step cache, its
+        seconds booked for the lanes' shares."""
+        return bucketing.refine_level_many(
+            reqs, ideal_len=self.cfg.ideal_len, rep_const=self.cfg.rep_const,
+            lanes_cap=self.lanes_cap, phases=self._group_phases)
+
+    def admit(self, edges, n: int, *, seed: int | None = None,
+              engine: str | None = None, weights=None) -> GraphJob:
+        """Add one graph to the lane set (at any wave boundary). ``seed`` and
+        ``engine`` override the scheduler's config for this job only: a wave
+        may mix engines, grouped apart by ``group_key``."""
+        cfg = self.cfg
+        if seed is not None:
+            cfg = dataclasses.replace(cfg, seed=int(seed))
+        if engine is not None:
+            cfg = dataclasses.replace(cfg, engine=engine)
+            _check_supported(cfg)
+        job = GraphJob(edges, n, cfg, device=self.device,
+                       uid=self._next_uid, weights=weights)
+        self._next_uid += 1
+        self._jobs.append(job)
+        return job
+
+    def remove(self, job: GraphJob) -> None:
+        """Cancel a job: free its lanes and drop its staged requests; the
+        sibling lanes are untouched."""
+        job.cancelled = True
+        for t in job.tasks:
+            self._staged.pop(t, None)
+        if job in self._jobs:
+            self._jobs.remove(job)
+
+    @property
+    def active(self) -> bool:
+        return any(not j.done for j in self._jobs)
+
+    def lanes_live(self) -> int:
+        return sum(j.lanes for j in self._jobs)
+
+    def step(self, *, order=None, max_lanes: int | None = None) -> dict:
+        """Dispatch one wave → ``{"lanes", "groups", "preempted"}``, with
+        ``groups`` the (group_key, member count) pairs in dispatch order and
+        ``preempted`` the lanes held past this wave by ``max_lanes``.
+        ``order``: a job sort key (ascending, stable: admission order breaks
+        ties)."""
+        self._jobs = [j for j in self._jobs if not j.done]
+        jobs = (sorted(self._jobs, key=order) if order is not None
+                else list(self._jobs))
+        pend = []
+        for j in jobs:
+            for t in j.tasks:
+                if t.done:
+                    continue
+                r = self._staged.get(t)
+                if r is None:
+                    r = self._staged[t] = t.next_request()
+                pend.append((t, r))
+        preempted = 0
+        if max_lanes is not None:
+            preempted = max(0, len(pend) - max_lanes)
+            pend = pend[:max_lanes]
+        groups: dict = {}
+        for t, r in pend:
+            groups.setdefault(bucketing.group_key(r), []).append((t, r))
+        tw0 = self.clock.now()
+        ginfo = []
+        for key, members in groups.items():
+            self._group_phases = {"refine": 0.0, "compile": 0.0}
+            outs = self._dispatch([r for _, r in members])
+            for (t, _), pos in zip(members, outs):
+                del self._staged[t]
+                for k, v in self._group_phases.items():
+                    t.stats.phase_seconds[k] += v / len(members)
+                t.feed(pos)
+            ginfo.append((key, len(members)))
+        if pend:
+            self.waves += 1
+            self.lane_dispatches += len(pend)
+            if self._wave_timer.record(self.clock.now() - tw0):
+                self.straggler_waves += 1
+        return {"lanes": len(pend), "groups": ginfo, "preempted": preempted}
+
+    def drain(self) -> None:
+        """Step until every admitted job has finished."""
+        while self.step()["lanes"]:
+            pass
+
+
+def multigila_layout_many(graphs: list, cfg: LayoutConfig | None = None, *,
+                          seeds: list | None = None,
+                          engines: list | None = None,
+                          weights: list | None = None, device=None) -> list:
+    """Batched Multi-GiLA: lay out B graphs through grouped per-level
+    refinements, one batched program per shape bucket a wave.
+
+    ``graphs`` is a list of ``(edges, n)``; ``seeds`` / ``engines`` /
+    ``weights`` override ``cfg.seed`` / ``cfg.engine`` / the per-edge
+    weights per graph. Returns ``[(pos float32[n, 2], LayoutStats)]`` in
+    input order, each equal to ``multigila_layout`` of that graph alone
+    (bit for bit on the CPU; on the card the sequential driver sums its
+    edges with atomics). The one-shot wrapper over ``WaveScheduler``:
+    admit everything, drain, collect. ``device=None`` means the card."""
+    cfg = cfg or LayoutConfig()
+    for name, lst in (("seeds", seeds), ("engines", engines),
+                      ("weights", weights)):
+        if lst is not None and len(lst) != len(graphs):
+            raise ValueError(f"{name} must match graphs in length")
+    sched = WaveScheduler(cfg, device=device)
+    jobs = [sched.admit(edges, n,
+                        seed=None if seeds is None else int(seeds[k]),
+                        engine=None if engines is None else engines[k],
+                        weights=None if weights is None else weights[k])
+            for k, (edges, n) in enumerate(graphs)]
+    sched.drain()
+    return [job.result() for job in jobs]

@@ -85,6 +85,43 @@ def stress_iteration(g: PaddedGraph, pos, nbr_idx, nbr_mask, terms, row, *,
     return torch.where(g.vmask[:, None], pos, 0.0)
 
 
+def stress_terms_many(g: PaddedGraph, L, index) -> tuple:
+    """``stress_terms`` over lanes: ``index`` = ``gila.lane_index`` of the
+    lane graph; returns it + (ℓ, w, ρ), ρ summed in ``segment_sum``'s order
+    (``gila.lane_segment_sum``)."""
+    ell = torch.clamp_min(g.ewt, 1e-6) * L
+    we = torch.where(g.emask, 1.0 / (ell * ell), 0.0)
+    _, _, flat_dst, flat_inc = index
+    rho = gila.lane_segment_sum(we, flat_inc, flat_dst, g.vmask.shape[1])
+    return tuple(index) + (ell, we, rho)
+
+
+def stress_iteration_many(g: PaddedGraph, pos, nbr_idx, nbr_mask, terms,
+                          row, *, mode: str, grid_dim: int = 0,
+                          cell_cap: int = 0) -> torch.Tensor:
+    """``stress_iteration`` on B lanes at once: ``row`` [B, 3] each lane's
+    (temperature, α·C·L², md²), so the kernels' entropy constants are per
+    lane; ``terms`` from ``stress_terms_many``."""
+    flat_src, flat_dst_clip, flat_dst, flat_inc, ell, we, rho = terms
+    flat = gila.flat_positions(pos)
+    ps = flat[flat_src]                             # source endpoint per edge
+    pd = flat[flat_dst_clip]
+    delta = pd - ps
+    dist = torch.sqrt((delta * delta).sum(dim=-1) + row[:, 2, None])
+    tgt = ps + delta / dist[..., None] * ell[..., None]
+    vec = torch.where(g.emask[..., None], we[..., None] * tgt, 0.0)
+    num = gila.lane_segment_sum(vec, flat_inc, flat_dst, pos.shape[1])
+    rep = gila.repulsion(g, pos, nbr_idx, nbr_mask, row[:, 1:].contiguous(),
+                         mode=mode, grid_dim=grid_dim, cell_cap=cell_cap)
+    new = (num + rep) / torch.clamp_min(rho, 1e-12)[..., None]
+    new = torch.where(rho[..., None] > 0, new, pos)  # no edges → stay put
+    d = new - pos
+    norm = torch.sqrt((d * d).sum(dim=-1) + 1e-12)
+    step = torch.minimum(norm, row[:, 0, None])     # GiLA's cooling clamp
+    pos = pos + d / norm[..., None] * step[..., None]
+    return torch.where(g.vmask[..., None], pos, 0.0)
+
+
 class StressEngine(engine_mod.RefinementEngine):
     """Multilevel maxent-stress as a drop-in refinement engine."""
 
@@ -114,6 +151,15 @@ class StressEngine(engine_mod.RefinementEngine):
         return stress_iteration(g, pos, nbr_idx, nbr_mask, terms, row,
                                 mode=mode, grid_dim=grid_dim,
                                 cell_cap=cell_cap)
+
+    def prepare_many(self, g, inc, params):
+        return stress_terms_many(g, params[1], gila.lane_index(g, inc))
+
+    def step_many(self, g, pos, nbr_idx, nbr_mask, terms, row, params, *,
+                  mode, grid_dim=0, cell_cap=0):
+        return stress_iteration_many(g, pos, nbr_idx, nbr_mask, terms, row,
+                                     mode=mode, grid_dim=grid_dim,
+                                     cell_cap=cell_cap)
 
 
 engine_mod.register(StressEngine())

@@ -28,10 +28,13 @@ def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
-def bucket_pad(x: int) -> int:
-    """Next power-of-two ≥ max(x, PAD_MULT) — the shape-bucket padding. The
-    schedule keys grid sizes on it, so it must match the JAX package's."""
-    x = max(int(x), PAD_MULT)
+def bucket_pad(x: int, minimum: int = PAD_MULT) -> int:
+    """Next power-of-two ≥ max(x, minimum, 1) — the shape-bucket padding.
+    The schedule keys grid sizes on it, so it must match the JAX package's.
+    The single-graph driver keeps the floor ``PAD_MULT``; the batched driver
+    pads its lanes with floors of 64 vertices and 512 half-edges
+    (``core/bucketing.py:lane_shape``)."""
+    x = max(int(x), minimum, 1)
     return 1 << (x - 1).bit_length()
 
 

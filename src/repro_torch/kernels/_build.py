@@ -38,6 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: launches of each kernel, counted by its wrapper where it launches it
 launches: collections.Counter = collections.Counter()
+#: the same launches by shape: (name, lanes, n_pad, the kernel's other
+#: extents) → count
+shape_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -48,15 +51,16 @@ build_log: dict[str, str] = {}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream: void*)
-# (the force kernels take their constants as a pointer to (C·L², md²), the
-# split-KV attention route an optional pointer to kv_len)
+# (the force kernels take a lane count and their constants as a pointer to
+# (C·L², md²) of each lane, the split-KV attention route an optional pointer
+# to kv_len)
 _SIGNATURES = {
-    "nbody_repulsion_launch": [_P, _P, _P, _I, _P, _P, _P],
-    "grid_far_launch": [_P, _I, _P, _I, _P, _P, _P],
+    "nbody_repulsion_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "grid_far_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
     "neighbor_repulsion_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _P, _P, _P, _P],
-    "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                         _P, _P],
+                                  _I, _P, _P, _P, _P],
+    "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P],
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _L, _L, _I, _P],
     "flash_attention_split_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -181,16 +185,32 @@ def consts_tensor(C, L, min_dist, device) -> torch.Tensor:
                         device=device)
 
 
+def count(name: str, *shape: int) -> None:
+    """One launch of kernel ``name`` at ``shape``: called by its wrapper
+    where it launches the kernel, and nowhere else."""
+    launches[name] += 1
+    shape_launches[(name, *shape)] += 1
+
+
 @contextlib.contextmanager
 def capturing():
     """Around a CUDA-graph capture: the wrappers called inside count their
     launches as usual, but nothing runs then, so the counts are taken back
-    on exit and handed over (``Counter``) to be added once per replay."""
-    before = launches.copy()
-    made = collections.Counter()
+    on exit and handed over (a pair of ``Counter``s: by kernel, by shape)
+    to be added once per replay (``replayed``)."""
+    counters = (launches, shape_launches)
+    before = [c.copy() for c in counters]
+    made = (collections.Counter(), collections.Counter())
     try:
         yield made
     finally:
-        made.update(launches - before)
-        launches.clear()
-        launches.update(before)
+        for c, b, m in zip(counters, before, made):
+            m.update(c - b)
+            c.clear()
+            c.update(b)
+
+
+def replayed(made: tuple) -> None:
+    """Count one replay of a graph whose capture ``capturing`` counted."""
+    launches.update(made[0])
+    shape_launches.update(made[1])

@@ -130,6 +130,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
             part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), stream)
     else:
         err = lib.flash_attention_wgmma_launch(*args, stream)
-    _build.launches["flash_attention"] += 1
+    _build.count("flash_attention", B, Sq, Sk)
     _build.check(err, "flash_attention")
     return out

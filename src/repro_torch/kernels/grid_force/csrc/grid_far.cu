@@ -27,7 +27,11 @@
 // order, so the result is deterministic run to run. Ragged edges of both
 // sets are masked (a missing source has weight 0 at the origin). C·L² and
 // md² are read from device memory (consts[0], consts[1]), so one captured
-// CUDA graph serves every value of them.
+// CUDA graph serves every value of them. Lanes: B independent (targets,
+// cells) pairs of sets in one launch, lane b on blockIdx.y = b with its own
+// constants consts[2b], consts[2b + 1]; a lane's arithmetic is that of the
+// same lane launched alone, bit for bit, and lanes multiply the blocks of a
+// launch (one lane of 131072 targets makes 32 blocks on 132 SMs).
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,6 +53,10 @@ grid_far_kernel(const float* __restrict__ pos, int n,
                 const float* __restrict__ cell_xyw, int nc,
                 const float* __restrict__ consts, float* __restrict__ out) {
   constexpr int T = FAR_T;
+  pos += (size_t)blockIdx.y * n * 2;          // the lane's sets
+  out += (size_t)blockIdx.y * n * 2;
+  cell_xyw += (size_t)blockIdx.y * nc * 3;
+  consts += 2 * blockIdx.y;
   const float cl2 = __ldg(consts), md2 = __ldg(consts + 1);
   __shared__ float4 src[FAR_THREADS];
   // targets t0 + k·FAR_THREADS: a warp's loads and stores stay contiguous
@@ -113,16 +121,17 @@ grid_far_kernel(const float* __restrict__ pos, int n,
 
 }  // namespace
 
-// pos f32[n, 2] and out f32[n, 2] (8-byte aligned: torch allocations are),
-// cell_xyw f32[nc, 3] = (x, y, mass) of each cell aggregate, consts f32[2]
-// = (C·L², md²).
+// pos f32[lanes, n, 2] and out f32[lanes, n, 2] (8-byte aligned: torch
+// allocations are), cell_xyw f32[lanes, nc, 3] = (x, y, mass) of each cell
+// aggregate, consts f32[lanes, 2] = (C·L², md²) of each lane.
 extern "C" int grid_far_launch(const float* pos, int n, const float* cell_xyw,
-                               int nc, const float* consts, float* out,
-                               cudaStream_t stream) {
-  if (n > 0) {
+                               int nc, int lanes, const float* consts,
+                               float* out, cudaStream_t stream) {
+  if (n > 0 && lanes > 0) {
     constexpr int per_block = FAR_THREADS * FAR_T;
-    grid_far_kernel<<<(n + per_block - 1) / per_block, FAR_THREADS, 0,
-                      stream>>>(pos, n, cell_xyw, nc, consts, out);
+    const dim3 blocks((n + per_block - 1) / per_block, lanes);
+    grid_far_kernel<<<blocks, FAR_THREADS, 0, stream>>>(pos, n, cell_xyw, nc,
+                                                        consts, out);
   }
   return (int)cudaGetLastError();
 }

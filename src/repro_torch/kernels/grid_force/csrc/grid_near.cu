@@ -46,6 +46,16 @@
 //        d² ≥ md² > 0 and both are normal floats, so no special case arises.
 //   C·L² (pack) and md² (near) are read from device memory, consts[0] and
 //   consts[1], so one captured CUDA graph serves every value of them.
+//   Lanes: B independent levels (the batched driver's [B, n_pad] groups)
+//   in one call, lane b on blockIdx.y = b in both kernels, with its own
+//   bucket table, packed rows, counts and constants consts[2b],
+//   consts[2b + 1]; the 3×3 neighbor table and the split table are shared
+//   (one grid_dim and cap per group). A lane's bucket slots hold its local
+//   vertex ids (sentinel n), so its result is the bits of the lane alone.
+//   Both kernels are built twice (template LANES): a one-lane call runs the
+//   build without the lane offsets, whose code is the single-graph
+//   kernel's: with them, ptxas gave the near kernel 48 registers in place
+//   of 64, and the layout path's level 0 ran slower on an H100.
 //   The sources are read in place through L1, not staged in shared memory:
 //   a variant that copied each cell's 9 rows into shared memory (cp.async,
 //   compacted) measured slower on the H100 at both path grids, and needs no
@@ -65,12 +75,25 @@ __device__ __forceinline__ float rcp_approx(float x) {
 }
 
 // cells 0..nc (the sentinel row nc included, whose count is 0)
+template <bool LANES>
 __global__ void __launch_bounds__(PACK_WARPS * 32)
 near_pack_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
                  const bool* __restrict__ vmask, const int* __restrict__ bucket,
                  int n, int nc, int cap, const float* __restrict__ consts,
                  float4* __restrict__ packed, int* __restrict__ cnt,
                  float2* __restrict__ f_near) {
+  if (LANES) {
+    const size_t lane0 = (size_t)blockIdx.y * n;    // the lane's first row
+    const size_t cells0 = (size_t)blockIdx.y * (nc + 1);
+    pos += lane0;
+    mass += lane0;
+    vmask += lane0;
+    f_near += lane0;
+    bucket += cells0 * cap;
+    packed += cells0 * cap;
+    cnt += cells0;
+    consts += 2 * blockIdx.y;
+  }
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
     f_near[i] = make_float2(0.f, 0.f);
@@ -169,11 +192,21 @@ __device__ __forceinline__ void near_rows(
   }
 }
 
+template <bool LANES>
 __global__ void __launch_bounds__(NEAR_WARPS * 32)
 near_kernel(const int* __restrict__ bucket, const int* __restrict__ table,
             const float4* __restrict__ packed, const int* __restrict__ cnt,
             const int* __restrict__ split_of, int nc, int cap,
-            const float* __restrict__ consts, float2* __restrict__ f_near) {
+            const float* __restrict__ consts, float2* __restrict__ f_near,
+            int n) {
+  if (LANES) {
+    const size_t cells0 = (size_t)blockIdx.y * (nc + 1);  // the lane's cells
+    bucket += cells0 * cap;
+    packed += cells0 * cap;
+    cnt += cells0;
+    f_near += (size_t)blockIdx.y * n;
+    consts += 2 * blockIdx.y;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int cell = blockIdx.x * NEAR_WARPS + warp;
   if (cell >= nc) return;
@@ -208,29 +241,40 @@ near_kernel(const int* __restrict__ bucket, const int* __restrict__ table,
 
 }  // namespace
 
-// pos f32[n, 2] (8-byte aligned), mass f32[n], vmask bool[n];
-// bucket int32[(nc + 1) * cap], sentinel n; table int32[(nc + 1) * 9],
-// sentinel nc; split int32[cap + 1], (RT << 8) | s for each row count, from
-// ops.near_split; consts f32[2] = (C·L², md²); scratch packed
-// f32[(nc + 1) * cap, 4] (16-byte aligned)
-// and cnt int32[nc + 1]; f_near f32[n, 2] (written whole).
+// pos f32[lanes, n, 2] (8-byte aligned), mass f32[lanes, n], vmask
+// bool[lanes, n]; bucket int32[lanes, nc + 1, cap], local ids, sentinel n;
+// table int32[(nc + 1) * 9], sentinel nc, and split int32[cap + 1],
+// (RT << 8) | s for each row count from ops.near_split, both shared by the
+// lanes; consts f32[lanes, 2] = (C·L², md²) of each lane; scratch packed
+// f32[lanes, nc + 1, cap, 4] (16-byte aligned) and cnt int32[lanes, nc + 1];
+// f_near f32[lanes, n, 2] (written whole).
 extern "C" int grid_near_launch(const float* pos, const float* mass,
                                 const bool* vmask, const int* bucket,
                                 const int* table, const int* split, int n,
-                                int nc, int cap, const float* consts,
-                                float* packed, int* cnt, float* f_near,
-                                cudaStream_t stream) {
+                                int nc, int cap, int lanes,
+                                const float* consts, float* packed, int* cnt,
+                                float* f_near, cudaStream_t stream) {
+  if (lanes <= 0) return (int)cudaGetLastError();
   auto* pk = reinterpret_cast<float4*>(packed);
   auto* out = reinterpret_cast<float2*>(f_near);
-  near_pack_kernel<<<(nc + PACK_WARPS) / PACK_WARPS, PACK_WARPS * 32, 0,
-                     stream>>>(reinterpret_cast<const float2*>(pos), mass,
-                               vmask, bucket, n, nc, cap, consts, pk, cnt,
-                               out);
+  const dim3 pack_grid((nc + PACK_WARPS) / PACK_WARPS, lanes);
+  const auto* p2 = reinterpret_cast<const float2*>(pos);
+  if (lanes > 1)
+    near_pack_kernel<true><<<pack_grid, PACK_WARPS * 32, 0, stream>>>(
+        p2, mass, vmask, bucket, n, nc, cap, consts, pk, cnt, out);
+  else
+    near_pack_kernel<false><<<pack_grid, PACK_WARPS * 32, 0, stream>>>(
+        p2, mass, vmask, bucket, n, nc, cap, consts, pk, cnt, out);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (nc > 0) {
-    near_kernel<<<(nc + NEAR_WARPS - 1) / NEAR_WARPS, NEAR_WARPS * 32, 0,
-                  stream>>>(bucket, table, pk, cnt, split, nc, cap, consts, out);
+    const dim3 grid((nc + NEAR_WARPS - 1) / NEAR_WARPS, lanes);
+    if (lanes > 1)
+      near_kernel<true><<<grid, NEAR_WARPS * 32, 0, stream>>>(
+          bucket, table, pk, cnt, split, nc, cap, consts, out, n);
+    else
+      near_kernel<false><<<grid, NEAR_WARPS * 32, 0, stream>>>(
+          bucket, table, pk, cnt, split, nc, cap, consts, out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,15 @@ Per call (positions move every iteration, so all of it reruns):
 
 Each wrapper runs its plain version (ref.py) for a CPU tensor and launches
 its kernel, or raises, for a CUDA tensor.
+
+Lanes: every function here also takes B independent levels at once, each
+array with a leading lane axis (pos [B, n_pad, 2], consts [B, 2], ...), as
+the batched driver's groups hand them over (one ``grid_dim``/``cell_cap`` a
+group, so the neighbor table is shared). Binning stays per lane: one stable
+sort on ``lane·(nc+1) + cid`` gives each lane the cells, slots and
+in-bucket flags of the lane alone; the cell aggregates sum over one flat
+index space of ``B·(nc+1)`` cells, lane b's cell c at ``b·(nc+1) + c``; each
+kernel takes all lanes in one launch. A single level is the one-lane case.
 """
 from __future__ import annotations
 
@@ -30,7 +39,8 @@ import torch
 
 from repro_torch.graphs.graph import segment_sum
 from repro_torch.kernels import _build
-from repro_torch.kernels.grid_force.ref import grid_near_ref, grid_far_ref
+from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
+                                                grid_near_lanes_ref)
 
 _EPS = 1e-12
 _AVG_OCCUPANCY = 12      # target vertices per grid cell
@@ -75,10 +85,18 @@ def neighbor_table(G: int, device: torch.device) -> torch.Tensor:
 
 
 def _box(pos, vmask):
+    """(lo, hi) of the valid vertices' bounding box: [2] each, or [B, 2]
+    for lanes pos [B, n, 2]."""
     big = 3e38
-    lo = torch.where(vmask[:, None], pos, big).amin(dim=0)
-    hi = torch.where(vmask[:, None], pos, -big).amax(dim=0)
+    lo = torch.where(vmask[..., None], pos, big).amin(dim=-2)
+    hi = torch.where(vmask[..., None], pos, -big).amax(dim=-2)
     return lo, hi
+
+
+def _lane_offsets(B: int, stride: int, device) -> torch.Tensor:
+    """int32[B, 1]: lane b's first slot, b·stride, in a flat index space."""
+    return (torch.arange(B, dtype=torch.int32, device=device)
+            * stride)[:, None]
 
 
 def bin_vertices(pos, vmask, grid_dim: int, cell_cap: int):
@@ -88,45 +106,60 @@ def bin_vertices(pos, vmask, grid_dim: int, cell_cap: int):
     sentinel n, inb[n] bool — vertex made it into its cell's bucket).
     Bucket slot order is the vertices' array order (the sort is stable), so
     the table is bit-identical to the JAX package's for the same positions.
+    Lanes pos [B, n, 2], vmask [B, n] give cid [B, n], bucket [B, G²+1,
+    cap] (local ids) and inb [B, n]: each lane's the bits of the lane alone.
     """
-    n = pos.shape[0]
+    if pos.dim() == 2:
+        cid, bucket, inb = bin_vertices(pos[None], vmask[None], grid_dim,
+                                        cell_cap)
+        return cid[0], bucket[0], inb[0]
+    B, n = vmask.shape
+    dev = pos.device
     G, cap = grid_dim, cell_cap
     nc = G * G
     lo, hi = _box(pos, vmask)
     cell = grid_cell_size(lo, hi, G)
-    ij = torch.clamp(torch.floor((pos - lo) / cell), 0, G - 1).to(torch.int32)
-    cid = torch.where(vmask, ij[:, 1] * G + ij[:, 0], nc).to(torch.int32)
+    ij = torch.clamp(torch.floor((pos - lo[:, None]) / cell[:, None]), 0,
+                     G - 1).to(torch.int32)
+    cid = torch.where(vmask, ij[..., 1] * G + ij[..., 0], nc).to(torch.int32)
 
-    sc, order = torch.sort(cid, stable=True)
-    rank = (torch.arange(n, device=pos.device)
-            - torch.searchsorted(sc, sc, side="left"))
+    # one stable sort over every lane: the key lane·(nc+1) + cid keeps lane
+    # b's vertices in sorted slots [b·n, (b+1)·n), in the one-lane order
+    key = (cid + _lane_offsets(B, nc + 1, dev)).reshape(-1)
+    sk, order = torch.sort(key, stable=True)
+    slot = torch.arange(B * n, device=dev)
+    rank = slot - torch.searchsorted(sk, sk, side="left")
+    lane = slot // n
+    sc = sk - lane * (nc + 1)                        # the lane's own cell id
     ok = (rank < cap) & (sc < nc)
-    bucket = torch.full((nc + 1, cap), n, dtype=torch.int32,
-                        device=pos.device)
-    bucket[torch.where(ok, sc, nc).long(), torch.where(ok, rank, 0)] = \
-        torch.where(ok, order.to(torch.int32), n)
-    inb = torch.zeros(n, dtype=torch.bool, device=pos.device)
+    bucket = torch.full((B, nc + 1, cap), n, dtype=torch.int32, device=dev)
+    bucket[lane, torch.where(ok, sc, nc).long(), torch.where(ok, rank, 0)] = \
+        torch.where(ok, (order - lane * n).to(torch.int32), n)
+    inb = torch.zeros(B * n, dtype=torch.bool, device=dev)
     inb[order] = ok
-    return cid, bucket, inb
+    return cid, bucket, inb.view(B, n)
 
 
-def _cell_aggregates(pos, w, cid_l, nc: int):
-    """(mass[nc+1], weighted-sum[nc+1, 2], centroid[nc+1, 2]) per cell."""
-    M = segment_sum(w, cid_l, nc + 1)
-    S = segment_sum(w[:, None] * pos, cid_l, nc + 1)
+def _cell_aggregates(pos, w, fcid, cells: int):
+    """(mass[cells], weighted-sum[cells, 2], centroid[cells, 2]) per cell of
+    a flat index space: ``fcid`` [B, n] int64 is each vertex's cell there
+    (lane b's cell c at b·(nc+1) + c, ``cells`` = B·(nc+1))."""
+    seg = fcid.reshape(-1)
+    M = segment_sum(w.reshape(-1), seg, cells)
+    S = segment_sum((w[..., None] * pos).reshape(-1, 2), seg, cells)
     return M, S, S / torch.clamp_min(M, _EPS)[:, None]
 
 
 def cell_centers(pos, vmask, grid_dim: int):
     """Geometric centers of the G×G cells over the vertices' bounding box:
-    [G²+1, 2] (sentinel row = 0)."""
+    [G²+1, 2] (sentinel row = 0), or [B, G²+1, 2] for lanes."""
     G = grid_dim
     lo, hi = _box(pos, vmask)
     cell = grid_cell_size(lo, hi, G)
     ids = torch.arange(G * G, device=pos.device)
     xy = torch.stack([ids % G, ids // G], dim=1).to(torch.float32)
-    ctr = lo[None, :] + (xy + 0.5) * cell[None, :]
-    return torch.cat([ctr, ctr.new_zeros((1, 2))])
+    ctr = lo[..., None, :] + (xy + 0.5) * cell[..., None, :]
+    return torch.cat([ctr, ctr.new_zeros(ctr.shape[:-2] + (1, 2))], dim=-2)
 
 
 def _rms(Q, M, S, centers):
@@ -139,25 +172,29 @@ def _rms(Q, M, S, centers):
 
 def _agg_field_9(pos, mu9, m9, cl2, md2, r9=None):
     """Aggregate force field of each vertex's 9 gathered cells:
-    pos [n, 2], mu9 [n, 9, 2], m9 [n, 9] → [n, 2], optionally
-    Plummer-softened by the cells' RMS radii ``r9``."""
-    dx = pos[:, 0:1] - mu9[..., 0]
-    dy = pos[:, 1:2] - mu9[..., 1]
+    pos [B, n, 2], mu9 [B, n, 9, 2], m9 [B, n, 9] → [B, n, 2], optionally
+    Plummer-softened by the cells' RMS radii ``r9``; ``cl2``/``md2`` are
+    [B, 1, 1]."""
+    dx = pos[..., 0:1] - mu9[..., 0]
+    dy = pos[..., 1:2] - mu9[..., 1]
     d2 = dx * dx + dy * dy + md2
     if r9 is not None:
         d2 = d2 + r9 * r9
     inv = (cl2 * m9) / d2
-    return torch.stack([(dx * inv).sum(dim=1), (dy * inv).sum(dim=1)], dim=1)
+    return torch.stack([(dx * inv).sum(dim=-1), (dy * inv).sum(dim=-1)],
+                       dim=-1)
 
 
-def far_corrections(pos, w_out, cid_l, inb, M_full, S_full, Q_full,
+def far_corrections(pos, w_out, fcid, inb, M_full, S_full, Q_full,
                     M_out, S_out, Q_out, cl2, md2, *,
-                    table, centers):
+                    near9, centers):
     """The force to ADD to the all-cells aggregate term: minus the 9 near
     cells' full aggregates (counted exactly by the near field), plus the
     softened overflow aggregates (minus the vertex's own mass in its own
     cell), plus — for overflow vertices only — the softened in-bucket
-    aggregates of their 9 cells."""
+    aggregates of their 9 cells. Lanes [B, n] over the flat cell space of
+    ``_cell_aggregates``: ``fcid`` [B, n] and ``near9`` [B, n, 9] index the
+    per-cell arrays and ``centers`` [B·(nc+1), 2]."""
     mu_full = S_full / torch.clamp_min(M_full, _EPS)[:, None]
     mu_out = S_out / torch.clamp_min(M_out, _EPS)[:, None]
     r_out = _rms(Q_out, M_out, S_out, centers)
@@ -166,18 +203,17 @@ def far_corrections(pos, w_out, cid_l, inb, M_full, S_full, Q_full,
     mu_in = S_in / torch.clamp_min(M_in, _EPS)[:, None]
     r_in = _rms(Q_full - Q_out, M_in, S_in, centers)
 
-    near9 = table.long()[cid_l]                                 # [n, 9]
     f = -_agg_field_9(pos, mu_full[near9], M_full[near9], cl2, md2)
     m9 = M_out[near9].clone()
     mu9 = mu_out[near9].clone()
-    m_adj = torch.clamp_min(M_out[cid_l] - w_out, 0.0)
-    s_adj = S_out[cid_l] - w_out[:, None] * pos
-    m9[:, 4] = m_adj
-    mu9[:, 4] = s_adj / torch.clamp_min(m_adj, _EPS)[:, None]
+    m_adj = torch.clamp_min(M_out[fcid] - w_out, 0.0)
+    s_adj = S_out[fcid] - w_out[..., None] * pos
+    m9[..., 4] = m_adj
+    mu9[..., 4, :] = s_adj / torch.clamp_min(m_adj, _EPS)[..., None]
     f = f + _agg_field_9(pos, mu9, m9, cl2, md2, r9=r_out[near9])
     f_bkt = _agg_field_9(pos, mu_in[near9], M_in[near9], cl2, md2,
                          r9=r_in[near9])
-    return f + torch.where(inb, 0.0, 1.0)[:, None] * f_bkt
+    return f + torch.where(inb, 0.0, 1.0)[..., None] * f_bkt
 
 
 #: rows a lane of the near kernel may keep (its near_rows<1..4>)
@@ -217,31 +253,35 @@ def grid_near(pos, mass, vmask, bucket, table, consts) -> torch.Tensor:
     pos f32[n, 2]; mass f32[n]; vmask bool[n]; bucket int32[nc+1, cap]
     (sentinel n; each row filled from slot 0); table int32[nc+1, 9]
     (sentinel nc); ``consts`` f32[2] = (C·L², md²) on pos's device
-    (``_build.consts_tensor``)."""
+    (``_build.consts_tensor``). Lanes: pos, mass, vmask, bucket (local ids)
+    and consts with a leading lane axis B, the table shared → f32[B, n, 2],
+    one launch for all B."""
+    if pos.dim() == 2:
+        return grid_near(pos[None], mass[None], vmask[None], bucket[None],
+                         table, consts[None])[0]
     if pos.device.type == "cpu":
-        return grid_near_ref(pos, mass, vmask, bucket, table, consts[0],
-                             consts[1])
+        return grid_near_lanes_ref(pos, mass, vmask, bucket, table, consts)
     if pos.device.type != "cuda":
         raise ValueError(f"grid_near: unsupported device {pos.device}")
-    n, dev = pos.shape[0], pos.device
-    nc, cap = bucket.shape[0] - 1, int(bucket.shape[1])
-    _build.require(pos, "pos", torch.float32, (n, 2), dev)
-    _build.require(mass, "mass", torch.float32, (n,), dev)
-    _build.require(vmask, "vmask", torch.bool, (n,), dev)
-    _build.require(bucket, "bucket", torch.int32, (nc + 1, cap), dev)
+    B, n, dev = pos.shape[0], pos.shape[1], pos.device
+    nc, cap = bucket.shape[1] - 1, int(bucket.shape[2])
+    _build.require(pos, "pos", torch.float32, (B, n, 2), dev)
+    _build.require(mass, "mass", torch.float32, (B, n), dev)
+    _build.require(vmask, "vmask", torch.bool, (B, n), dev)
+    _build.require(bucket, "bucket", torch.int32, (B, nc + 1, cap), dev)
     _build.require(table, "table", torch.int32, (nc + 1, 9), dev)
     if pos.data_ptr() % 8:
         raise ValueError("grid_near: pos must be 8-byte aligned (float2 loads)")
-    _build.require(consts, "consts", torch.float32, (2,), dev)
-    packed = torch.empty((nc + 1, cap, 4), dtype=torch.float32, device=dev)
-    cnt = torch.empty((nc + 1,), dtype=torch.int32, device=dev)
-    f_near = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    _build.require(consts, "consts", torch.float32, (B, 2), dev)
+    packed = torch.empty((B, nc + 1, cap, 4), dtype=torch.float32, device=dev)
+    cnt = torch.empty((B, nc + 1), dtype=torch.int32, device=dev)
+    f_near = torch.empty((B, n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_near_launch(
         pos.data_ptr(), mass.data_ptr(), vmask.data_ptr(), bucket.data_ptr(),
         table.data_ptr(), near_split_table(cap, dev).data_ptr(), n, nc, cap,
-        consts.data_ptr(), packed.data_ptr(), cnt.data_ptr(), f_near.data_ptr(),
-        _build.stream_of(pos))
-    _build.launches["grid_near"] += 1
+        B, consts.data_ptr(), packed.data_ptr(), cnt.data_ptr(),
+        f_near.data_ptr(), _build.stream_of(pos))
+    _build.count("grid_near", B, n, nc + 1, cap)
     _build.check(err, "grid_near")
     return f_near
 
@@ -249,22 +289,25 @@ def grid_near(pos, mass, vmask, bucket, table, consts) -> torch.Tensor:
 def grid_far(pos, cell_xyw, consts) -> torch.Tensor:
     """Every vertex against every cell aggregate: pos f32[n, 2],
     cell_xyw f32[nc, 3] (x, y, mass) → f32[n, 2]; ``consts`` as
-    ``grid_near`` takes it."""
+    ``grid_near`` takes it. Lanes: pos f32[B, n, 2], cell_xyw f32[B, nc, 3]
+    and consts f32[B, 2] → f32[B, n, 2], one launch for all B."""
+    if pos.dim() == 2:
+        return grid_far(pos[None], cell_xyw[None], consts[None])[0]
     if pos.device.type == "cpu":
-        return grid_far_ref(pos, cell_xyw, consts[0], consts[1])
+        return grid_far_lanes_ref(pos, cell_xyw, consts)
     if pos.device.type != "cuda":
         raise ValueError(f"grid_far: unsupported device {pos.device}")
-    n, nc, dev = pos.shape[0], cell_xyw.shape[0], pos.device
-    _build.require(pos, "pos", torch.float32, (n, 2), dev)
-    _build.require(cell_xyw, "cell_xyw", torch.float32, (nc, 3), dev)
+    B, n, nc, dev = pos.shape[0], pos.shape[1], cell_xyw.shape[1], pos.device
+    _build.require(pos, "pos", torch.float32, (B, n, 2), dev)
+    _build.require(cell_xyw, "cell_xyw", torch.float32, (B, nc, 3), dev)
     if pos.data_ptr() % 8:
         raise ValueError("grid_far: pos must be 8-byte aligned (float2 loads)")
-    _build.require(consts, "consts", torch.float32, (2,), dev)
-    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    _build.require(consts, "consts", torch.float32, (B, 2), dev)
+    out = torch.empty((B, n, 2), dtype=torch.float32, device=dev)
     err = _build.load().grid_far_launch(
-        pos.data_ptr(), n, cell_xyw.data_ptr(), nc, consts.data_ptr(),
+        pos.data_ptr(), n, cell_xyw.data_ptr(), nc, B, consts.data_ptr(),
         out.data_ptr(), _build.stream_of(pos))
-    _build.launches["grid_far"] += 1
+    _build.count("grid_far", B, n, nc)
     _build.check(err, "grid_far")
     return out
 
@@ -273,30 +316,40 @@ def grid_repulsion(pos, mass, vmask, consts, *, grid_dim: int,
                    cell_cap: int) -> torch.Tensor:
     """Grid-approximated FR repulsion: pos f32[n, 2] → forces f32[n, 2].
     ``consts`` as ``grid_near`` takes it; ``far_corrections`` reads its
-    two 0-d views."""
+    two columns. Lanes: pos [B, n, 2], mass/vmask [B, n], consts [B, 2] →
+    [B, n, 2]."""
     if grid_dim < 2 or cell_cap < 1:
         raise ValueError(f"grid_dim={grid_dim}, cell_cap={cell_cap}")
+    if pos.dim() == 2:
+        return grid_repulsion(pos[None], mass[None], vmask[None],
+                              consts[None], grid_dim=grid_dim,
+                              cell_cap=cell_cap)[0]
+    B = pos.shape[0]
     G, cap = grid_dim, cell_cap
     nc = G * G
-    cl2, md2 = consts[0], consts[1]
+    cells = B * (nc + 1)
+    cl2, md2 = consts[:, 0, None, None], consts[:, 1, None, None]
     w = torch.where(vmask, mass, 0.0)
 
     cid, bucket, inb = bin_vertices(pos, vmask, G, cap)
-    cid_l = cid.long()
-    M_full, S_full, mu_full = _cell_aggregates(pos, w, cid_l, nc)
+    lane0 = _lane_offsets(B, nc + 1, pos.device).long()
+    fcid = cid.long() + lane0                      # [B, n] in the flat cells
+    M_full, S_full, mu_full = _cell_aggregates(pos, w, fcid, cells)
     w_out = torch.where(inb, 0.0, w)
-    M_out, S_out, _ = _cell_aggregates(pos, w_out, cid_l, nc)
-    centers = cell_centers(pos, vmask, G)
-    rel = pos - centers[cid_l]
-    q = (rel * rel).sum(dim=1)
-    Q_full = segment_sum(w * q, cid_l, nc + 1)
-    Q_out = segment_sum(w_out * q, cid_l, nc + 1)
+    M_out, S_out, _ = _cell_aggregates(pos, w_out, fcid, cells)
+    centers = cell_centers(pos, vmask, G).reshape(cells, 2)
+    rel = pos - centers[fcid]
+    q = (rel * rel).sum(dim=-1)
+    Q_full = segment_sum((w * q).reshape(-1), fcid.reshape(-1), cells)
+    Q_out = segment_sum((w_out * q).reshape(-1), fcid.reshape(-1), cells)
 
     table = neighbor_table(G, pos.device)
+    near9 = table.long()[cid.long()] + lane0[..., None]        # [B, n, 9]
     f_near = grid_near(pos, mass, vmask, bucket, table, consts)
-    cell_xyw = torch.cat([mu_full[:nc], M_full[:nc, None]], dim=1)
+    cell_xyw = torch.cat([mu_full.view(B, nc + 1, 2)[:, :nc],
+                          M_full.view(B, nc + 1, 1)[:, :nc]], dim=-1)
     f_far = grid_far(pos, cell_xyw, consts)
-    f_far = f_far + far_corrections(pos, w_out, cid_l, inb, M_full, S_full,
+    f_far = f_far + far_corrections(pos, w_out, fcid, inb, M_full, S_full,
                                     Q_full, M_out, S_out, Q_out, cl2, md2,
-                                    table=table, centers=centers)
-    return torch.where(vmask[:, None], f_near + f_far, 0.0)
+                                    near9=near9, centers=centers)
+    return torch.where(vmask[..., None], f_near + f_far, 0.0)

@@ -48,3 +48,20 @@ def grid_near_ref(pos, mass, vmask, bucket, table, cl2: float, md2: float, *,
 def grid_far_ref(pos, cell_xyw, cl2: float, md2: float) -> torch.Tensor:
     """pos [n, 2] vs cell aggregates [nc, 3] (x, y, mass) → [n, 2]."""
     return two_set_ref(pos, cell_xyw[:, :2], cell_xyw[:, 2], cl2, md2)
+
+
+def grid_near_lanes_ref(pos, mass, vmask, bucket, table, consts):
+    """B independent lanes (pos [B, n, 2], mass/vmask [B, n], bucket
+    [B, nc+1, cap] of local ids, consts [B, 2]; the table shared) →
+    [B, n, 2]; lane b is ``grid_near_ref`` of lane b alone."""
+    return torch.stack([grid_near_ref(pos[b], mass[b], vmask[b], bucket[b],
+                                      table, consts[b, 0], consts[b, 1])
+                        for b in range(pos.shape[0])])
+
+
+def grid_far_lanes_ref(pos, cell_xyw, consts):
+    """B independent lanes (pos [B, n, 2], cell_xyw [B, nc, 3], consts
+    [B, 2]) → [B, n, 2]; lane b is ``grid_far_ref`` of lane b alone."""
+    return torch.stack([grid_far_ref(pos[b], cell_xyw[b], consts[b, 0],
+                                     consts[b, 1])
+                        for b in range(pos.shape[0])])

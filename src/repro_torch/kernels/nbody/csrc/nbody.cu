@@ -34,6 +34,13 @@
 //   * C·L² and md² are read from device memory (consts[0], consts[1]) at the
 //     start of each block, so one captured CUDA graph serves every value
 //     of them: the refine step's schedule row holds them.
+//   * Lanes: B independent vertex sets of n_pad rows each (the batched
+//     driver's [B, n_pad] groups) in one launch, lane b on blockIdx.y = b
+//     with its own constants consts[2b], consts[2b + 1]. A lane's blocks
+//     read and write only its rows, in the order of a one-lane call, so a
+//     lane's result is the bits of the same lane launched alone. Lanes
+//     multiply the clusters of a launch: at the batched floor n_pad 64 a
+//     lane is one cluster.
 //   * The weight over d² takes the approximate reciprocal (rcp.approx.ftz):
 //     d² ≥ md² > 0 and both are normal floats, so no special case arises. The
 //     order of operations is the reference's: inv = (C·L²·w)·(1/d²), then
@@ -69,6 +76,12 @@ nbody_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
   const int rank = (int)cluster.block_rank();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t0 = (blockIdx.x / NB_CLUSTER) * NB_TILE;
+  const size_t lane0 = (size_t)blockIdx.y * n;     // the lane's first row
+  pos += lane0;
+  mass += lane0;
+  vmask += lane0;
+  out += lane0;
+  consts += 2 * blockIdx.y;
   const float cl2 = __ldg(consts), md2 = __ldg(consts + 1);
 
   float px[NB_T], py[NB_T], fx[NB_T], fy[NB_T];
@@ -152,15 +165,16 @@ nbody_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
 
 }  // namespace
 
-// pos f32[n, 2] and out f32[n, 2] (8-byte aligned: torch allocations are),
-// mass f32[n], vmask bool[n], consts f32[2] = (C·L², md²). One cluster of
-// NB_CLUSTER blocks for each tile of NB_TILE targets.
+// pos f32[lanes, n, 2] and out f32[lanes, n, 2] (8-byte aligned: torch
+// allocations are), mass f32[lanes, n], vmask bool[lanes, n], consts
+// f32[lanes, 2] = (C·L², md²) of each lane. One cluster of NB_CLUSTER
+// blocks for each tile of NB_TILE targets of each lane.
 extern "C" int nbody_repulsion_launch(const float* pos, const float* mass,
-                                      const bool* vmask, int n,
+                                      const bool* vmask, int n, int lanes,
                                       const float* consts, float* out,
                                       cudaStream_t stream) {
-  if (n > 0) {
-    const int blocks = (n + NB_TILE - 1) / NB_TILE * NB_CLUSTER;
+  if (n > 0 && lanes > 0) {
+    const dim3 blocks((n + NB_TILE - 1) / NB_TILE * NB_CLUSTER, lanes);
     nbody_kernel<<<blocks, NB_WARPS * 32, 0, stream>>>(
         reinterpret_cast<const float2*>(pos), mass, vmask, n, consts,
         reinterpret_cast<float2*>(out));

@@ -34,3 +34,12 @@ def nbody_repulsion_ref(pos, mass, vmask, cl2: float, md2: float):
     w = torch.where(vmask, mass, 0.0)
     f = two_set_ref(pos, pos, w, cl2, md2)
     return torch.where(vmask[:, None], f, 0.0)
+
+
+def nbody_repulsion_lanes_ref(pos, mass, vmask, consts):
+    """B independent lanes: pos [B, n, 2], mass [B, n], vmask [B, n],
+    consts [B, 2] = (C·L², md²) of each lane → [B, n, 2]; lane b is
+    ``nbody_repulsion_ref`` of lane b alone."""
+    return torch.stack([nbody_repulsion_ref(pos[b], mass[b], vmask[b],
+                                            consts[b, 0], consts[b, 1])
+                        for b in range(pos.shape[0])])

@@ -51,6 +51,11 @@
 //   C·L² (pack) and md² (main, after griddepcontrol.wait) are read from
 //   device memory, consts[0] and consts[1], so one captured CUDA graph
 //   serves every value of them.
+//   Lanes: B independent levels of n rows each (the batched driver's
+//   [B, n_pad] groups) in one call, lane b on blockIdx.y = b in both
+//   kernels, with its own constants consts[2b], consts[2b + 1]. A lane's
+//   indices are local to it (sentinel n) and resolve into its own rows of
+//   the packed table, so a lane's result is the bits of the lane alone.
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,7 +75,12 @@ pack_kernel(const float2* __restrict__ pos, const float* __restrict__ mass,
             const unsigned char* __restrict__ vmask, int n,
             const float* __restrict__ consts, float4* __restrict__ packed) {
   asm volatile("griddepcontrol.launch_dependents;");
-  const float cl2 = __ldg(consts);
+  const size_t lane0 = (size_t)blockIdx.y * n;     // the lane's first row
+  pos += lane0;
+  mass += lane0;
+  vmask += lane0;
+  packed += lane0;
+  const float cl2 = __ldg(consts + 2 * blockIdx.y);
   for (int i = blockIdx.x * NB_THREADS + threadIdx.x; i < n;
        i += gridDim.x * NB_THREADS) {
     const float2 p = pos[i];
@@ -121,6 +131,14 @@ neighbor_kernel(const float2* __restrict__ pos,
                 const unsigned char* __restrict__ nbr_mask, int n, int K,
                 const float* __restrict__ consts, float2* __restrict__ out) {
   constexpr int S = 32 / R;
+  const size_t lane0 = (size_t)blockIdx.y * n;     // the lane's first row
+  pos += lane0;
+  vmask += lane0;
+  packed += lane0;
+  nbr_idx += lane0 * K;
+  nbr_mask += lane0 * K;
+  out += lane0;
+  consts += 2 * blockIdx.y;
   const int q = threadIdx.x % S;
   const int v = (blockIdx.x * NB_THREADS + threadIdx.x) / S;
   const bool live = v < n;           // the last warp's spare rows
@@ -200,11 +218,11 @@ neighbor_kernel(const float2* __restrict__ pos,
 template <int R, int G>
 cudaError_t launch(bool vec, const float2* pos, const unsigned char* vmask,
                    const float4* packed, const int* nbr_idx,
-                   const unsigned char* nbr_mask, int n, int K,
+                   const unsigned char* nbr_mask, int n, int K, int lanes,
                    const float* consts, float2* out, cudaStream_t stream) {
   constexpr int rows = NB_THREADS / 32 * R;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + rows - 1) / rows);
+  cfg.gridDim = dim3((n + rows - 1) / rows, lanes);
   cfg.blockDim = dim3(NB_THREADS);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -222,20 +240,22 @@ cudaError_t launch(bool vec, const float2* pos, const unsigned char* vmask,
 
 }  // namespace
 
-// pos f32[n, 2] (8-byte aligned), mass f32[n], vmask bool[n];
-// nbr_idx int32[n, K], nbr_mask bool[n, K]; consts f32[2] = (C·L², md²);
-// scratch packed f32[n, 4]
-// (16-byte aligned); out f32[n, 2] (written whole). (rows, groups) is a
-// pair of ops.neighbor_split's table; vec = 1 only for K % 4 == 0 with
-// nbr_idx 16-byte and nbr_mask 4-byte aligned. Returns cudaErrorInvalidValue
-// for a pair the table does not hold.
+// pos f32[lanes, n, 2] (8-byte aligned), mass f32[lanes, n], vmask
+// bool[lanes, n]; nbr_idx int32[lanes, n, K], nbr_mask bool[lanes, n, K],
+// indices local to their lane; consts f32[lanes, 2] = (C·L², md²) of each
+// lane; scratch packed f32[lanes, n, 4] (16-byte aligned); out
+// f32[lanes, n, 2] (written whole). (rows, groups) is a pair of
+// ops.neighbor_split's table; vec = 1 only for K % 4 == 0 with nbr_idx
+// 16-byte and nbr_mask 4-byte aligned (then every lane's rows are too).
+// Returns cudaErrorInvalidValue for a pair the table does not hold.
 extern "C" int neighbor_repulsion_launch(const float* pos, const float* mass,
                                          const bool* vmask, const int* nbr_idx,
                                          const bool* nbr_mask, int n, int K,
-                                         int rows, int groups, int vec,
-                                         const float* consts, float* packed,
-                                         float* out, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaGetLastError();
+                                         int lanes, int rows, int groups,
+                                         int vec, const float* consts,
+                                         float* packed, float* out,
+                                         cudaStream_t stream) {
+  if (n <= 0 || lanes <= 0) return (int)cudaGetLastError();
   auto* p2 = reinterpret_cast<const float2*>(pos);
   auto* vm = reinterpret_cast<const unsigned char*>(vmask);
   auto* nm = reinterpret_cast<const unsigned char*>(nbr_mask);
@@ -243,14 +263,14 @@ extern "C" int neighbor_repulsion_launch(const float* pos, const float* mass,
   auto* o2 = reinterpret_cast<float2*>(out);
   const int blocks = (n + NB_THREADS - 1) / NB_THREADS;
   const int pack_blocks = blocks < PACK_BLOCKS ? blocks : PACK_BLOCKS;
-  pack_kernel<<<pack_blocks, NB_THREADS, 0, stream>>>(p2, mass, vm, n,
-                                                      consts, pk);
+  pack_kernel<<<dim3(pack_blocks, lanes), NB_THREADS, 0, stream>>>(
+      p2, mass, vm, n, consts, pk);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 #define NB_CASE(r, g)                                                      \
   if (rows == r && groups == g)                                            \
     return (int)launch<r, g>(vec != 0, p2, vm, pk, nbr_idx, nm, n, K,      \
-                             consts, o2, stream);
+                             lanes, consts, o2, stream);
   NB_CASE(4, 1) NB_CASE(2, 1) NB_CASE(1, 1) NB_CASE(1, 2)
 #undef NB_CASE
   return (int)cudaErrorInvalidValue;

@@ -38,3 +38,13 @@ def neighbor_repulsion_ref(pos, mass, nbr_idx, nbr_mask, vmask,
         inv = (cl2 * nw) / d2
         out[i:i + step] = (delta * inv[..., None]).sum(dim=1)
     return torch.where(vmask[:, None], out, 0.0)
+
+
+def neighbor_repulsion_lanes_ref(pos, mass, nbr_idx, nbr_mask, vmask,
+                                 consts) -> torch.Tensor:
+    """B independent lanes (every argument with a leading lane axis, indices
+    local to their lane; consts [B, 2] = (C·L², md²) of each lane) →
+    [B, n, 2]; lane b is ``neighbor_repulsion_ref`` of lane b alone."""
+    return torch.stack([neighbor_repulsion_ref(
+        pos[b], mass[b], nbr_idx[b], nbr_mask[b], vmask[b], consts[b, 0],
+        consts[b, 1]) for b in range(pos.shape[0])])

@@ -8,9 +8,14 @@ Runs pruning → coarsening → placement/refinement → reinsertion on the card
 reports the paper's quality metrics (CRE, NELD) and the wall time, and
 optionally writes an SVG: the JAX package's ``launch/layout.py``.
 
-Not ported yet, and refused: ``--many``/``--many-compare`` (the batched
-driver, ROADMAP.md queue 1, item 9), ``--trace`` (observability, item 10)
-and ``--mesh`` (the sharded driver, item 11).
+``--many B`` instead lays out B seed-varied requests of the graph through
+the batched multi-graph driver (``multigila_layout_many``) and reports
+graphs/s; ``--many-compare`` also runs the sequential driver over the same
+requests and reports whether every graph came out bit-identical (on the
+CPU it does; on the card the sequential driver sums edges with atomics).
+
+Not ported yet, and refused: ``--trace`` (observability, ROADMAP.md queue
+1, item 10) and ``--mesh`` (the sharded driver, item 11).
 """
 from __future__ import annotations
 
@@ -20,14 +25,14 @@ import time
 
 import numpy as np
 
-from repro_torch.core import LayoutConfig, multigila_layout
+from repro_torch.core import (LayoutConfig, multigila_layout,
+                              multigila_layout_many)
 from repro_torch.graphs import generators
 from repro_torch.graphs.graph import build_graph
 from repro_torch.graphs.io import save_svg
 from repro_torch.graphs.metrics import quality_report
 
-_UNPORTED = (("many", "--many", 9), ("many_compare", "--many-compare", 9),
-             ("trace", "--trace", 10), ("mesh", "--mesh", 11))
+_UNPORTED = (("trace", "--trace", 10), ("mesh", "--mesh", 11))
 
 
 def main(argv=None):
@@ -51,9 +56,11 @@ def main(argv=None):
     ap.add_argument("--svg", default="")
     ap.add_argument("--no-cre", action="store_true")
     ap.add_argument("--many", type=int, default=0, metavar="B",
-                    help="not ported yet (batched driver)")
+                    help="lay out B seed-varied requests through the "
+                         "batched multi-graph driver")
     ap.add_argument("--many-compare", action="store_true",
-                    help="not ported yet (batched driver)")
+                    help="with --many: also run the sequential driver and "
+                         "check per-graph bit-identity")
     ap.add_argument("--trace", default="", metavar="OUT.json",
                     help="not ported yet (span tracer)")
     ap.add_argument("--mesh", default="",
@@ -71,10 +78,32 @@ def main(argv=None):
     if args.driver is not None:
         cfg = dataclasses.replace(cfg, driver=args.driver)
 
-    t0 = time.perf_counter()
-    pos, stats = multigila_layout(edges, n, cfg, device=args.device)
-    dt = time.perf_counter() - t0
-    print(f"levels={stats.levels} sizes={stats.level_sizes} time={dt:.2f}s")
+    if args.many > 0:
+        B = args.many
+        seeds = [args.seed + i for i in range(B)]
+        reqs = [(edges, n)] * B
+        t0 = time.perf_counter()
+        outs = multigila_layout_many(reqs, cfg, seeds=seeds,
+                                     device=args.device)
+        dt = time.perf_counter() - t0
+        print(f"batched: {B} layouts in {dt:.2f}s = {B / dt:.2f} graphs/s "
+              f"(levels={outs[0][1].levels})")
+        if args.many_compare:
+            t0 = time.perf_counter()
+            seq = [multigila_layout(e, nn, dataclasses.replace(cfg, seed=s),
+                                    device=args.device)
+                   for (e, nn), s in zip(reqs, seeds)]
+            ds = time.perf_counter() - t0
+            same = all(np.array_equal(a[0], b[0]) for a, b in zip(seq, outs))
+            print(f"sequential: {ds:.2f}s = {B / ds:.2f} graphs/s → "
+                  f"batched speedup {ds / dt:.2f}x, bit-identical={same}")
+        pos, stats = outs[0]
+    else:
+        t0 = time.perf_counter()
+        pos, stats = multigila_layout(edges, n, cfg, device=args.device)
+        dt = time.perf_counter() - t0
+        print(f"levels={stats.levels} sizes={stats.level_sizes} "
+              f"time={dt:.2f}s")
 
     g = build_graph(edges, n, device="cpu")
     rep = quality_report(g, np.pad(pos, ((0, g.n_pad - n), (0, 0))),

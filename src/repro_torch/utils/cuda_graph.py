@@ -35,8 +35,8 @@ class StepGraph:
         self.fn = fn
         self.device = torch.device(device)
         self.graph: torch.cuda.CUDAGraph | None = None
-        #: kernel launches of one replay, by kernel
-        self.launches: collections.Counter = collections.Counter()
+        #: kernel launches of one replay: (by kernel, by shape)
+        self.launches = (collections.Counter(), collections.Counter())
 
     @property
     def captured(self) -> bool:
@@ -49,7 +49,7 @@ class StepGraph:
             self._warm_up_and_capture()
         else:
             self.graph.replay()
-            _build.launches.update(self.launches)
+            _build.replayed(self.launches)
 
     def _warm_up_and_capture(self) -> None:
         main = torch.cuda.current_stream(self.device)

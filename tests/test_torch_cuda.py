@@ -27,11 +27,16 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.grid_force import ops as grid_ops
-from repro_torch.kernels.grid_force.ref import grid_far_ref, grid_near_ref
+from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
+                                                grid_far_ref,
+                                                grid_near_lanes_ref,
+                                                grid_near_ref)
 from repro_torch.kernels.nbody.ops import nbody_repulsion
-from repro_torch.kernels.nbody.ref import nbody_repulsion_ref
+from repro_torch.kernels.nbody.ref import (nbody_repulsion_lanes_ref,
+                                           nbody_repulsion_ref)
 from repro_torch.kernels.neighbor_force.ops import neighbor_repulsion
-from repro_torch.kernels.neighbor_force.ref import neighbor_repulsion_ref
+from repro_torch.kernels.neighbor_force.ref import (
+    neighbor_repulsion_lanes_ref, neighbor_repulsion_ref)
 
 C, L, MD = 1.3, 0.8, 1e-2
 
@@ -564,3 +569,101 @@ def test_captured_decode_gives_the_eager_greedy_tokens(cuda):
     assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
     assert _build.launches["flash_attention"] == 2 * 32
     assert int(dec.pos) == pos + 32
+
+
+# -- the lane axis: the batched driver's [B, n_pad] groups ------------------------
+
+def _lane_case(name, B, n, dev):
+    """(wrapper, lane args, one-lane args of lane b, plain version) of one
+    force kernel on B lanes of n rows, each lane its own drawing and
+    constants (C grows with the lane)."""
+    rng = np.random.default_rng(B * n)
+    lanes = [_vertices(n, 7 * b + n, dev) for b in range(B)]
+    pos, mass, vmask = (torch.stack(t) for t in zip(*lanes))
+    consts = torch.stack([_build.consts_tensor(C * (1 + 0.25 * b), L, MD, dev)
+                          for b in range(B)])
+    if name == "nbody":
+        args = (pos, mass, vmask)
+        f, plain = nbody_repulsion, nbody_repulsion_lanes_ref
+    elif name == "neighbor_force":
+        K = 32 if n <= 64 else 40
+        lists = [_lists(n, K, "prefix" if b % 2 else "random", b, dev)
+                 for b in range(B)]
+        nbr, nmask = (torch.stack(t) for t in zip(*lists))
+        args = (pos, mass, nbr, nmask, vmask)
+        f, plain = neighbor_repulsion, neighbor_repulsion_lanes_ref
+    elif name == "grid_near":
+        G, cap = (4, 16) if n <= 64 else (9, 48)
+        _, bucket, _ = grid_ops.bin_vertices(pos, vmask, G, cap)
+        table = grid_ops.neighbor_table(G, dev)
+        f = lambda p, m, v, bk, k: grid_ops.grid_near(p, m, v, bk, table, k)
+        plain = lambda p, m, v, bk, k: grid_near_lanes_ref(p, m, v, bk, table,
+                                                           k)
+        args = (pos, mass, vmask, bucket)
+    else:
+        nc = 37 if n <= 64 else 4096
+        cells = np.concatenate([rng.random((B, nc, 2)) * 10,
+                                rng.random((B, nc, 1)) * 5], 2)
+        args = (pos, torch.from_numpy(cells.astype(np.float32)).to(dev))
+        f, plain = grid_ops.grid_far, grid_far_lanes_ref
+    return f, args, consts, plain
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("name,n", [
+    ("nbody", 64), ("nbody", 1000),           # 64: one cluster a lane
+    ("neighbor_force", 64), ("neighbor_force", 777),
+    ("grid_near", 64), ("grid_near", 3001),
+    ("grid_far", 64), ("grid_far", 5000)])
+def test_lane_kernel_matches_single_calls_and_plain(cuda, name, n, B):
+    """One launch over B lanes: each lane the bits of the same kernel
+    launched on that lane alone, and within the force tolerance of the
+    plain version over lanes; at B = 1 the single-graph call's bits."""
+    f, args, consts, plain = _lane_case(name, B, n, cuda)
+    out = _twice(name, lambda: f(*args, consts))
+    assert out.shape == (B, n, 2)
+    for b in range(B):
+        alone = f(*(a[b] for a in args), consts[b])
+        torch.cuda.synchronize()
+        assert torch.equal(out[b], alone), b
+    _close(out, plain(*args, consts))
+
+
+def test_batched_driver_on_card(cuda):
+    """``multigila_layout_many`` on the card in all three modes: every
+    graph's hierarchy, modes and levels those of its sequential layout,
+    positions finite, NELD within 0.05 of the sequential layout's; each
+    exact and neighbor group with incidence tables (no atomics) repeats its
+    own bits when run again on its recorded requests."""
+    from repro_torch.core import (LayoutConfig, bucketing,
+                                  multigila_layout, multigila_layout_many)
+    from repro_torch.graphs import generators as G
+    from repro_torch.graphs.metrics import neld
+
+    graphs = [G.delaunay(3000, seed=60 + i) for i in range(3)]
+    cfg = LayoutConfig(exact_threshold=64, grid_threshold=512)
+    groups, real = [], bucketing.refine_level_many
+
+    def record(reqs, **kw):
+        out = real(reqs, **kw)
+        groups.append((reqs, kw, [o.clone() for o in out]))
+        return out
+
+    bucketing.refine_level_many = record
+    try:
+        outs = multigila_layout_many(graphs, cfg)
+    finally:
+        bucketing.refine_level_many = real
+    for (e, n), (pb, sb) in zip(graphs, outs):
+        ps, ss = multigila_layout(e, n, cfg)
+        assert (sb.level_sizes, sb.level_modes) == (ss.level_sizes,
+                                                    ss.level_modes)
+        assert np.isfinite(pb).all() and pb.shape == (n, 2)
+        assert abs(neld(pb, e) - neld(ps, e)) <= 0.05
+    assert {g[0][0].sched.mode for g in groups} == {"exact", "neighbor",
+                                                   "grid"}
+    for reqs, kw, out in groups:
+        if reqs[0].sched.mode == "grid" or reqs[0].inc_k == 0:
+            continue                 # cell sums by index_add_: atomics
+        again = real(reqs, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out, again))

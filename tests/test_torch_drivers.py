@@ -221,6 +221,27 @@ def test_cli_main_matches_jax(tmp_path, argv):
         assert abs(rt["cre"] - rj["cre"]) <= CRE_DELTA, (rt, rj)
 
 
+def test_cli_many_matches_jax():
+    """``--many B --many-compare``: the same lines as JAX's ``main`` (times
+    aside), every batched graph bit-identical to its sequential layout on
+    the CPU, and the first graph's quality within the deltas."""
+    argv = ["--graph", "grid", "--args", "7", "7", "--many", "3",
+            "--many-compare", "--seed", "4"]
+    rj, lj = _run(jax_cli.main, argv)
+    rt, lt = _run(cli.main, argv + ["--device", "cpu"])
+    assert len(lt) == len(lj) == 4 and lt[0] == lj[0]
+    # "batched: 3 layouts in …s = … graphs/s (levels=L)"
+    assert lt[1].split(" in ")[0] == lj[1].split(" in ")[0] == \
+        "batched: 3 layouts"
+    assert lt[1].split(" graphs/s ")[1] == lj[1].split(" graphs/s ")[1]
+    # "sequential: …s = … graphs/s → batched speedup …x, bit-identical=B"
+    for line in (lt[2], lj[2]):
+        assert line.startswith("sequential: ")
+        assert line.endswith("x, bit-identical=True")
+    assert abs(rt["neld"] - rj["neld"]) <= NELD_DELTA, (rt, rj)
+    assert abs(rt["cre"] - rj["cre"]) <= CRE_DELTA, (rt, rj)
+
+
 def test_engines_drivers_and_cli_default_to_the_card():
     """Without ``device=`` (or ``--device``) the layout runs on the card,
     so with no card it raises instead of moving to the CPU."""

@@ -112,8 +112,8 @@ def test_disconnected_input_packs_components():
 
 def test_unported_driver_and_engine_raise():
     """What is not ported yet raises NotImplementedError, naming its
-    ROADMAP item: the sharded driver and the CLI's batched, tracing and
-    mesh options. An unknown engine is a ValueError, as in JAX."""
+    ROADMAP item: the sharded driver and the CLI's tracing and mesh
+    options. An unknown engine is a ValueError, as in JAX."""
     from repro_torch.launch.layout import main
     edges, n = G.grid(4, 4)
     for cfg in (LayoutConfig(driver="multigila_dist"),
@@ -121,8 +121,7 @@ def test_unported_driver_and_engine_raise():
         with pytest.raises(NotImplementedError, match="item 11"):
             multigila_layout(edges, n, cfg, device="cpu")
     base = ["--graph", "grid", "--args", "4", "4", "--device", "cpu"]
-    for extra, item in ((["--many", "4"], 9), (["--many-compare"], 9),
-                        (["--trace", "t.json"], 10), (["--mesh", "2x2"], 11),
+    for extra, item in ((["--trace", "t.json"], 10), (["--mesh", "2x2"], 11),
                         (["--driver", "multigila_dist"], 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             main(base + extra)
