@@ -130,7 +130,7 @@ of them passed):
      levels exact; L0 lanes at n_pad 8192), default ``LayoutConfig()``,
      cold (cache cleared), warm (profiled: device busy and idle share) and
      through as many warm sequential ``multigila_layout`` calls; then the
-     same with ``engines=["stress"]*64`` and weights U(0.5, 2) from
+     same with ``engines=["stress"]`` for every graph and weights U(0.5, 2) from
      ``default_rng(i)``; suite B, SUITE_B graphs
      ``generators.delaunay(50_000, seed=200+i)`` (L0 grid, L1 neighbor),
      the same runs. Each prints wall, graphs/s, phase seconds, the cache's
@@ -239,8 +239,10 @@ REPLAY_FACTOR = 4.0
 FLOOR_ULPS = 8
 N_MAIN = 1_000_000
 # the batched driver's suites: (graphs, vertices, first seed) of
-# generators.delaunay, as a layout service's tenants submit them
-SUITE_A = (64, 5_000, 100)
+# generators.delaunay, as a layout service's tenants submit them. Suite A
+# had 64 graphs until phase 8 joined the script; 32 keep it inside the
+# time limit (each of its runs took ~30 s at 64 graphs)
+SUITE_A = (32, 5_000, 100)
 SUITE_B = (8, 50_000, 200)
 LANES_5D = 8                          # suite A's first graphs, card vs CPU
 LM_ARCH = "internlm2-1.8b"
@@ -1389,7 +1391,7 @@ def engines_card_vs_cpu(e5, n5, cfg5) -> dict:
     import torch
     from repro_torch.core import LayoutConfig, bucketing, gila
     from repro_torch.core import multigila_layout
-    from repro_torch.core.multilevel import _schedule
+    from repro_torch.core.multilevel import _build_export, _schedule
     from repro_torch.graphs.graph import build_graph
     from repro_torch.graphs.metrics import cre, neld
 
@@ -2112,6 +2114,356 @@ def many_phase() -> tuple:
     return out, lane_rows(cases, launches)
 
 
+# -- phase 8: serving on the card --------------------------------------------
+
+# the serve CLI's defaults (``launch/serve.py``)
+PYR_CAPS = dict(tile_cap=64, edge_cap=96, max_zoom=8)
+QUERIES, QUERY_BATCHES = 512, (1, 16, 64)
+N_STORE = 100_000                     # the serve CLI's documented example
+# the continuous engine's trace: ``benchmarks/service_bench.py``'s mix
+# (delaunay minnows of 90 and 120 vertices, a 420-vertex whale every 6th
+# request, graph i from seed 2000 + i), Poisson arrivals from seed 17
+SERVICE_REQS, SERVICE_HZ, SERVICE_LANES = 60, 6.0, 16
+MINNOWS, WHALE, WHALE_EVERY = (90, 120), 420, 6
+
+
+def _export_levels(exp) -> list:
+    return [(lv.n, lv.edges, lv.parent, lv.rep) for lv in exp.levels]
+
+
+def _assert_levels_equal(label, got, want) -> None:
+    """Two exports' levels: n, and edges, parent and rep bit for bit."""
+    import numpy as np
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} levels, {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a[0] != b[0] or not all(
+                (x is None and y is None) or (
+                    x is not None and y is not None and x.dtype == y.dtype
+                    and np.array_equal(x, y)) for x, y in zip(a[1:], b[1:])):
+            raise AssertionError(f"{label}: level {i} differs")
+
+
+def _assert_pyramids_equal(label, a, b) -> None:
+    import numpy as np
+    if not (np.array_equal(a.lo, b.lo) and np.array_equal(a.hi, b.hi)
+            and len(a.bands) == len(b.bands)):
+        raise AssertionError(f"{label}: boxes or band counts differ")
+    for i, (x, y) in enumerate(zip(a.bands, b.bands)):
+        if (x.zoom, x.level, x.n, x.m) != (y.zoom, y.level, y.n, y.m):
+            raise AssertionError(f"{label}: band {i} metadata differs")
+        for f in ("tile_vid", "tile_rep", "tile_pos", "tile_mass",
+                  "tile_count", "tile_total", "tile_eid", "tile_epos",
+                  "tile_ecount"):
+            u, v = getattr(x, f), getattr(y, f)
+            if u.dtype != v.dtype or u.tobytes() != v.tobytes():
+                raise AssertionError(f"{label}: band {i} {f} differs")
+
+
+def _assert_queries_exact(label, pyr, out, boxes, zs, i0=0) -> None:
+    """Each request of a batched result equals ``reference_resolve``, bit
+    for bit."""
+    from repro_torch.serve import reference_resolve, trim_result
+    for i in range(len(zs)):
+        got = trim_result(out, i)
+        want = reference_resolve(pyr, boxes[i], int(zs[i]))
+        if (got["band"], got["covered"]) != (want["band"], want["covered"]):
+            raise AssertionError(f"{label}: request {i0 + i} band/cover")
+        for k in ("vid", "rep", "inside", "eid", "tiles", "vpos", "epos",
+                  "vmass"):
+            if (got[k].shape != want[k].shape
+                    or got[k].tobytes() != want[k].tobytes()):
+                raise AssertionError(f"{label}: request {i0 + i} {k}")
+
+
+def export_and_pyramid(edges, n, ref_levels) -> tuple:
+    """Phase 8a: ``multigila_layout(export=True)`` of the main path's graph,
+    warm: its levels equal those ``_build_export`` derives on the host from
+    phase 4's hierarchy; the pyramid binned on the card equals the one
+    binned on the CPU, array for array."""
+    import torch
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.serve import build_pyramid
+    cfg = LayoutConfig()
+    multigila_layout(edges, n, cfg)                   # warm the cache
+    t0 = time.perf_counter()
+    pos, stats, exp = multigila_layout(edges, n, cfg, export=True)
+    layout_s = time.perf_counter() - t0
+    _assert_levels_equal("phase 8a export", _export_levels(exp), ref_levels)
+    if exp.pos.shape != (n, 2) or exp.pos.tobytes() != pos.tobytes():
+        raise AssertionError("phase 8a: export pos is not the layout's")
+    t0 = time.perf_counter()
+    pyr = build_pyramid(exp, **PYR_CAPS)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = build_pyramid(exp, **PYR_CAPS, device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    _assert_pyramids_equal("phase 8a pyramid card vs CPU", pyr, cpu)
+    torch.cuda.synchronize()
+    bands = [dict(zoom=b.zoom, n=b.n, m=b.m,
+                  overfull=int((b.tile_total > b.tile_count).sum()))
+             for b in pyr.bands]
+    res = dict(export_layout_s=layout_s, levels=[lv[0] for lv in ref_levels],
+               levels_equal=True, pyramid_build_s=build_s,
+               pyramid_build_cpu_binning_s=cpu_build_s, bands=bands,
+               card_equals_cpu=True)
+    print(json.dumps({"serve_8a": res}), flush=True)
+    return pyr, res
+
+
+def query_phase(pyr, card: str) -> dict:
+    """Phase 8b: ``QueryEngine`` on the card over the 1M pyramid, QUERIES
+    ``random_viewports(seed=0)`` at each batch size after ``warmup``: every
+    request bit-equal to ``reference_resolve``; p50/p99 ms and queries/s
+    (host clock around each batch, results on the host). Then a
+    ``MicroBatcher`` over the same engine with 4 concurrent submitters."""
+    import threading
+
+    import numpy as np
+    from repro_torch.serve import MicroBatcher, QueryEngine
+    from repro_torch.serve.query import random_viewports
+    eng = QueryEngine(pyr)
+    zoom_max = max(b.zoom for b in pyr.bands)
+    boxes, zs = random_viewports(pyr.lo, pyr.hi, zoom_max, QUERIES, seed=0)
+    eng.warmup(QUERY_BATCHES)
+    rows = []
+    for B in QUERY_BATCHES:
+        lat, outs = [], []
+        t_start = time.perf_counter()
+        for i in range(0, QUERIES, B):
+            t0 = time.perf_counter()
+            outs.append(eng.query(boxes[i:i + B], zs[i:i + B]))
+            lat.append(time.perf_counter() - t0)
+        total = time.perf_counter() - t_start
+        for j, out in enumerate(outs):
+            _assert_queries_exact(f"phase 8b B={B}", pyr, out,
+                                  boxes[j * B:(j + 1) * B],
+                                  zs[j * B:(j + 1) * B], j * B)
+        per_req = np.repeat(lat, B)
+        rows.append(dict(batch=B, requests=QUERIES, qps=QUERIES / total,
+                         p50_ms=float(np.percentile(per_req, 50) * 1e3),
+                         p99_ms=float(np.percentile(per_req, 99) * 1e3),
+                         exact=True, card=card))
+    mb = MicroBatcher(eng, max_batch=64, window_s=0.002)
+    futs = [None] * QUERIES
+
+    def submitter(k):
+        for i in range(k, QUERIES, 4):
+            futs[i] = mb.submit(boxes[i], int(zs[i]))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(k,))
+               for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = [f.result(timeout=120) for f in futs]
+    mb_s = time.perf_counter() - t0
+    mb.close()
+    from repro_torch.serve import reference_resolve
+    for i, r in enumerate(got):
+        want = reference_resolve(pyr, boxes[i], int(zs[i]))
+        if any(r[k].tobytes() != want[k].tobytes()
+               for k in ("vid", "rep", "eid", "vpos", "epos")):
+            raise AssertionError(f"phase 8b micro-batcher: request {i}")
+    res = dict(rows=rows, micro_batcher=dict(
+        submitters=4, requests=mb.requests, batches=mb.batches,
+        wall_s=mb_s, qps=QUERIES / mb_s, exact=True))
+    print(json.dumps({"serve_8b": res}), flush=True)
+    return res
+
+
+def store_round_trip() -> dict:
+    """Phase 8c: delaunay(N_STORE) laid out with its export on the card,
+    its pyramid built at the serve CLI's defaults, ``save_pyramid`` →
+    ``load_pyramid(validate=True)``: the loaded pyramid equals the one in
+    memory, and so do its query results, bit for bit."""
+    import tempfile
+
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.graphs import generators
+    from repro_torch.serve import (QueryEngine, build_pyramid, load_pyramid,
+                                   save_pyramid)
+    from repro_torch.serve.query import random_viewports
+    e, n = generators.delaunay(N_STORE, seed=0)
+    _, _, exp = multigila_layout(e, n, LayoutConfig(), export=True)
+    pyr = build_pyramid(exp, **PYR_CAPS)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "pyr")
+        t0 = time.perf_counter()
+        save_pyramid(path, pyr)
+        save_s = time.perf_counter() - t0
+        shards = len(list(Path(path).iterdir())) - 1
+        t0 = time.perf_counter()
+        loaded = load_pyramid(path, validate=True)
+        load_s = time.perf_counter() - t0
+    _assert_pyramids_equal("phase 8c store round trip", loaded, pyr)
+    boxes, zs = random_viewports(pyr.lo, pyr.hi,
+                                 max(b.zoom for b in pyr.bands), 256, seed=1)
+    a = QueryEngine(pyr).query(boxes, zs)
+    b = QueryEngine(loaded).query(boxes, zs)
+    if any(a[k].tobytes() != b[k].tobytes() for k in a):
+        raise AssertionError("phase 8c: loaded pyramid answers differently")
+    res = dict(graph=f"delaunay({N_STORE})", bands=len(pyr.bands),
+               shards=shards, save_s=save_s, load_validate_s=load_s,
+               equal=True)
+    print(json.dumps({"serve_8c": res}), flush=True)
+    return res
+
+
+def _service_workload() -> list:
+    from repro_torch.graphs import generators
+    return [generators.delaunay(
+        WHALE if i % WHALE_EVERY == 3 else MINNOWS[i % len(MINNOWS)],
+        seed=2000 + i) for i in range(SERVICE_REQS)]
+
+
+def _warm_engine_buckets(graphs, seeds, cfg) -> int:
+    """Warm every (group key, lane bucket) the engine can reach on these
+    graphs: walk them through a ``WaveScheduler`` whose dispatch records
+    one request a group key, then run each key at both lane buckets the
+    engine's cap allows (8 and SERVICE_LANES). Returns the keys."""
+    from repro_torch.core import WaveScheduler, bucketing
+    one = {}
+
+    def record(reqs):
+        for r in reqs:
+            one.setdefault(bucketing.group_key(r), r)
+        return [r.pos0 for r in reqs]
+
+    sched = WaveScheduler(cfg, dispatch=record)
+    t0 = time.perf_counter()
+    for (e, n), s in zip(graphs, seeds):
+        sched.admit(e, n, seed=s)
+    sched.drain()
+    print(json.dumps({"serve_8d_keys": dict(
+        keys=[list(map(str, k)) for k in one],
+        seconds=time.perf_counter() - t0)}), flush=True)
+    for r in one.values():
+        for lanes in (8, SERVICE_LANES):
+            bucketing.refine_level_many([r] * lanes, ideal_len=cfg.ideal_len,
+                                        rep_const=cfg.rep_const)
+    return len(one)
+
+
+def continuous_engine(card: str) -> dict:
+    """Phase 8d: ``ContinuousLayoutService`` on the card, open loop: the
+    seeded Poisson trace of SERVICE_REQS requests of the service mix at
+    SERVICE_HZ, ``max_lanes`` SERVICE_LANES, the process tracer on. Every
+    request completes and holds to its dedicated call
+    (``launch.service.hold_to_dedicated``: hierarchy bit-equal, NELD
+    within NELD_DELTA; CRE held to its spread over the seed, no more
+    requests past max(CRE_DELTA, CRE_SPREAD_MULT × the median seed gap)
+    than seed gaps are, and the mean as phase 7 holds it); no step-cache
+    miss after the warm-up; the trace's ``wave`` spans number
+    ``gila_waves_total``'s increase. p50/p99 latency (submit to result,
+    host clock) and completed/s."""
+    import numpy as np
+    from repro_torch.core import LayoutConfig, bucketing
+    from repro_torch.launch.service import hold_to_dedicated
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve.engine import (ContinuousLayoutService,
+                                          poisson_trace)
+    cfg = LayoutConfig(seed=0)
+    graphs = _service_workload()
+    events = poisson_trace(SERVICE_HZ, SERVICE_REQS,
+                           lambda i, rng: graphs[i], seed=17)
+    t0 = time.perf_counter()
+    keys = _warm_engine_buckets(graphs, [ev.seed for ev in events], cfg)
+    warm_s = time.perf_counter() - t0
+    print(json.dumps({"serve_8d_warm": dict(keys=keys, seconds=warm_s)}),
+          flush=True)
+    before = bucketing.cache_stats()
+    waves = obs_metrics.REGISTRY.get("gila_waves_total")
+    w0 = waves.value()
+    obs_trace.reset()
+    obs_trace.enable()
+    svc = ContinuousLayoutService(cfg, max_lanes=SERVICE_LANES)
+    reqs, lat = [], [None] * len(events)
+    try:
+        t_start = time.perf_counter()
+        for i, ev in enumerate(events):
+            dt = t_start + ev.t - time.perf_counter()
+            if dt > 0:
+                time.sleep(dt)
+            t_sub = time.perf_counter()
+            req = svc.submit(ev.edges, ev.n, seed=ev.seed)
+            req.future.add_done_callback(
+                lambda _f, i=i, t_sub=t_sub:
+                    lat.__setitem__(i, time.perf_counter() - t_sub))
+            reqs.append(req)
+        results = [r.result(600) for r in reqs]
+        wall = time.perf_counter() - t_start
+    finally:
+        svc.close()
+        obs_trace.disable()
+    after = bucketing.cache_stats()
+    events_json = obs_trace.get_tracer().to_dict()["traceEvents"]
+    wave_spans = sum(e["name"] == "wave" for e in events_json)
+    obs_trace.reset()
+    if after["misses"] != before["misses"]:
+        raise AssertionError(f"phase 8d: {after['misses'] - before['misses']}"
+                             f" cache misses after the warm-up")
+    if wave_spans != waves.value() - w0:
+        raise AssertionError(f"phase 8d: {wave_spans} wave spans, "
+                             f"{waves.value() - w0} waves counted")
+    stats = svc.stats()
+    if stats["completed"] != SERVICE_REQS:
+        raise AssertionError(f"phase 8d: {stats['completed']} completed")
+    t0 = time.perf_counter()
+    parity = hold_to_dedicated(
+        [(ev.edges, ev.n, ev.seed, pos, r.job)
+         for ev, (pos, _), r in zip(events, results, reqs)], cfg, None)
+    parity["seconds"] = time.perf_counter() - t0
+    res = dict(requests=SERVICE_REQS, rate_hz=SERVICE_HZ,
+               max_lanes=SERVICE_LANES, warm_keys=keys, warm_s=warm_s,
+               wall_s=wall, completed_per_s=SERVICE_REQS / wall,
+               p50_ms=float(np.percentile(lat, 50) * 1e3),
+               p99_ms=float(np.percentile(lat, 99) * 1e3),
+               waves=wave_spans, cache_misses=0,
+               straggler_waves=stats["straggler_waves"], parity=parity,
+               card=card)
+    print(json.dumps({"serve_8d": res}), flush=True)
+    return res
+
+
+def http_front_door() -> dict:
+    """Phase 8e: ``launch/service.py``'s ``smoke()`` on the card: 3 graphs
+    over HTTP, each held to its dedicated call, ``/stats`` and
+    ``/metrics`` read, and the ``--trace`` file written and parsed."""
+    import tempfile
+
+    from repro_torch.launch.service import smoke
+    with tempfile.TemporaryDirectory() as d:
+        res = smoke(None, str(Path(d) / "trace.json"))
+    print(json.dumps({"serve_8e": res}), flush=True)
+    return res
+
+
+def serving_phase(edges, n, ref_levels, card: str) -> dict:
+    """Phase 8, serving on the card: 8a-8e, each timed."""
+    import torch
+    out, secs = {}, {}
+    t = time.perf_counter()
+    pyr, out["8a"] = export_and_pyramid(edges, n, ref_levels)
+    secs["8a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["8b"] = query_phase(pyr, card)
+    secs["8b"] = time.perf_counter() - t
+    del pyr
+    torch.cuda.empty_cache()
+    for key, fn in (("8c", store_round_trip),
+                    ("8d", lambda: continuous_engine(card)),
+                    ("8e", http_front_door)):
+        t = time.perf_counter()
+        out[key] = fn()
+        secs[key] = time.perf_counter() - t
+        print(json.dumps({"serve_seconds": secs}), flush=True)
+    return out
+
+
 def _host_consts(consts) -> tuple:
     """The default LayoutConfig's (C, L, min_dist), for a tree whose
     wrappers take host numbers, in place of a path record's device
@@ -2183,7 +2535,7 @@ def main(argv=None) -> int:
     import numpy as np
     from repro_torch.core import (LayoutConfig, LayoutStats,
                                   build_hierarchy, multigila_layout)
-    from repro_torch.core.multilevel import _schedule
+    from repro_torch.core.multilevel import _build_export, _schedule
     from repro_torch.core.pruning import prune_degree_one
     from repro_torch.graphs import generators
     from repro_torch.graphs.graph import build_graph
@@ -2218,8 +2570,12 @@ def main(argv=None) -> int:
     cfg = LayoutConfig()
     pr = prune_degree_one(edges, n)
     g0 = build_graph(pr.edges, pr.n, mass=pr.mass, bucket=True, device=device)
-    graphs, _ = build_hierarchy(g0, cfg, device=device)
+    graphs, infos = build_hierarchy(g0, cfg, device=device)
     scheds = [_schedule(cfg, i, len(graphs), g) for i, g in enumerate(graphs)]
+    # phase 8a's reference: the export's levels, derived on the host
+    ref_levels = _export_levels(_build_export(
+        edges, n, pr, graphs, infos, np.zeros((n, 2), np.float32)))
+    del infos
 
     # 3a. kernels against their plain versions on drawn positions
     random_cases = random_input_cases(graphs, scheds, device)
@@ -2343,7 +2699,13 @@ def main(argv=None) -> int:
     del many
     torch.cuda.empty_cache()
 
-    # 8. summary
+    # 8. serving on the card: export and pyramid at 1M, viewport queries,
+    # the store, the continuous engine, the HTTP front door
+    serving_phase(edges, n, ref_levels, card)
+    del ref_levels
+    torch.cuda.empty_cache()
+
+    # 9. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

@@ -1,5 +1,7 @@
-from repro_torch.core.multilevel import (GraphJob, LayoutConfig, LayoutStats,
-                                         WaveScheduler, build_hierarchy,
+from repro_torch.core.multilevel import (GraphJob, HierarchyExport,
+                                         LayoutConfig, LayoutStats,
+                                         LevelExport, WaveScheduler,
+                                         build_hierarchy,
                                          connected_components,
                                          layout_component, multigila_layout,
                                          multigila_layout_many)

@@ -20,8 +20,10 @@ buffers, so keys, hits and misses behave alike on both devices.
 
 ``refine_level`` books a cold entry's warm-up iteration plus its capture
 under the ``compile`` phase and everything else (the k-hop build, staging,
-replays) under ``refine``. ``LayoutConfig(bucketing=False)`` bypasses this
-module: exact-shape padding and the engine's eager ``refine`` loop.
+replays) under ``refine``, in the caller's ``phases`` dict and in the
+registry's ``gila_phase_seconds_total`` (``add_phase``).
+``LayoutConfig(bucketing=False)`` bypasses this module: exact-shape
+padding and the engine's eager ``refine`` loop.
 
 The batched (multi-graph) driver groups the pending per-level refinements
 of many graphs by ``group_key`` and runs each group as ONE batched program
@@ -34,6 +36,14 @@ Iteration budgets, temperatures and constants stay per-lane device data;
 lanes whose budget is spent (and the dead lanes of a pow2 lane bucket)
 carry their positions through the group's remaining iterations unchanged,
 which keeps every lane's result that of the same level refined alone.
+
+Observability, as in the JAX package: the cache's hits, misses and live
+entries, the dispatches by engine and path, and the padding occupancy of
+each batched dispatch are metric families of ``obs.metrics.REGISTRY``;
+each dispatch is a ``refine.dispatch`` / ``refine_many.dispatch`` span of
+the process tracer, which, when the tracer is on, ends with a device
+synchronize so that the span holds the dispatch's device time (off, it
+adds none).
 """
 from __future__ import annotations
 
@@ -47,7 +57,40 @@ import torch
 from repro_torch.core.engine import get_engine
 from repro_torch.graphs import packing
 from repro_torch.graphs.graph import PaddedGraph, bucket_pad
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.device import synchronize
+
+
+# -- per-phase wall-clock accounting ------------------------------------------
+
+# the drivers' phase seconds (``LayoutStats.phase_seconds``) also feed one
+# labeled counter series a phase: the registry is lock-protected, and the
+# engine worker thread and a caller thread add to it at once
+PHASE_SECONDS = obs_metrics.REGISTRY.counter(
+    "gila_phase_seconds_total",
+    "Wall-clock seconds per pipeline phase (coarsen/place/refine/compile)",
+    "seconds")
+
+
+def add_phase(phases: dict | None, name: str, seconds: float) -> None:
+    """Book ``seconds`` under phase ``name``: in ``phases`` (a
+    ``LayoutStats.phase_seconds``-like dict, if given) and in
+    ``gila_phase_seconds_total``."""
+    seconds = max(float(seconds), 0.0)
+    if phases is not None:
+        phases[name] += seconds
+    PHASE_SECONDS.inc(seconds, phase=name)
+
+
+# -- the step cache ------------------------------------------------------------
+
+CACHE_HITS = obs_metrics.REGISTRY.counter(
+    "gila_compile_cache_hits_total",
+    "Warm lookups of the process-wide compiled-step cache")
+CACHE_MISSES = obs_metrics.REGISTRY.counter(
+    "gila_compile_cache_misses_total",
+    "Cold lookups (each one builds + compiles a new step program)")
 
 
 class CompileCache:
@@ -68,8 +111,10 @@ class CompileCache:
             prog = self.entries.get(key)
             if prog is not None:
                 self.hits += 1
+                CACHE_HITS.inc()
                 return prog, False
             self.misses += 1
+            CACHE_MISSES.inc()
             prog = builder()
             self.entries[key] = prog
             return prog, True
@@ -92,6 +137,37 @@ def cache_stats() -> dict:
     this cache, so the port has no counterpart."""
     return dict(entries=len(STEP_CACHE.entries), hits=STEP_CACHE.hits,
                 misses=STEP_CACHE.misses)
+
+
+# a callback gauge, sampled at scrape/snapshot time: a long-running
+# service's /metrics reports the live cache state
+obs_metrics.REGISTRY.gauge(
+    "gila_compile_cache_entries",
+    "Live compiled-step entries in the process-wide cache",
+    fn=lambda: len(STEP_CACHE.entries))
+
+# which refinement engine served how many cached-step dispatches, split by
+# the single-graph and the batched path
+REFINE_DISPATCHES = obs_metrics.REGISTRY.counter(
+    "gila_refine_dispatches_total",
+    "Cached refine-step dispatches, labeled by engine and dispatch path")
+
+
+def _dispatch(span: str, prog, args, device, *, key, fresh, phases, t0,
+              **span_args) -> torch.Tensor:
+    """Run a cached program inside its dispatch span and book its seconds
+    (``refine_level``, ``refine_level_many``). The device is synchronized
+    only where the phases are timed or the tracer is on."""
+    with obs_trace.span(span, cat="device", key=key, fresh=fresh,
+                        **span_args):
+        out = prog.run(*args)
+        if phases is not None or obs_trace.TRACER.enabled:
+            synchronize(device)
+    if phases is not None:
+        add_phase(phases, "compile", prog.compile_seconds)
+        add_phase(phases, "refine",
+                  time.perf_counter() - t0 - prog.compile_seconds)
+    return out
 
 
 def cached_refine(g: PaddedGraph, pos0, sched, nbr_idx, nbr_mask, *,
@@ -125,14 +201,13 @@ def refine_level(g: PaddedGraph, pos0, sched, *, ideal_len: float,
     t0 = time.perf_counter()
     eng = get_engine(sched.engine)
     nbr_idx, nbr_mask = eng.init_state(g, sched, seed)
-    _, prog, _, args = cached_refine(g, pos0, sched, nbr_idx, nbr_mask,
-                                     ideal_len=ideal_len,
-                                     rep_const=rep_const, min_dist=min_dist)
-    pos = prog.run(*args)
-    if phases is not None:
-        synchronize(g.device)
-        phases["compile"] += prog.compile_seconds
-        phases["refine"] += time.perf_counter() - t0 - prog.compile_seconds
+    key, prog, fresh, args = cached_refine(
+        g, pos0, sched, nbr_idx, nbr_mask, ideal_len=ideal_len,
+        rep_const=rep_const, min_dist=min_dist)
+    pos = _dispatch("refine.dispatch", prog, args, g.device, key=key,
+                    fresh=fresh, phases=phases, t0=t0, mode=sched.mode,
+                    engine=sched.engine)
+    REFINE_DISPATCHES.inc(engine=sched.engine, path="single")
     return pos
 
 
@@ -198,6 +273,34 @@ def group_key(req: RefineRequest) -> tuple:
             s.grid_dim, s.cell_cap)
 
 
+# padding occupancy, the direct measure of fragmentation loss: the share of
+# each dispatched [lanes, n_pad] / [lanes, m_pad] batch volume that holds
+# TRUE vertices / edge slots rather than pow2 padding, labeled by the shape
+# bucket
+OCC_VERTICES = obs_metrics.REGISTRY.gauge(
+    "gila_wave_padding_occupancy_vertices",
+    "True vertices / (lanes * n_pad) of the last dispatch per bucket",
+    "ratio")
+OCC_EDGES = obs_metrics.REGISTRY.gauge(
+    "gila_wave_padding_occupancy_edges",
+    "True directed edge slots / (lanes * m_pad) of the last dispatch",
+    "ratio")
+OCC_LANES = obs_metrics.REGISTRY.gauge(
+    "gila_wave_lane_occupancy",
+    "Live lanes / pow2 lane bucket of the last dispatch per bucket",
+    "ratio")
+
+
+def _record_occupancy(reqs: list[RefineRequest], lanes: int) -> None:
+    n_pad, m_pad = reqs[0].g.n_pad, reqs[0].g.m_pad
+    bucket = f"n{n_pad}_e{m_pad}"
+    OCC_VERTICES.set(sum(r.g.n for r in reqs) / (lanes * n_pad),
+                     bucket=bucket)
+    OCC_EDGES.set(sum(2 * r.g.m for r in reqs) / (lanes * m_pad),
+                  bucket=bucket)
+    OCC_LANES.set(len(reqs) / lanes, bucket=bucket)
+
+
 def lane_schedule_rows(eng, reqs: list[RefineRequest], lanes: int, *,
                        ideal_len: float, rep_const: float,
                        min_dist: float = 1e-3) -> np.ndarray:
@@ -229,6 +332,7 @@ def cached_refine_many(reqs: list[RefineRequest], nbrs: list[tuple], *,
     b = len(reqs)
     lanes = packing.lane_bucket(b, lanes_min)
     packed = packing.pack_graphs([r.g for r in reqs], lanes=lanes)
+    _record_occupancy(reqs, lanes)
     pl = lambda ts: packing.pad_lanes(torch.stack(ts), b, lanes)
     pos0 = pl([r.pos0.to(dtype=torch.float32) for r in reqs])
     nbr_idx = pl([ni for ni, _ in nbrs])
@@ -280,12 +384,11 @@ def refine_level_many(reqs: list[RefineRequest], *, ideal_len: float,
         nbrs = [eng.init_state(r.g, r.sched, r.seed) for r in reqs]
     else:
         nbrs = [eng.init_state(r0.g, r0.sched, r0.seed)] * len(reqs)
-    _, prog, _, args = cached_refine_many(
+    key, prog, fresh, args = cached_refine_many(
         reqs, nbrs, ideal_len=ideal_len, rep_const=rep_const,
         min_dist=min_dist, lanes_min=lanes_min)
-    out = prog.run(*args)
-    if phases is not None:
-        synchronize(out.device)
-        phases["compile"] += prog.compile_seconds
-        phases["refine"] += time.perf_counter() - t0 - prog.compile_seconds
+    out = _dispatch("refine_many.dispatch", prog, args, r0.g.device,
+                    key=key, fresh=fresh, phases=phases, t0=t0,
+                    lanes=len(reqs), engine=r0.sched.engine)
+    REFINE_DISPATCHES.inc(engine=r0.sched.engine, path="many")
     return [out[i] for i in range(len(reqs))]

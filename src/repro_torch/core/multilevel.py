@@ -29,6 +29,16 @@ walks every component's hierarchy (``_ComponentTask``, the pipeline that
 refinements grouped by shape bucket as batched programs
 (``bucketing.refine_level_many``); each graph's result equals its
 ``multigila_layout`` call's.
+
+``multigila_layout(..., export=True)`` also returns the hierarchy as the
+serving layer consumes it (``HierarchyExport``: per level its edges, the
+parent map into the next coarser level and each vertex's level-0
+representative; numpy on the host). Observability, as in the JAX package:
+``coarsen``, ``place`` and ``refine.level`` spans of the process tracer,
+the wave scheduler's ``wave``, ``refine.group`` and ``refine`` spans and
+``wave.straggler`` instants on its own tracer, and the wave-composition
+metric families; the phase seconds also feed
+``gila_phase_seconds_total``.
 """
 from __future__ import annotations
 
@@ -45,7 +55,9 @@ from repro_torch.core.pruning import prune_degree_one, reinsert
 from repro_torch.core.schedule import LevelSchedule, make_schedule
 from repro_torch.core.solar_merger import LevelInfo, next_level, run_merger
 from repro_torch.core.solar_placer import solar_placer
-from repro_torch.graphs.graph import PaddedGraph, build_graph
+from repro_torch.graphs.graph import PaddedGraph, build_graph, unique_edges
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.clock import Clock, SystemClock
 from repro_torch.utils.device import resolve_device, synchronize
 from repro_torch.utils.timing import StepTimer
@@ -99,6 +111,35 @@ class LayoutStats:
     phase_seconds: dict = dataclasses.field(
         default_factory=lambda: {"coarsen": 0.0, "place": 0.0,
                                  "refine": 0.0, "compile": 0.0})
+
+
+@dataclasses.dataclass
+class LevelExport:
+    """One level of the hierarchy, as the serving layer consumes it.
+
+    Level 0 is the FULL input graph (pruned leaves reinserted); levels
+    1..L-1 are the solar-merger coarse graphs. ``parent[v]`` is v's vertex
+    in the next coarser level (None at the coarsest); ``rep[v]`` is the
+    level-0 vertex id of the system sun v collapses to, chained down the
+    hierarchy, so coarse vertices stay addressable in input-graph terms.
+    """
+    n: int
+    edges: np.ndarray            # int64[m, 2] — unique undirected, level-local
+    parent: np.ndarray | None    # int32[n] — index into the next coarser level
+    rep: np.ndarray              # int64[n] — representative level-0 vertex id
+
+
+@dataclasses.dataclass
+class HierarchyExport:
+    """Per-level structure of a finished layout (serve/tiles.py's input).
+
+    ``pos`` holds the final positions of level 0 only; coarse-level
+    positions are derived (mass-weighted member centroids,
+    ``serve.tiles.band_positions``), so every zoom band of the tile pyramid
+    agrees with the drawing the user gets.
+    """
+    levels: list            # list[LevelExport], levels[0] = finest
+    pos: np.ndarray         # float32[levels[0].n, 2]
 
 
 def connected_components(edges: np.ndarray, n: int) -> np.ndarray:
@@ -157,14 +198,16 @@ def build_hierarchy(g0: PaddedGraph, cfg: LayoutConfig, *, device=None
 
 @contextlib.contextmanager
 def _phase(stats: LayoutStats, device: torch.device, name: str):
-    """Add the block's wall-clock seconds to ``stats.phase_seconds[name]``;
-    the phase ends with a device synchronize so queued kernels count in it."""
+    """Add the block's wall-clock seconds to ``stats.phase_seconds[name]``
+    (and to ``gila_phase_seconds_total``); the phase ends with a device
+    synchronize so queued kernels count in it."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
         synchronize(device)
-        stats.phase_seconds[name] += time.perf_counter() - t0
+        bucketing.add_phase(stats.phase_seconds, name,
+                            time.perf_counter() - t0)
 
 
 def _schedule(cfg: LayoutConfig, i: int, L: int, g: PaddedGraph
@@ -195,10 +238,11 @@ def _refine(stats: LayoutStats, device, cfg: LayoutConfig, g: PaddedGraph,
 
 
 def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
-                     weights=None, device=None):
+                     export: bool = False, weights=None, device=None):
     """Multi-GiLA on one connected component → (pos float32[n, 2] on the
-    host, LayoutStats): a ``_ComponentTask`` walked level by level, each
-    level refined on its own (``_refine``).
+    host, LayoutStats), and with ``export=True`` the ``HierarchyExport`` as
+    a third item: a ``_ComponentTask`` walked level by level, each level
+    refined on its own (``_refine``).
 
     ``weights`` (float[m], optional) are per-edge weights: the attraction
     term's ideal length ℓ_e = w_e·L, and the stress engine's target
@@ -208,9 +252,116 @@ def layout_component(edges: np.ndarray, n: int, cfg: LayoutConfig, *,
     dev = resolve_device(device)
     task = _ComponentTask(edges, n, cfg, device=dev, weights=weights)
     while not task.done:
-        _, g, pos, sched, seed = task.next_level()
-        task.feed(_refine(task.stats, dev, cfg, g, pos, sched, seed))
-    return task.final, task.stats
+        i, g, pos, sched, seed = task.next_level()
+        with obs_trace.span("refine.level", level=i, n=g.n):
+            task.feed(_refine(task.stats, dev, cfg, g, pos, sched, seed))
+    if not export:
+        return task.final, task.stats
+    return task.final, task.stats, task.export(edges)
+
+
+def _single_level_export(edges: np.ndarray, n: int, pos: np.ndarray
+                         ) -> HierarchyExport:
+    lvl = LevelExport(n=n, edges=np.asarray(edges, np.int64).reshape(-1, 2),
+                      parent=None, rep=np.arange(n, dtype=np.int64))
+    return HierarchyExport(levels=[lvl], pos=np.asarray(pos, np.float32))
+
+
+def _input_to_work(pr, n: int) -> np.ndarray:
+    """int64[n]: input vertex → work-graph (pruned) vertex. Leaf hosts are
+    always kept (a host had degree ≥ 2, or is the kept end of a K2), so one
+    indirection suffices."""
+    if pr is None:
+        return np.arange(n, dtype=np.int64)
+    m = np.full(n, -1, np.int64)
+    m[pr.old_of_new] = np.arange(pr.n)
+    m[pr.leaves] = m[pr.leaf_host]
+    return m
+
+
+def _build_export(edges, n, pr, graphs, infos, pos_full) -> HierarchyExport:
+    """The per-level export of one component (see ``HierarchyExport``),
+    read to the host from its hierarchy (``graphs``, ``infos`` on any
+    device)."""
+    L = len(graphs)
+    if L <= 1:
+        return _single_level_export(edges, n, pos_full)
+    host = lambda t: t.cpu().numpy()
+    w_of_in = _input_to_work(pr, n)
+    work_parent = host(infos[0].parent_coarse)[: graphs[0].n]
+    rep_work = (pr.old_of_new if pr is not None
+                else np.arange(n, dtype=np.int64))
+    levels = [LevelExport(n=n, edges=np.asarray(edges, np.int64).reshape(-1, 2),
+                          parent=work_parent[w_of_in].astype(np.int32),
+                          rep=np.arange(n, dtype=np.int64))]
+    rep = rep_work
+    for i in range(1, L):
+        gi = graphs[i]
+        rep = rep[host(infos[i - 1].sun_pos_index)]
+        parent = (host(infos[i].parent_coarse)[: gi.n].astype(np.int32)
+                  if i < L - 1 else None)
+        levels.append(LevelExport(n=gi.n, edges=unique_edges(gi),
+                                  parent=parent, rep=rep.astype(np.int64)))
+    return HierarchyExport(levels=levels, pos=np.asarray(pos_full, np.float32))
+
+
+def _merge_exports(exports: list, index_maps: list, edges: np.ndarray,
+                   n: int, pos: np.ndarray) -> HierarchyExport:
+    """Merge per-component hierarchies into global zoom bands.
+
+    Band 0 keeps the ORIGINAL global vertex ids (level-0 positions are the
+    final packed drawing). Band b unions, from every component, its level
+    ``min(b, L_c-1)``: a component whose hierarchy is shallower than b
+    keeps contributing its coarsest level with an identity parent map, so
+    every band is a complete drawing of the whole graph.
+    """
+    n_bands = max(len(e.levels) for e in exports)
+    if n_bands == 1:
+        return _single_level_export(edges, n, pos)
+
+    # per (band, component) offsets of the merged index space (band 0 is the
+    # identity on global ids, so offsets start at band 1)
+    offs = []
+    for b in range(1, n_bands):
+        sizes = [e.levels[min(b, len(e.levels) - 1)].n for e in exports]
+        offs.append(np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int64))
+
+    def off(b, ci):  # band-b merged index offset of component ci
+        return int(offs[b - 1][ci])
+
+    levels = []
+    # band 0: global ids, parent composed per component
+    parent0 = np.zeros(n, np.int32)
+    for ci, (e, vs) in enumerate(zip(exports, index_maps)):
+        l0 = e.levels[0]
+        # a single-level component repeats identically in band 1 → identity
+        p = (l0.parent if l0.parent is not None
+             else np.arange(l0.n, dtype=np.int32))
+        parent0[vs] = p + off(1, ci)
+    levels.append(LevelExport(n=n, edges=np.asarray(edges, np.int64),
+                              parent=parent0,
+                              rep=np.arange(n, dtype=np.int64)))
+    for b in range(1, n_bands):
+        es, reps, parents = [], [], []
+        nb = 0
+        for ci, (e, vs) in enumerate(zip(exports, index_maps)):
+            lvl = e.levels[min(b, len(e.levels) - 1)]
+            es.append(lvl.edges + off(b, ci))
+            reps.append(vs[lvl.rep])             # component-local → global id
+            if b < n_bands - 1:
+                if b + 1 < len(e.levels):
+                    parents.append(lvl.parent + off(b + 1, ci))
+                else:  # saturated: same level repeats in the next band
+                    parents.append(np.arange(lvl.n, dtype=np.int32)
+                                   + off(b + 1, ci))
+            nb += lvl.n
+        levels.append(LevelExport(
+            n=nb,
+            edges=(np.concatenate(es) if es else np.zeros((0, 2), np.int64)),
+            parent=(np.concatenate(parents).astype(np.int32)
+                    if b < n_bands - 1 else None),
+            rep=np.concatenate(reps).astype(np.int64)))
+    return HierarchyExport(levels=levels, pos=np.asarray(pos, np.float32))
 
 
 def _pack_components(layouts: list[np.ndarray], pad: float = 2.0) -> list:
@@ -237,12 +388,14 @@ def _pack_components(layouts: list[np.ndarray], pad: float = 2.0) -> list:
 
 
 def multigila_layout(edges: np.ndarray, n: int,
-                     cfg: LayoutConfig | None = None, *, weights=None,
-                     device=None):
+                     cfg: LayoutConfig | None = None, *,
+                     export: bool = False, weights=None, device=None):
     """Full pipeline on a possibly-disconnected graph → (pos float32[n, 2]
-    on the host, LayoutStats). ``weights`` (float[m], optional) are the
-    per-edge weights (see ``layout_component``). ``device=None`` means the
-    card; with no card present the call raises."""
+    on the host, LayoutStats), and with ``export=True`` the merged
+    ``HierarchyExport`` (the serving layer's input, serve/tiles.py) as a
+    third item. ``weights`` (float[m], optional) are the per-edge weights
+    (see ``layout_component``). ``device=None`` means the card; with no
+    card present the call raises."""
     cfg = cfg or LayoutConfig()
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -250,10 +403,16 @@ def multigila_layout(edges: np.ndarray, n: int,
     weights = _check_weights(edges, weights)
     comps = _components(edges, n, weights)
     if len(comps) == 1:
-        return layout_component(edges, n, cfg, weights=weights, device=dev)
-    return _assemble(n, [vs for vs, _, _ in comps],
-                     [layout_component(ce, vs.size, cfg, weights=cw,
-                                       device=dev) for vs, ce, cw in comps])
+        return layout_component(edges, n, cfg, export=export,
+                                weights=weights, device=dev)
+    outs = [layout_component(ce, vs.size, cfg, export=export, weights=cw,
+                             device=dev) for vs, ce, cw in comps]
+    maps = [vs for vs, _, _ in comps]
+    pos, stats = _assemble(n, maps, [o[:2] for o in outs])
+    if not export:
+        return pos, stats
+    return pos, stats, _merge_exports([o[2] for o in outs], maps, edges, n,
+                                      pos)
 
 
 def _check_weights(edges: np.ndarray, weights):
@@ -321,6 +480,7 @@ class _ComponentTask:
         self.stats = LayoutStats()
         self.final: np.ndarray | None = None
         self.pr = None
+        self.graphs, self.infos = None, None    # no hierarchy: one level
         if n == 1:
             self.final = np.zeros((1, 2), np.float32)
             return
@@ -344,9 +504,13 @@ class _ComponentTask:
             self.g0 = build_graph(self.work_edges, work_n, mass=mass,
                                   ewt=work_ewt, bucket=cfg.bucketing,
                                   device=device)
-            self.graphs, self.infos = (
-                ([self.g0], []) if cfg.driver == "flat"
-                else build_hierarchy(self.g0, cfg, device=device))
+            if cfg.driver == "flat":
+                self.graphs, self.infos = [self.g0], []
+            else:
+                with obs_trace.span("coarsen", cat="host", lane=lane,
+                                    n=self.g0.n, m=self.g0.m):
+                    self.graphs, self.infos = build_hierarchy(
+                        self.g0, cfg, device=device)
         L = len(self.graphs)
         self.scheds = [_schedule(cfg, i, L, g)
                        for i, g in enumerate(self.graphs)]
@@ -372,7 +536,9 @@ class _ComponentTask:
                     gi, cfg.ideal_len * max(gi.n, 4) ** 0.5, cfg.seed)
             seed = cfg.seed if cfg.driver == "flat" else cfg.seed + L
         else:
-            with _phase(self.stats, self.device, "place"):
+            with obs_trace.span("place", cat="host", level=i,
+                                lane=self.lane), \
+                    _phase(self.stats, self.device, "place"):
                 pos0 = solar_placer(gi, self.infos[i], self._pos,
                                     seed=cfg.seed + i,
                                     scatter_scale=0.5 * cfg.ideal_len)
@@ -396,6 +562,16 @@ class _ComponentTask:
         p = pos.cpu().numpy().astype(np.float32)[: self.g0.n]
         self.final = (reinsert(self.pr, p, self.work_edges)
                       if self.pr is not None else p)
+
+    def export(self, edges: np.ndarray) -> HierarchyExport:
+        """The finished component's ``HierarchyExport`` (``edges`` are the
+        component's input edges)."""
+        if not self.done:
+            raise RuntimeError("export of an unfinished component")
+        if self.graphs is None:
+            return _single_level_export(edges, self.n, self.final)
+        return _build_export(edges, self.n, self.pr, self.graphs, self.infos,
+                             self.final)
 
 
 class GraphJob:
@@ -439,6 +615,26 @@ class GraphJob:
                          [(t.final, t.stats) for t in self.tasks])
 
 
+# wave-composition metrics: counted at dispatch, so that the one-shot
+# batched driver and the continuous engine both feed them
+WAVES_TOTAL = obs_metrics.REGISTRY.counter(
+    "gila_waves_total", "Dispatched waves (>= 1 lane)")
+LANE_DISPATCHES_TOTAL = obs_metrics.REGISTRY.counter(
+    "gila_lane_dispatches_total", "Per-level lane refinements dispatched")
+PREEMPTED_LANES_TOTAL = obs_metrics.REGISTRY.counter(
+    "gila_preempted_lanes_total",
+    "Lanes held past a wave because the wave cap was full")
+STRAGGLER_WAVES_TOTAL = obs_metrics.REGISTRY.counter(
+    "gila_straggler_waves_total",
+    "Waves slower than the StepTimer EWMA threshold")
+WAVE_GROUPS_HIST = obs_metrics.REGISTRY.histogram(
+    "gila_wave_groups", "Shape-bucket groups per dispatched wave",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32))
+GROUP_LANES_HIST = obs_metrics.REGISTRY.histogram(
+    "gila_group_lanes", "Member lanes per dispatched shape-bucket group",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+
+
 class WaveScheduler:
     """Wave scheduler over a mutable lane set: ``admit`` / ``remove`` /
     ``step`` / ``drain``.
@@ -457,12 +653,18 @@ class WaveScheduler:
     ``max_lanes`` truncates the wave to the first lanes: the others are
     preempted (they ride when capacity frees). Pending requests are staged
     once a level and kept across preempted waves, so placement never reruns.
-    ``clock`` times the waves for the straggler count (``StepTimer``).
-    ``waves``, ``lane_dispatches`` and ``straggler_waves`` count what ran.
+    ``clock`` times the waves for the straggler count (``StepTimer``) and
+    the spans: ``tracer`` (default: the process tracer) gets a ``wave``
+    span a wave, a ``refine.group`` span a group and a ``refine`` span a
+    lane (the group's bounds, labeled with the lane's level and job), and
+    a ``wave.straggler`` instant. ``waves``, ``lane_dispatches`` and
+    ``straggler_waves`` count what this scheduler ran; the families
+    ``gila_waves_total`` and the rest count it process-wide.
     """
 
     def __init__(self, cfg: LayoutConfig | None = None, *,
                  lanes_cap: int | None = None, dispatch=None,
+                 tracer: obs_trace.Tracer | None = None,
                  clock: Clock | None = None, device=None):
         cfg = cfg or LayoutConfig()
         if cfg.driver != "multigila":
@@ -474,6 +676,11 @@ class WaveScheduler:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lanes_cap = lanes_cap
+        # the engine hands over ITS clock and tracer, so that wave spans,
+        # straggler timing and its scheduling log share one time frame (a
+        # VirtualClock does not move inside step(): a simulated wave takes
+        # 0 s and never counts as a straggler)
+        self.tracer = tracer if tracer is not None else obs_trace.get_tracer()
         self.clock = clock or SystemClock()
         self._wave_timer = StepTimer()
         self._dispatch = dispatch or self._refine_group
@@ -554,18 +761,40 @@ class WaveScheduler:
         ginfo = []
         for key, members in groups.items():
             self._group_phases = {"refine": 0.0, "compile": 0.0}
+            tg0 = self.clock.now()
             outs = self._dispatch([r for _, r in members])
-            for (t, _), pos in zip(members, outs):
+            tg1 = self.clock.now()
+            for (t, r), pos in zip(members, outs):
                 del self._staged[t]
                 for k, v in self._group_phases.items():
                     t.stats.phase_seconds[k] += v / len(members)
                 t.feed(pos)
+                # the lane's share of the group dispatch: the group's bounds,
+                # labeled with its level and lane
+                self.tracer.complete("refine", tg0, tg1, cat="wave",
+                                     level=r.level, lane=r.lane)
+            self.tracer.complete("refine.group", tg0, tg1, cat="wave",
+                                 bucket=key, lanes=len(members))
+            GROUP_LANES_HIST.observe(len(members))
             ginfo.append((key, len(members)))
         if pend:
+            tw1 = self.clock.now()
             self.waves += 1
             self.lane_dispatches += len(pend)
-            if self._wave_timer.record(self.clock.now() - tw0):
+            WAVES_TOTAL.inc()
+            LANE_DISPATCHES_TOTAL.inc(len(pend))
+            WAVE_GROUPS_HIST.observe(len(ginfo))
+            if preempted:
+                PREEMPTED_LANES_TOTAL.inc(preempted)
+            self.tracer.complete("wave", tw0, tw1, cat="wave",
+                                 lanes=len(pend), groups=ginfo,
+                                 preempted=preempted)
+            if self._wave_timer.record(tw1 - tw0):
                 self.straggler_waves += 1
+                STRAGGLER_WAVES_TOTAL.inc()
+                self.tracer.instant("wave.straggler", ts=tw1, cat="wave",
+                                    dur=tw1 - tw0,
+                                    ewma=self._wave_timer.ewma)
         return {"lanes": len(pend), "groups": ginfo, "preempted": preempted}
 
     def drain(self) -> None:

@@ -20,6 +20,18 @@ The round loop follows the JAX package's per-round host driver
 of the halting vote per round. Every message combine is a
 ``scatter_reduce("amax")``. All of it is integer arithmetic, so the
 hierarchy is bit-identical to the JAX package's on any device.
+
+Observability, as in the JAX package: ``gila_merger_rounds_total`` and
+``gila_merger_forced_suns_total`` count the rounds run and the vertices
+that the terminal forced round made suns. Of the JAX package's three
+device-dispatch spans, ``merger.dispatch`` brackets the round loop (the
+JAX package's one cached program; here the per-round loop, whose halting
+votes are already its host syncs), and ``coarsen.compact`` /
+``coarsen.assemble`` bracket ``next_level``'s compaction up to its read of
+the two true sizes and the coarse graph's assembly at its buckets. The
+JAX package labels them with the cached program's key; the port caches no
+program there, so they carry the shape (``n_pad``) instead. The
+exact-shape path (``next_level_host``) has no span, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,10 +43,20 @@ import torch
 from repro_torch.graphs.graph import (PaddedGraph, bucket_pad, build_graph,
                                       edge_gather, push_max, segment_max,
                                       segment_sum)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import prng
 
 UNASSIGNED, SUN, PLANET, MOON = 0, 1, 2, 3
 FORCE_EVERY = 4          # every 4th merger round is a forced round
+
+MERGER_ROUNDS = obs_metrics.REGISTRY.counter(
+    "gila_merger_rounds_total",
+    "BSP election+growth rounds executed inside the device merger loop")
+MERGER_FORCED_SUNS = obs_metrics.REGISTRY.counter(
+    "gila_merger_forced_suns_total",
+    "Vertices self-elected by the terminal forced round (round-budget "
+    "exhaustion — the documented graceful-degradation deviation)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,12 +166,23 @@ def run_merger(g: PaddedGraph, *, p_sun: float = 0.35, seed: int = 0
     ends in the terminal forced round. The halting vote is read once per
     round.
     """
+    with obs_trace.span("merger.dispatch", cat="device", n_pad=g.n_pad):
+        st, rounds, left = _merger_rounds(g, p_sun, seed)
+    MERGER_ROUNDS.inc(rounds)
+    if left:
+        MERGER_FORCED_SUNS.inc(left)
+    return st
+
+
+def _merger_rounds(g: PaddedGraph, p_sun: float, seed: int) -> tuple:
+    """(state, rounds run, vertices left to the terminal forced round)."""
     st = init_state(g)
     key = prng.prng_key(seed)
     prev_remaining = g.n + 1
     stalls = 0
     desperate = False
-    for r in range(round_budget(g.n)):
+    budget = round_budget(g.n)
+    for r in range(budget):
         desperate = desperate or stalls >= 2
         key, sub = prng.split(key)
         forced = desperate or r % FORCE_EVERY == FORCE_EVERY - 1
@@ -157,10 +190,10 @@ def run_merger(g: PaddedGraph, *, p_sun: float = 0.35, seed: int = 0
         st = system_growth(g, st)
         remaining = int(((st.state == UNASSIGNED) & g.vmask).sum())
         if remaining == 0:
-            return st
+            return st, r + 1, 0
         stalls = 0 if remaining < prev_remaining else stalls + 1
         prev_remaining = remaining
-    return _terminal_forced(st, g.vmask, _ids(g))
+    return _terminal_forced(st, g.vmask, _ids(g)), budget, remaining
 
 
 @dataclasses.dataclass
@@ -189,60 +222,66 @@ def next_level(g: PaddedGraph, st: MergerState, *, bucket: bool = True
     if not bucket:
         return next_level_host(g, st)
     n_pad, dev = g.n_pad, g.device
-    vmask = g.vmask
-    is_sun = (st.state == SUN) & vmask
-    csum = torch.cumsum(is_sun.to(torch.int64), dim=0)
-    n_coarse = int(csum[-1])
-    new_idx = torch.cat([torch.where(is_sun, csum - 1, -1),
-                         torch.full((1,), -1, dtype=torch.int64, device=dev)])
-    sun_safe = torch.where(vmask, st.sun, n_pad)
-    sun_safe_l = sun_safe.long()
-    parent_coarse = new_idx[sun_safe_l]            # -1 for padding rows
+    with obs_trace.span("coarsen.compact", cat="device", n_pad=n_pad):
+        vmask = g.vmask
+        is_sun = (st.state == SUN) & vmask
+        csum = torch.cumsum(is_sun.to(torch.int64), dim=0)
+        n_coarse = int(csum[-1])
+        new_idx = torch.cat([torch.where(is_sun, csum - 1, -1),
+                             torch.full((1,), -1, dtype=torch.int64,
+                                        device=dev)])
+        sun_safe = torch.where(vmask, st.sun, n_pad)
+        sun_safe_l = sun_safe.long()
+        parent_coarse = new_idx[sun_safe_l]        # -1 for padding rows
 
-    # coarse masses: Σ member masses per sun (integer-valued, so exact)
-    member = vmask & (parent_coarse >= 0)
-    cmass = segment_sum(torch.where(member, g.mass, 0.0),
-                        torch.where(member, parent_coarse, n_coarse),
-                        n_coarse + 1)[:n_coarse]
+        # coarse masses: Σ member masses per sun (integer-valued, so exact)
+        member = vmask & (parent_coarse >= 0)
+        cmass = segment_sum(torch.where(member, g.mass, 0.0),
+                            torch.where(member, parent_coarse, n_coarse),
+                            n_coarse + 1)[:n_coarse]
 
-    # inter-system links → coarse edges
-    src, dst = g.src_l, g.dst_l
-    e_ok = g.emask & (src < n_pad) & (dst < n_pad)
-    sun_ext = torch.cat([sun_safe_l, sun_safe_l.new_full((1,), n_pad)])
-    depth_ext = torch.cat([st.depth, st.depth.new_zeros((1,))])
-    su, sv = sun_ext[src], sun_ext[dst]
-    cross = e_ok & (su != sv)
-    cu, cv = new_idx[su], new_idx[sv]
-    plen = (depth_ext[src] + 1 + depth_ext[dst]).to(torch.float32) * g.ewt
-    lo = torch.minimum(cu, cv)[cross]
-    hi = torch.maximum(cu, cv)[cross]
-    keys, inverse = torch.unique(lo * (n_coarse + 1) + hi, sorted=True,
-                                 return_inverse=True)
-    n_edges = int(keys.shape[0])
-    w_max = torch.zeros(n_edges, dtype=torch.float32, device=dev)
-    w_max.scatter_reduce_(0, inverse, plen[cross], "amax", include_self=True)
-    ce_lo, ce_hi = keys // (n_coarse + 1), keys % (n_coarse + 1)
+        # inter-system links → coarse edges
+        src, dst = g.src_l, g.dst_l
+        e_ok = g.emask & (src < n_pad) & (dst < n_pad)
+        sun_ext = torch.cat([sun_safe_l, sun_safe_l.new_full((1,), n_pad)])
+        depth_ext = torch.cat([st.depth, st.depth.new_zeros((1,))])
+        su, sv = sun_ext[src], sun_ext[dst]
+        cross = e_ok & (su != sv)
+        cu, cv = new_idx[su], new_idx[sv]
+        plen = ((depth_ext[src] + 1 + depth_ext[dst]).to(torch.float32)
+                * g.ewt)
+        lo = torch.minimum(cu, cv)[cross]
+        hi = torch.maximum(cu, cv)[cross]
+        keys, inverse = torch.unique(lo * (n_coarse + 1) + hi, sorted=True,
+                                     return_inverse=True)
+        n_edges = int(keys.shape[0])
+        w_max = torch.zeros(n_edges, dtype=torch.float32, device=dev)
+        w_max.scatter_reduce_(0, inverse, plen[cross], "amax",
+                              include_self=True)
+        ce_lo, ce_hi = keys // (n_coarse + 1), keys % (n_coarse + 1)
 
     # the coarse graph in build_graph's buffer layout
-    n_pad_c = bucket_pad(n_coarse)
-    m_pad_c = bucket_pad(2 * n_edges)
-    pad = m_pad_c - 2 * n_edges
-    fill = lambda v, dt: torch.full((pad,), v, dtype=dt, device=dev)
-    c_src = torch.cat([ce_lo, ce_hi]).to(torch.int32)
-    c_dst = torch.cat([ce_hi, ce_lo]).to(torch.int32)
-    cg = PaddedGraph(
-        src=torch.cat([c_src, fill(n_pad_c, torch.int32)]),
-        dst=torch.cat([c_dst, fill(n_pad_c, torch.int32)]),
-        vmask=torch.arange(n_pad_c, device=dev) < n_coarse,
-        emask=torch.arange(m_pad_c, device=dev) < 2 * n_edges,
-        mass=torch.cat([cmass, cmass.new_zeros((n_pad_c - n_coarse,))]),
-        ewt=torch.cat([w_max, w_max, fill(1.0, torch.float32)]),
-        n=n_coarse, m=n_edges)
-    info = LevelInfo(
-        parent_coarse=parent_coarse[:n_pad].to(torch.int32),
-        sun_of=sun_safe.to(torch.int32),
-        depth=st.depth.clone(), state=st.state.clone(),
-        sun_pos_index=torch.nonzero(is_sun).flatten().to(torch.int32))
+    with obs_trace.span("coarsen.assemble", cat="device", n_coarse=n_coarse,
+                        n_edges=n_edges):
+        n_pad_c = bucket_pad(n_coarse)
+        m_pad_c = bucket_pad(2 * n_edges)
+        pad = m_pad_c - 2 * n_edges
+        fill = lambda v, dt: torch.full((pad,), v, dtype=dt, device=dev)
+        c_src = torch.cat([ce_lo, ce_hi]).to(torch.int32)
+        c_dst = torch.cat([ce_hi, ce_lo]).to(torch.int32)
+        cg = PaddedGraph(
+            src=torch.cat([c_src, fill(n_pad_c, torch.int32)]),
+            dst=torch.cat([c_dst, fill(n_pad_c, torch.int32)]),
+            vmask=torch.arange(n_pad_c, device=dev) < n_coarse,
+            emask=torch.arange(m_pad_c, device=dev) < 2 * n_edges,
+            mass=torch.cat([cmass, cmass.new_zeros((n_pad_c - n_coarse,))]),
+            ewt=torch.cat([w_max, w_max, fill(1.0, torch.float32)]),
+            n=n_coarse, m=n_edges)
+        info = LevelInfo(
+            parent_coarse=parent_coarse[:n_pad].to(torch.int32),
+            sun_of=sun_safe.to(torch.int32),
+            depth=st.depth.clone(), state=st.state.clone(),
+            sun_pos_index=torch.nonzero(is_sun).flatten().to(torch.int32))
     return cg, info
 
 

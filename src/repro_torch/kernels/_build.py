@@ -43,6 +43,10 @@ launches: collections.Counter = collections.Counter()
 shape_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+# the counters are shared by every thread that launches; a capture in
+# progress on a thread keeps that thread's launches apart (``capturing``)
+_count_lock = threading.Lock()
+_capture = threading.local()
 _lib: ctypes.CDLL | None = None
 #: seconds the last ``load`` spent compiling (0.0 when the library was cached)
 build_seconds = 0.0
@@ -187,30 +191,36 @@ def consts_tensor(C, L, min_dist, device) -> torch.Tensor:
 
 def count(name: str, *shape: int) -> None:
     """One launch of kernel ``name`` at ``shape``: called by its wrapper
-    where it launches the kernel, and nowhere else."""
-    launches[name] += 1
-    shape_launches[(name, *shape)] += 1
+    where it launches the kernel, and nowhere else. Inside ``capturing`` on
+    this thread the launch goes to that capture's record instead."""
+    made = getattr(_capture, "made", None)
+    if made is not None:
+        made[0][name] += 1
+        made[1][(name, *shape)] += 1
+        return
+    with _count_lock:
+        launches[name] += 1
+        shape_launches[(name, *shape)] += 1
 
 
 @contextlib.contextmanager
 def capturing():
-    """Around a CUDA-graph capture: the wrappers called inside count their
-    launches as usual, but nothing runs then, so the counts are taken back
-    on exit and handed over (a pair of ``Counter``s: by kernel, by shape)
-    to be added once per replay (``replayed``)."""
-    counters = (launches, shape_launches)
-    before = [c.copy() for c in counters]
+    """Around a CUDA-graph capture: the wrappers called inside, on this
+    thread, count their launches into a record of their own (a pair of
+    ``Counter``s: by kernel, by shape), not into ``launches``, since nothing
+    runs then; the record is added once per replay (``replayed``). Launches
+    that other threads count meanwhile go to ``launches`` as usual."""
     made = (collections.Counter(), collections.Counter())
+    outer = getattr(_capture, "made", None)
+    _capture.made = made
     try:
         yield made
     finally:
-        for c, b, m in zip(counters, before, made):
-            m.update(c - b)
-            c.clear()
-            c.update(b)
+        _capture.made = outer
 
 
 def replayed(made: tuple) -> None:
     """Count one replay of a graph whose capture ``capturing`` counted."""
-    launches.update(made[0])
-    shape_launches.update(made[1])
+    with _count_lock:
+        launches.update(made[0])
+        shape_launches.update(made[1])

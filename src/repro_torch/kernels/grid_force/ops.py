@@ -35,6 +35,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.graphs.graph import segment_sum
@@ -58,10 +59,17 @@ def choose_grid(n: int) -> tuple[int, int]:
     return G, max(cap, 1)
 
 
-def grid_cell_size(lo: torch.Tensor, hi: torch.Tensor, grid_dim: int):
+def grid_cell_size(lo, hi, grid_dim: int):
     """Canonical G×G cell size over box (lo, hi): ``max(hi-lo, 1e-6)/G``
-    in float32."""
-    return torch.clamp_min(hi - lo, 1e-6) / float(grid_dim)
+    in float32, on torch tensors or numpy arrays alike (the same bits).
+    Every consumer that must agree bit for bit on which cell or tile a point
+    lands in (``bin_vertices``, the serving layer's tile binning and
+    viewport cover, serve/tiles.py and serve/query.py) derives the cell
+    size here."""
+    if isinstance(lo, torch.Tensor):
+        return torch.clamp_min(hi - lo, 1e-6) / float(grid_dim)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    return np.maximum(hi - lo, np.float32(1e-6)) / np.float32(grid_dim)
 
 
 @functools.lru_cache(maxsize=16)
@@ -99,25 +107,36 @@ def _lane_offsets(B: int, stride: int, device) -> torch.Tensor:
             * stride)[:, None]
 
 
-def bin_vertices(pos, vmask, grid_dim: int, cell_cap: int):
+def bin_vertices(pos, vmask, grid_dim: int, cell_cap: int, *, box=None):
     """Bucket vertices into a G×G grid over their bounding box.
 
     Returns (cid[n] int32 with sentinel G², bucket[G²+1, cap] int32 with
     sentinel n, inb[n] bool — vertex made it into its cell's bucket).
     Bucket slot order is the vertices' array order (the sort is stable), so
-    the table is bit-identical to the JAX package's for the same positions.
+    the table is bit-identical to the JAX package's for the same positions;
+    the serving tile pyramid (serve/tiles.py) turns the slots into a top-k
+    by presenting vertices in descending mass order.
     Lanes pos [B, n, 2], vmask [B, n] give cid [B, n], bucket [B, G²+1,
     cap] (local ids) and inb [B, n]: each lane's the bits of the lane alone.
+
+    ``box`` optionally fixes the binning box to ``(lo, hi)``, float32 [2]
+    tensors on pos's device, instead of the vertices' own bounding box: the
+    tile pyramid bins every zoom band against one global box so that tile
+    keys align across bands. One box serves every lane.
     """
     if pos.dim() == 2:
         cid, bucket, inb = bin_vertices(pos[None], vmask[None], grid_dim,
-                                        cell_cap)
+                                        cell_cap, box=box)
         return cid[0], bucket[0], inb[0]
     B, n = vmask.shape
     dev = pos.device
     G, cap = grid_dim, cell_cap
     nc = G * G
-    lo, hi = _box(pos, vmask)
+    if box is None:
+        lo, hi = _box(pos, vmask)
+    else:
+        lo, hi = (torch.as_tensor(b, dtype=torch.float32, device=dev)
+                  .reshape(2).expand(B, 2) for b in box)
     cell = grid_cell_size(lo, hi, G)
     ij = torch.clamp(torch.floor((pos - lo[:, None]) / cell[:, None]), 0,
                      G - 1).to(torch.int32)

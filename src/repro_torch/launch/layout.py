@@ -14,8 +14,10 @@ graphs/s; ``--many-compare`` also runs the sequential driver over the same
 requests and reports whether every graph came out bit-identical (on the
 CPU it does; on the card the sequential driver sums edges with atomics).
 
-Not ported yet, and refused: ``--trace`` (observability, ROADMAP.md queue
-1, item 10) and ``--mesh`` (the sharded driver, item 11).
+``--trace out.json`` records the run's spans (coarsening, placement,
+refine dispatches, waves) as a Chrome/Perfetto trace-event file. Not ported
+yet, and refused: ``--mesh`` (the sharded driver, ROADMAP.md queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ from repro_torch.graphs import generators
 from repro_torch.graphs.graph import build_graph
 from repro_torch.graphs.io import save_svg
 from repro_torch.graphs.metrics import quality_report
-
-_UNPORTED = (("trace", "--trace", 10), ("mesh", "--mesh", 11))
+from repro_torch.obs import trace as obs_trace
 
 
 def main(argv=None):
@@ -62,14 +63,15 @@ def main(argv=None):
                     help="with --many: also run the sequential driver and "
                          "check per-graph bit-identity")
     ap.add_argument("--trace", default="", metavar="OUT.json",
-                    help="not ported yet (span tracer)")
+                    help="write a Chrome/Perfetto trace of the run")
     ap.add_argument("--mesh", default="",
                     help="not ported yet (sharded driver)")
     args = ap.parse_args(argv)
-    for attr, flag, item in _UNPORTED:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md queue 1, item {item}")
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh is not ported yet: ROADMAP.md queue 1, item 11")
+    if args.trace:
+        obs_trace.enable()
 
     edges, n, gargs = generators.from_cli(args.graph, args.args)
     print(f"graph {args.graph}{gargs}: n={n} m={len(edges)}")
@@ -113,6 +115,10 @@ def main(argv=None):
     if args.svg:
         save_svg(args.svg, pos, edges)
         print(f"wrote {args.svg}")
+    if args.trace:
+        obs_trace.export(args.trace)
+        print(f"wrote trace to {args.trace} "
+              f"({len(obs_trace.get_tracer())} events)")
     return rep
 
 

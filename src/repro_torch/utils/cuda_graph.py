@@ -15,16 +15,30 @@ On the CPU every call runs ``fn`` eagerly, so the same object with the same
 buffers behaves alike on both devices.
 
 The kernel wrappers count their launches in ``kernels._build.launches``,
-a Python counter: during the capture nothing runs, so the launches counted
-there are taken back and added once per replay instead.
+a Python counter: during the capture nothing runs, so the launches that
+the capturing thread counts go to a record of the capture
+(``_build.capturing``) that is added once per replay instead.
+
+Threads: a serving process does device work on several threads at once
+(the layout engine's worker, the viewport batcher's). A capture is taken in
+CUDA's thread-local capture mode, so another thread's CUDA calls during it
+(allocations, synchronizes, launches on its own stream) neither fail nor
+spoil the capture, and ``CAPTURE_LOCK`` lets one warm-up and capture run
+at a time in the process (``torch.cuda.graph`` synchronizes the device and
+empties the allocator's cache on entry, which must not fall inside another
+thread's capture).
 """
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
+
+#: held for the length of every warm-up and capture in the process
+CAPTURE_LOCK = threading.Lock()
 
 
 class StepGraph:
@@ -54,11 +68,13 @@ class StepGraph:
     def _warm_up_and_capture(self) -> None:
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)            # the inputs staged on ``main``
-        with torch.cuda.stream(side):
-            self.fn()                     # this call's step, run eagerly
         graph = torch.cuda.CUDAGraph()
-        with _build.capturing() as made, torch.cuda.graph(graph, stream=side):
-            self.fn()
-        main.wait_stream(side)
+        with CAPTURE_LOCK:
+            side.wait_stream(main)        # the inputs staged on ``main``
+            with torch.cuda.stream(side):
+                self.fn()                 # this call's step, run eagerly
+            with _build.capturing() as made, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                self.fn()
+            main.wait_stream(side)
         self.graph, self.launches = graph, made

@@ -667,3 +667,119 @@ def test_batched_driver_on_card(cuda):
             continue                 # cell sums by index_add_: atomics
         again = real(reqs, **kw)
         assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+# -- the serving layer on the card ----------------------------------------------
+
+def _served_pyramid(cuda):
+    """A pyramid binned on the card from a CPU layout's export, which must
+    equal the one binned on the CPU, array for array."""
+    from repro_torch.core import LayoutConfig, multigila_layout
+    from repro_torch.graphs import generators as G
+    from repro_torch.serve import build_pyramid
+
+    e, n = G.delaunay(3000, seed=5)
+    _, _, exp = multigila_layout(e, n, LayoutConfig(), export=True,
+                                 device="cpu")
+    pyr = build_pyramid(exp, tile_cap=32, edge_cap=48, max_zoom=6,
+                        device=cuda)
+    ref = build_pyramid(exp, tile_cap=32, edge_cap=48, max_zoom=6,
+                        device="cpu")
+    for a, b in zip(pyr.bands, ref.bands):
+        for f in ("tile_vid", "tile_rep", "tile_pos", "tile_mass",
+                  "tile_count", "tile_total", "tile_eid", "tile_epos",
+                  "tile_ecount"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    return pyr
+
+
+def _assert_queries_exact(pyr, out, boxes, zs):
+    from repro_torch.serve import reference_resolve, trim_result
+    for i in range(len(boxes)):
+        got = trim_result(out, i)
+        want = reference_resolve(pyr, boxes[i], int(zs[i]))
+        assert (got["band"], got["covered"]) == (want["band"],
+                                                 want["covered"])
+        for k in ("vid", "rep", "inside", "eid", "tiles", "vpos", "epos",
+                  "vmass"):
+            assert got[k].shape == want[k].shape, (i, k)
+            assert got[k].tobytes() == want[k].tobytes(), (i, k)
+
+
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_query_batch_on_card_equals_reference(cuda, B):
+    """Tile ids divide in float32 on the card as numpy does: every result
+    of a batch is the numpy oracle's, bit for bit."""
+    from repro_torch.serve import QueryEngine
+    from repro_torch.serve.query import random_viewports
+
+    pyr = _served_pyramid(cuda)
+    eng = QueryEngine(pyr)
+    assert eng.bands[0]["tile_vid"].device.type == "cuda"
+    zoom_max = max(b.zoom for b in pyr.bands)
+    boxes, zs = random_viewports(pyr.lo, pyr.hi, zoom_max + 2, B, seed=B)
+    _assert_queries_exact(pyr, eng.query(boxes, zs), boxes, zs)
+
+
+def test_layout_and_queries_from_two_threads(cuda):
+    """A cold batched layout (its step programs warm up and are captured)
+    on one thread while another thread runs query batches and force
+    kernels on the card: both results right, and the launch counts those
+    of the layout alone plus the other thread's launches."""
+    import threading
+
+    from repro_torch.core import (LayoutConfig, bucketing,
+                                  multigila_layout_many)
+    from repro_torch.graphs import generators as G
+    from repro_torch.graphs.metrics import neld
+    from repro_torch.serve import QueryEngine
+    from repro_torch.serve.query import random_viewports
+
+    pyr = _served_pyramid(cuda)
+    eng = QueryEngine(pyr)
+    zoom_max = max(b.zoom for b in pyr.bands)
+    boxes, zs = random_viewports(pyr.lo, pyr.hi, zoom_max, 64, seed=3)
+    graphs = [G.delaunay(3000, seed=70 + i) for i in range(3)]
+    cfg = LayoutConfig(exact_threshold=64, grid_threshold=512)
+
+    bucketing.STEP_CACHE.clear()
+    _build.launches.clear()
+    alone = multigila_layout_many(graphs, cfg)
+    torch.cuda.synchronize()
+    want = dict(_build.launches)
+
+    pos = torch.rand(1, 1024, 2, device=cuda) * 30
+    mass = torch.ones(1, 1024, device=cuda)
+    vmask = torch.ones(1, 1024, dtype=torch.bool, device=cuda)
+    consts = _consts(cuda).reshape(1, 2)
+    bucketing.STEP_CACHE.clear()
+    _build.launches.clear()
+    stop, errors, calls, outs = threading.Event(), [], [0], []
+
+    def other():
+        try:
+            while not stop.is_set():
+                _assert_queries_exact(pyr, eng.query(boxes, zs), boxes, zs)
+                nbody_repulsion(pos, mass, vmask, consts)
+                calls[0] += 1
+        except Exception as e:             # reported on the main thread
+            errors.append(e)
+
+    t = threading.Thread(target=other)
+    t.start()
+    try:
+        outs = multigila_layout_many(graphs, cfg)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors
+    assert calls[0] > 0
+    got = dict(_build.launches)
+    assert got.pop("nbody") - want["nbody"] == calls[0]
+    assert got == {k: v for k, v in want.items() if k != "nbody"}
+    for (e, n), (pa, sa), (pb, sb) in zip(graphs, alone, outs):
+        assert (sa.level_sizes, sa.level_modes) == (sb.level_sizes,
+                                                    sb.level_modes)
+        assert np.isfinite(pb).all()
+        assert abs(neld(pa, e) - neld(pb, e)) <= 0.05
