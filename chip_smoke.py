@@ -151,7 +151,34 @@ of them passed):
      (between its runs, or from the CPU's run of the step).
      Sequential layouts sum edges with ``index_add_`` atomics on the card,
      so batched and sequential cannot agree bit for bit there;
-  8. the ``{"kernels": [...]}`` summary, the card line, and
+  8. serving on the card (``serving_phase``): the 1M export and its tile
+     pyramid, viewport queries, the store, the continuous engine and the
+     HTTP front door;
+  9. the sharded driver, ``LayoutConfig(driver="multigila_dist",
+     mesh_shape=(1, 1))``, over a one-rank NCCL group made through a
+     FileStore and destroyed at the end of the phase (``dist_phase``):
+     b. delaunay(1M), the graph of phase 4, cold then warm: every position
+        finite, levels and modes equal phase 4's, launches of grid_far and
+        near_field each the grid levels' iterations and of no other
+        kernel (exact and neighbor levels run plain torch, as the JAX
+        package's sharded step runs plain jnp there), NELD within
+        NELD_DELTA of phase 4's warm run, no cache miss warm; wall, phase
+        seconds, the cache's entries/hits/misses and peak GB printed;
+     a. the near_field kernel on the arguments of its first call at each
+        grid level of the warm run (the all-gather variant's index form)
+        and on the halo variant's direct form built from the same
+        positions: against its plain version and itself, timed as phase 3
+        times a row, the per-cell grid_near kernel's ms on the same level
+        beside it;
+        then the refine loop of grid level 1, staged on its warm entry,
+        runs under ``torch.cuda.set_sync_debug_mode("error")``;
+     c. phase 5's graph (all three modes), gila then stress with phase
+        5b's weights, on the card against the CPU's run over the same
+        one-rank group (gloo): hierarchy equal bit for bit, ``ewt``
+        included, NELD and CRE within phase 5's deltas;
+     d. the layout CLI with ``--driver multigila_dist --mesh 1x1`` in
+        process on the card;
+  10. the ``{"kernels": [...]}`` summary, the card line, and
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports neither JAX nor the JAX package.
@@ -2464,6 +2491,328 @@ def serving_phase(edges, n, ref_levels, card: str) -> dict:
     return out
 
 
+# -- phase 9: the sharded driver on a one-rank NCCL mesh ------------------------
+
+# near_field's rows: (calls a CUDA graph, replays, eager calls a batch)
+_NEAR_REPS = (5, 5, 10)
+
+
+class NearFieldInputs:
+    """For the length of one run, wraps ``grid_force.ops.near_field`` (what
+    the sharded grid step calls): keeps
+    the arguments of the first call at each row count (one a grid level)
+    and counts the calls at each. The package itself has no hook: the name
+    is put back on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        self.cases, self.calls = {}, {}
+        self._real = real = grid_ops.near_field
+
+        def wrapper(rows, near9, cells, consts, **kw):
+            R = int(rows.shape[0])
+            if R not in self.cases:
+                self.cases[R] = (rows.clone(), near9, cells, consts.clone(),
+                                 kw)
+            self.calls[R] = self.calls.get(R, 0) + 1
+            return real(rows, near9, cells, consts, **kw)
+        grid_ops.near_field = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        grid_ops.near_field = self._real
+        return False
+
+
+def _near_pairs_rows(near9, cnt) -> int:
+    """Pairs the row-form near field computes: each row against the valid
+    slots of its 9 cells (every column: a one-rank mesh)."""
+    return int(cnt[near9.long()].sum())
+
+
+def time_near_field(args, shape, form, launches, per_cell_ms) -> dict:
+    """One near_field input: against its plain version and itself (bit for
+    bit), timed as phase 3 times a row; ``per_cell_ms`` is the per-cell
+    ``grid_near`` kernel's device time on the same level's positions."""
+    import torch
+    from repro_torch.kernels.grid_force import ops as grid_ops
+    from repro_torch.kernels.grid_force.ref import near_field_ref
+    rows, near9, cells, consts, kw = args
+    f = lambda: grid_ops.near_field(rows, near9, cells, consts, **kw)
+    p = lambda: near_field_ref(rows, near9, cells, consts[0], consts[1],
+                               **kw)
+    out, again = f(), f()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"near_field {form}: two calls differ")
+    err = _compare("near_field", out, p())
+    calls, replays, eager = _NEAR_REPS
+    R, ncell, cap = rows.shape[0], cells.shape[0], cells.shape[1]
+    if form == "index":
+        N = kw["pos"].shape[0]
+        cnt = (kw["w"][cells.long()] > 0).sum(dim=1)
+        table = 4 * ncell * cap + 12 * N
+    else:
+        cnt = (cells[..., 2] > 0).sum(dim=1)
+        table = 12 * ncell * cap
+    pairs = _near_pairs_rows(near9, cnt)
+    bound, by = _bound_ms(52 * R + table, FLOPS_PER_PAIR * pairs)
+    row = dict(name="near_field", route="cuda",
+               source="src/repro_torch/kernels/grid_force/csrc/near_field.cu",
+               replaces="src/repro/kernels/grid_force/kernel.py:45",
+               launches=launches, max_abs_err=err,
+               ms=_graph_ms(f, calls, replays),
+               plain_ms=_per_call_ms(p, 1, batches=1), bound_ms=bound,
+               bound_by=by, library_ms=None, inputs=f"path, {form} form",
+               shape=_shape_label(shape), eager_ms=_per_call_ms(f, eager))
+    print(json.dumps(dict(row, pairs=pairs, mufu_ms=pairs / MUFU_PER_S * 1e3,
+                          grid_near_per_cell_ms=per_cell_ms,
+                          tol=dict(rtol=RTOL, atol_frac_of_max=ATOL_FRAC))),
+          flush=True)
+    return row
+
+
+def near_field_rows(mesh, rec, level_of, launches_of) -> list:
+    """Phase 9a: near_field on the arguments of its first call at each grid
+    level of the warm 1M run (the all-gather variant's index form), and on
+    the halo variant's direct form built from the same positions (a one-rank
+    mesh: the band is the whole grid, the halo rows empty), each beside the
+    per-cell grid_near kernel on the same level's replicated arrays."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.grid_force import ops as grid_ops
+    out = []
+    for R, (rows, near9, cells, consts, kw) in sorted(rec.cases.items(),
+                                                     reverse=True):
+        level, n_valid = level_of[R]
+        pos_p, w_p = kw["pos"], kw["w"]
+        w_blk = w_p[:-1]
+        ncell, cap = cells.shape[0], cells.shape[1]
+        G = int(round((ncell - 1) ** 0.5))
+        shape = dict(level=level, n=n_valid, n_pad=R, G=G, cap=cap)
+        table = grid_ops.neighbor_table(G, rows.device)
+        per_cell = lambda: grid_ops.grid_near(rows, w_blk, w_blk > 0, cells,
+                                              table, consts)
+        per_cell_ms = _graph_ms(per_cell, 10, 10)
+        out.append(time_near_field((rows, near9, cells, consts, kw), shape,
+                                   "index", launches_of[R], per_cell_ms))
+        lo, hi = D._box(mesh, rows, w_blk > 0)
+        bins = D._halo_binning(mesh, rows, w_blk, lo, hi, G, cap)
+        near9_h, ext = D._halo_near(mesh, rows, w_blk, *bins, G, cap)
+        col0, ncols = D._near_columns(mesh, cap)
+        out.append(time_near_field((rows, near9_h, ext, consts,
+                                    dict(col0=col0, ncols=ncols)), shape,
+                                   "direct", 0, per_cell_ms))
+        del near9_h, ext, bins
+        torch.cuda.empty_cache()
+    return out
+
+
+def sync_free_loop(mesh, edges, n, level) -> dict:
+    """The refine loop of one grid level of the 1M hierarchy, staged through
+    ``distributed.prepare_level`` from drawn positions on a warm cache
+    entry, run under ``torch.cuda.set_sync_debug_mode("error")``: any host
+    sync in it raises."""
+    import torch
+    from repro_torch.core import LayoutConfig, distributed as D, gila
+    from repro_torch.core.multilevel import _schedule
+    cfg = LayoutConfig(driver="multigila_dist", mesh_shape=(1, 1))
+    (graphs, _), _ = _hierarchy(edges, n, cfg, "cuda")
+    g = graphs[level]
+    sched = _schedule(cfg, level, len(graphs), g)
+    if sched.mode != "grid":
+        raise AssertionError(f"level {level} is {sched.mode}")
+    pos0 = gila.random_init(g, max(g.n, 4) ** 0.5, seed=level)
+    run = D.prepare_level(mesh, g, pos0, sched, ideal_len=1.0, rep_const=1.0)
+    if run.fresh:
+        raise AssertionError("sync-free loop: a cold cache entry")
+    torch.cuda.synchronize()
+    start = run.pos.clone()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.iterate()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pos = run.gather()
+    if not bool(torch.isfinite(pos).all()) or torch.equal(run.pos, start):
+        raise AssertionError("sync-free loop: positions not finite/unmoved")
+    res = dict(sync_free_loop=f"level {level}: {g.n} of {g.n_pad}",
+               iterations=run.iters, wall_s=wall, sync_debug_mode="error")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def dist_card_vs_cpu(e5, n5, cfg5) -> dict:
+    """Phase 9c: the sharded driver on phase 5's graph (all three modes),
+    mesh 1x1, gila then stress with phase 5b's weights, on the card (NCCL)
+    against the CPU (gloo, the same one-rank group): the hierarchy equal
+    bit for bit (``ewt`` included), levels and modes equal, NELD and CRE
+    within phase 5's deltas."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import multigila_layout
+    from repro_torch.graphs.metrics import cre, neld
+    w5 = np.random.default_rng(0).uniform(WEIGHT_LO, WEIGHT_HI,
+                                          len(e5)).astype(np.float32)
+    base = dataclasses.replace(cfg5, driver="multigila_dist",
+                               mesh_shape=(1, 1))
+    res = {}
+    for name, cfg, w in (("gila", base, None),
+                         ("stress_weighted",
+                          dataclasses.replace(base, engine="stress"), w5)):
+        _assert_hierarchies_equal(
+            f"dist {name} delaunay({n5})",
+            _hierarchy(e5, n5, cfg, "cuda", w)[0],
+            _hierarchy(e5, n5, cfg, "cpu", w)[0])
+        t0 = time.perf_counter()
+        p_card, s_card = multigila_layout(e5, n5, cfg, weights=w)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_cpu, s_cpu = multigila_layout(e5, n5, cfg, weights=w, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        if not np.isfinite(p_card).all():
+            raise AssertionError(f"dist {name} on the card: non-finite")
+        if (s_card.level_sizes, s_card.level_modes) != (s_cpu.level_sizes,
+                                                        s_cpu.level_modes):
+            raise AssertionError(f"dist {name}: levels differ")
+        q = {k: (neld(p, e5), cre(p, e5)) for k, p in
+             (("cuda", p_card), ("cpu", p_cpu))}
+        row = dict(level_sizes=s_card.level_sizes,
+                   level_modes=s_card.level_modes, neld_cre=q,
+                   card_s=card_s, cpu_s=cpu_s, hierarchy_equal=True,
+                   gaps=dict(neld=q["cuda"][0] - q["cpu"][0],
+                             cre=q["cuda"][1] - q["cpu"][1]))
+        print(json.dumps({f"dist_small_{name}": row}), flush=True)
+        if (abs(q["cuda"][0] - q["cpu"][0]) > NELD_DELTA
+                or abs(q["cuda"][1] - q["cpu"][1]) > CRE_DELTA):
+            raise AssertionError(f"dist {name}: quality differs, card vs "
+                                 f"CPU: {q}")
+        res[name] = row
+    return res
+
+
+def dist_cli_on_card() -> dict:
+    """Phase 9d: the layout CLI with ``--driver multigila_dist --mesh 1x1``
+    in process on the card, on a graph with a grid level."""
+    import contextlib
+    import io
+    from repro_torch.kernels import _build
+    from repro_torch.launch import layout as cli
+    argv = ["--graph", "delaunay", "--args", "40000", "3", "--driver",
+            "multigila_dist", "--mesh", "1x1", "--no-cre"]
+    _build.launches.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = cli.main(argv)
+    launches = dict(_build.launches)
+    if (set(launches) != {"grid_far", "near_field"}
+            or not (rep["neld"] == rep["neld"])):
+        raise AssertionError(f"dist CLI: launches {launches}, report {rep}")
+    res = dict(dist_cli=" ".join(argv), printed=buf.getvalue().splitlines(),
+               report=rep, launches=launches)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def dist_phase(edges, n, main, scheds, e5, n5, cfg5) -> tuple:
+    """Phase 9, the sharded driver on the card over a one-rank NCCL group
+    (made through a FileStore by ``launch.mesh.make_host_mesh`` and
+    destroyed at the end): 9b the 1M layout with
+    ``LayoutConfig(driver="multigila_dist", mesh_shape=(1, 1))``, cold then
+    warm (the latter recording near_field's arguments); 9a the near_field
+    rows; the sync-free loop of grid level 1; 9c card against CPU at 5k;
+    9d the CLI. ``main`` is phase 4's warm run, ``scheds`` its schedules.
+    Returns (the near_field rows, the phase's summary)."""
+    import torch
+    from repro_torch.core import LayoutConfig, bucketing, multigila_layout
+    from repro_torch.graphs.graph import bucket_pad
+    from repro_torch.graphs.metrics import neld
+    from repro_torch.launch import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    secs = {}
+    mesh = mesh_mod.make_host_mesh(device="cuda")
+    try:
+        import torch.distributed as dist
+        if dist.get_world_size() != 1 or "nccl" not in dist.get_backend():
+            raise AssertionError(f"phase 9: group {dist.get_backend()}, "
+                                 f"{dist.get_world_size()} ranks")
+        cfg = LayoutConfig(driver="multigila_dist", mesh_shape=(1, 1))
+        grid_iters = sum(s.iters for s in scheds if s.mode == "grid")
+        want = {"grid_far": grid_iters, "near_field": grid_iters}
+        bucketing.STEP_CACHE.clear()
+        torch.cuda.empty_cache()
+        runs = {}
+        t = time.perf_counter()
+        for name in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            run = lambda: multigila_layout(edges, n, cfg)
+            if name == "warm":
+                with NearFieldInputs() as rec:
+                    pos, stats, wall, launches = _path_run(
+                        f"dist_{name}", run, n, list(want))
+            else:
+                pos, stats, wall, launches = _path_run(
+                    f"dist_{name}", run, n, list(want))
+            runs[name] = r = dict(
+                wall_s=wall, phase_s=dict(stats.phase_seconds),
+                level_sizes=stats.level_sizes, level_modes=stats.level_modes,
+                launches=launches, neld=neld(pos, edges),
+                neld_main_warm=main["neld"], cache=bucketing.cache_stats(),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            print(json.dumps({f"dist_1m_{name}": r}), flush=True)
+            if (r["level_sizes"], r["level_modes"]) != (main["level_sizes"],
+                                                        main["level_modes"]):
+                raise AssertionError(f"dist {name}: levels/modes differ "
+                                     "from phase 4's")
+            if launches != want:
+                raise AssertionError(f"dist {name}: launches {launches}, "
+                                     f"want {want}")
+            if abs(r["neld"] - main["neld"]) > NELD_DELTA:
+                raise AssertionError(f"dist {name}: NELD {r['neld']}, phase "
+                                     f"4 {main['neld']}")
+        if runs["warm"]["cache"]["misses"] != runs["cold"]["cache"]["misses"]:
+            raise AssertionError("dist warm run missed the step cache")
+        secs["9b"] = time.perf_counter() - t
+        del pos
+        t = time.perf_counter()
+        grid_levels = [i for i, m in enumerate(main["level_modes"])
+                       if m == "grid"]
+        level_of = {}
+        for i in grid_levels:
+            nv = main["level_sizes"][i][0]
+            level_of[bucket_pad(nv)] = (i, nv)
+        if set(rec.cases) != set(level_of) or sum(rec.calls.values()) != \
+                grid_iters:
+            raise AssertionError(f"near_field recorded {rec.calls}, grid "
+                                 f"levels {level_of}")
+        rows = near_field_rows(mesh, rec, level_of, rec.calls)
+        del rec
+        torch.cuda.empty_cache()
+        secs["9a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        loop = sync_free_loop(mesh, edges, n, max(grid_levels))
+        secs["sync_free"] = time.perf_counter() - t
+        t = time.perf_counter()
+        small = dist_card_vs_cpu(e5, n5, cfg5)
+        secs["9c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cli = dist_cli_on_card()
+        secs["9d"] = time.perf_counter() - t
+    finally:
+        bucketing.STEP_CACHE.clear()
+        mesh_mod.shutdown()
+    secs["phase"] = time.perf_counter() - t_phase
+    summary = dict(runs=runs, sync_free=loop, small=small, cli=cli,
+                   seconds=secs)
+    print(json.dumps({"dist_seconds": secs}), flush=True)
+    return rows, summary
+
+
 def _host_consts(consts) -> tuple:
     """The default LayoutConfig's (C, L, min_dist), for a tree whose
     wrappers take host numbers, in place of a path record's device
@@ -2705,7 +3054,12 @@ def main(argv=None) -> int:
     del ref_levels
     torch.cuda.empty_cache()
 
-    # 9. summary
+    # 9. the sharded driver over a one-rank NCCL group
+    near_rows, _ = dist_phase(edges, n, runs["warm"], scheds, e5, n5, cfg5)
+    rows += near_rows
+    torch.cuda.empty_cache()
+
+    # 10. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

@@ -6,15 +6,22 @@ packed on a shelf grid at the end: the JAX package's ``core/multilevel.py``.
 Host work (pruning, components, k-hop lists, reinsertion) stays numpy; the
 hierarchy, placement and refinement run on ``device`` (default: the card).
 
-The same pipeline powers three DRIVERS (``LayoutConfig.driver``):
+The same pipeline powers four DRIVERS (``LayoutConfig.driver``):
   * ``multigila``   — the paper's algorithm;
+  * ``multigila_dist`` — the same algorithm, every level's refinement run
+                      by the sharded superstep over the ranks of a
+                      ``torch.distributed`` mesh
+                      (``core/distributed.py:run_layout_level``; mesh
+                      ``LayoutConfig.mesh_shape``, or one over every rank
+                      of the default group). Every rank calls the driver
+                      with the same arguments, repeats the host work and
+                      returns the same drawing;
   * ``centralized`` — FM³ stand-in baseline: the same hierarchy, exact
                       all-pairs repulsion at every level;
   * ``flat``        — single-level GiLA baseline (the paper's predecessor):
                       no pruning, no hierarchy, one level from a random
                       init.
-The JAX package's fourth, ``multigila_dist`` (the sharded superstep), is
-not ported yet. Orthogonally, ``LayoutConfig.engine`` selects the
+Orthogonally, ``LayoutConfig.engine`` selects the
 per-level refinement engine (core/engine.py): ``"gila"`` —
 Fruchterman–Reingold forces — or ``"stress"`` — maxent-stress
 (core/stress.py). ``LayoutConfig.bucketing`` (default True) pads every level
@@ -79,8 +86,11 @@ class LayoutConfig:
     ideal_len: float = 1.0
     rep_const: float = 1.0
     seed: int = 0
-    driver: str = "multigila"        # multigila | centralized | flat
+    driver: str = "multigila"   # multigila | multigila_dist | centralized | flat
     engine: str = "gila"             # per-level refinement engine: gila | stress
+    # multigila_dist (data, model) mesh; None → one mesh over every rank of
+    # the default group (a one-rank group when none is initialized)
+    mesh_shape: tuple | None = None
     prune: bool = True               # degree-one pruning (never under flat)
     # pow2 shape buckets + the cache of captured refine steps
     # (core/bucketing.py); False = exact shapes and the eager refine loop
@@ -161,10 +171,6 @@ def connected_components(edges: np.ndarray, n: int) -> np.ndarray:
 
 
 def _check_supported(cfg: LayoutConfig) -> None:
-    if cfg.driver == "multigila_dist":
-        raise NotImplementedError(
-            "driver 'multigila_dist' (the sharded path) is not ported yet: "
-            "ROADMAP.md queue 1, item 11")
     if cfg.driver not in _DRIVERS:
         raise ValueError(f"unknown driver {cfg.driver!r}; known: "
                          f"{list(_DRIVERS)}")
@@ -224,8 +230,19 @@ def _schedule(cfg: LayoutConfig, i: int, L: int, g: PaddedGraph
 
 def _refine(stats: LayoutStats, device, cfg: LayoutConfig, g: PaddedGraph,
             pos, sched: LevelSchedule, seed: int) -> torch.Tensor:
-    """One level's refinement: the cached step program of its bucket, or,
+    """One level's refinement: the sharded superstep under
+    ``multigila_dist``; else the cached step program of its bucket, or,
     with ``cfg.bucketing`` off, the engine's eager loop."""
+    if cfg.driver == "multigila_dist":
+        from repro_torch.core.distributed import run_layout_level
+        from repro_torch.launch.mesh import make_host_mesh, make_mesh
+        mesh = (make_mesh(cfg.mesh_shape, ("data", "model"), device=device)
+                if cfg.mesh_shape else make_host_mesh(device=device))
+        return run_layout_level(mesh, g, pos, sched,
+                                ideal_len=cfg.ideal_len,
+                                rep_const=cfg.rep_const, seed=seed,
+                                bucket=cfg.bucketing,
+                                phases=stats.phase_seconds)
     if cfg.bucketing:
         return bucketing.refine_level(g, pos, sched, ideal_len=cfg.ideal_len,
                                       rep_const=cfg.rep_const, seed=seed,

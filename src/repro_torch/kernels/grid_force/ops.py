@@ -18,6 +18,8 @@ Per call (positions move every iteration, so all of it reruns):
      aggregates of near-cell overflow vertices, and for overflow vertices
      the softened in-bucket aggregates of their 9 cells.
 
+``near_field`` is the near field a row at a time (csrc/near_field.cu), the
+form in which the sharded grid step (core/distributed.py) resolves it.
 Each wrapper runs its plain version (ref.py) for a CPU tensor and launches
 its kernel, or raises, for a CUDA tensor.
 
@@ -41,18 +43,24 @@ import torch
 from repro_torch.graphs.graph import segment_sum
 from repro_torch.kernels import _build
 from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
-                                                grid_near_lanes_ref)
+                                                grid_near_lanes_ref,
+                                                near_field_ref)
 
 _EPS = 1e-12
 _AVG_OCCUPANCY = 12      # target vertices per grid cell
 
 
-def choose_grid(n: int) -> tuple[int, int]:
+def choose_grid(n: int, *, multiple_of: int = 1) -> tuple[int, int]:
     """Static (grid_dim, cell_cap) for an n-vertex level: ~``_AVG_OCCUPANCY``
-    vertices per cell, a cap of the mean plus ~6σ of a Poisson cell load."""
+    vertices per cell, a cap of the mean plus ~6σ of a Poisson cell load.
+    ``multiple_of`` rounds grid_dim down to a multiple: the sharded halo
+    variant bands the grid rows over the vertex ranks and needs
+    grid_dim % ranks == 0 (core/distributed.py)."""
     n = max(int(n), 1)
     G = int(round(math.sqrt(n / _AVG_OCCUPANCY)))
     G = max(2, min(G, 128))
+    if multiple_of > 1:
+        G = max(multiple_of, G // multiple_of * multiple_of)
     avg = n / (G * G)
     cap = int(math.ceil(avg + 6.0 * math.sqrt(avg) + 8.0))
     cap = min(max(8, (cap + 7) // 8 * 8), n)
@@ -169,16 +177,23 @@ def _cell_aggregates(pos, w, fcid, cells: int):
     return M, S, S / torch.clamp_min(M, _EPS)[:, None]
 
 
-def cell_centers(pos, vmask, grid_dim: int):
-    """Geometric centers of the G×G cells over the vertices' bounding box:
-    [G²+1, 2] (sentinel row = 0), or [B, G²+1, 2] for lanes."""
+def cell_centers_from_box(lo, hi, grid_dim: int):
+    """Geometric centers of the G×G cells over the box (lo, hi): [G²+1, 2]
+    (sentinel row = 0), or [B, G²+1, 2] for lanes' boxes [B, 2]. Shared by
+    the single-device op and the sharded step, which reduces lo/hi over its
+    ranks, so the centered second moments agree between the two."""
     G = grid_dim
-    lo, hi = _box(pos, vmask)
     cell = grid_cell_size(lo, hi, G)
-    ids = torch.arange(G * G, device=pos.device)
+    ids = torch.arange(G * G, device=lo.device)
     xy = torch.stack([ids % G, ids // G], dim=1).to(torch.float32)
     ctr = lo[..., None, :] + (xy + 0.5) * cell[..., None, :]
     return torch.cat([ctr, ctr.new_zeros(ctr.shape[:-2] + (1, 2))], dim=-2)
+
+
+def cell_centers(pos, vmask, grid_dim: int):
+    """Geometric centers of the G×G cells over the vertices' bounding box:
+    [G²+1, 2] (sentinel row = 0), or [B, G²+1, 2] for lanes."""
+    return cell_centers_from_box(*_box(pos, vmask), grid_dim)
 
 
 def _rms(Q, M, S, centers):
@@ -328,6 +343,58 @@ def grid_far(pos, cell_xyw, consts) -> torch.Tensor:
         out.data_ptr(), _build.stream_of(pos))
     _build.count("grid_far", B, n, nc)
     _build.check(err, "grid_far")
+    return out
+
+
+def near_field(rows, near9, cells, consts, *, pos=None, w=None,
+               col0: int = 0, ncols: int | None = None) -> torch.Tensor:
+    """The exact 3×3 near field a row at a time, as the sharded grid step
+    calls it (one row per local vertex; ``core/distributed.py``): rows
+    f32[R, 2] against the slots of their cells, near9 int32[R, 9] (row ids
+    of ``cells``, in [0, ncell)) → f32[R, 2]. Cell t of a row gives its
+    columns t·cap .. t·cap + cap − 1; only columns [col0, col0 + ncols)
+    count (default: all 9·cap), and columns past 9·cap add 0, so a "model"
+    rank passes its chunk of the padded columns. Two forms of ``cells``:
+      * index: int32[ncell, cap] of indices into ``pos`` f32[N, 2] and
+        ``w`` f32[N] (a zero-weight sentinel row among them);
+      * direct: f32[ncell, cap, 3] = (x, y, w) of each slot.
+    A slot of weight 0 is empty. ``consts`` as ``grid_near`` takes it.
+    One launch of csrc/near_field.cu for all rows."""
+    index = pos is not None
+    K = 9 * int(cells.shape[1])
+    ncols = K - col0 if ncols is None else int(ncols)
+    if rows.device.type == "cpu":
+        return near_field_ref(rows, near9, cells, consts[0], consts[1],
+                              pos=pos, w=w, col0=col0, ncols=ncols)
+    if rows.device.type != "cuda":
+        raise ValueError(f"near_field: unsupported device {rows.device}")
+    R, dev = rows.shape[0], rows.device
+    ncell, cap = int(cells.shape[0]), int(cells.shape[1])
+    _build.require(rows, "rows", torch.float32, (R, 2), dev)
+    _build.require(near9, "near9", torch.int32, (R, 9), dev)
+    _build.require(consts, "consts", torch.float32, (2,), dev)
+    if index:
+        N = int(pos.shape[0])
+        _build.require(cells, "cells", torch.int32, (ncell, cap), dev)
+        _build.require(pos, "pos", torch.float32, (N, 2), dev)
+        _build.require(w, "w", torch.float32, (N,), dev)
+        if pos.data_ptr() % 8:
+            raise ValueError("near_field: pos must be 8-byte aligned")
+    else:
+        N = 0
+        _build.require(cells, "cells", torch.float32, (ncell, cap, 3), dev)
+    if rows.data_ptr() % 8:
+        raise ValueError("near_field: rows must be 8-byte aligned")
+    if col0 < 0 or ncols < 0:
+        raise ValueError(f"near_field: columns {col0}, {ncols}")
+    out = torch.empty((R, 2), dtype=torch.float32, device=dev)
+    err = _build.load().near_field_launch(
+        rows.data_ptr(), near9.data_ptr(), R, cells.data_ptr(), ncell, cap,
+        pos.data_ptr() if index else None, w.data_ptr() if index else None,
+        N, col0, ncols, consts.data_ptr(), out.data_ptr(),
+        _build.stream_of(rows))
+    _build.count("near_field", 1, R, ncell, cap, ncols)
+    _build.check(err, "near_field")
     return out
 
 

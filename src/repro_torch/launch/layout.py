@@ -15,9 +15,21 @@ requests and reports whether every graph came out bit-identical (on the
 CPU it does; on the card the sequential driver sums edges with atomics).
 
 ``--trace out.json`` records the run's spans (coarsening, placement,
-refine dispatches, waves) as a Chrome/Perfetto trace-event file. Not ported
-yet, and refused: ``--mesh`` (the sharded driver, ROADMAP.md queue 1,
-item 11).
+refine dispatches, waves) as a Chrome/Perfetto trace-event file.
+
+``--driver multigila_dist --mesh DxM`` refines every level with the sharded
+superstep over a D×M mesh of ``torch.distributed`` ranks: on the card a
+one-rank mesh,
+
+    python -m repro_torch.launch.layout --driver multigila_dist --mesh 1x1
+
+and on the CPU as many gloo ranks as the mesh has,
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.layout \
+        --driver multigila_dist --mesh 4x2 --device cpu
+
+Every rank lays out the graph; rank 0 prints and writes the outputs. A mesh
+whose size is not the world size is an error.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core import (LayoutConfig, multigila_layout,
                               multigila_layout_many)
@@ -33,6 +46,7 @@ from repro_torch.graphs import generators
 from repro_torch.graphs.graph import build_graph
 from repro_torch.graphs.io import save_svg
 from repro_torch.graphs.metrics import quality_report
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import trace as obs_trace
 
 
@@ -65,18 +79,23 @@ def main(argv=None):
     ap.add_argument("--trace", default="", metavar="OUT.json",
                     help="write a Chrome/Perfetto trace of the run")
     ap.add_argument("--mesh", default="",
-                    help="not ported yet (sharded driver)")
+                    help="multigila_dist mesh as DATAxMODEL, e.g. 4x2 "
+                         "(default: one mesh over every rank)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet: ROADMAP.md queue 1, item 11")
+    mesh_mod.init_from_env(args.device)
+    # under torchrun every rank runs this; rank 0 alone prints and writes
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     if args.trace:
         obs_trace.enable()
 
     edges, n, gargs = generators.from_cli(args.graph, args.args)
-    print(f"graph {args.graph}{gargs}: n={n} m={len(edges)}")
+    say(f"graph {args.graph}{gargs}: n={n} m={len(edges)}")
 
-    cfg = LayoutConfig(engine=args.engine, seed=args.seed)
+    mesh_shape = (tuple(int(s) for s in args.mesh.lower().split("x"))
+                  if args.mesh else None)
+    cfg = LayoutConfig(engine=args.engine, seed=args.seed,
+                       mesh_shape=mesh_shape)
     if args.driver is not None:
         cfg = dataclasses.replace(cfg, driver=args.driver)
 
@@ -88,7 +107,7 @@ def main(argv=None):
         outs = multigila_layout_many(reqs, cfg, seeds=seeds,
                                      device=args.device)
         dt = time.perf_counter() - t0
-        print(f"batched: {B} layouts in {dt:.2f}s = {B / dt:.2f} graphs/s "
+        say(f"batched: {B} layouts in {dt:.2f}s = {B / dt:.2f} graphs/s "
               f"(levels={outs[0][1].levels})")
         if args.many_compare:
             t0 = time.perf_counter()
@@ -97,30 +116,33 @@ def main(argv=None):
                    for (e, nn), s in zip(reqs, seeds)]
             ds = time.perf_counter() - t0
             same = all(np.array_equal(a[0], b[0]) for a, b in zip(seq, outs))
-            print(f"sequential: {ds:.2f}s = {B / ds:.2f} graphs/s → "
+            say(f"sequential: {ds:.2f}s = {B / ds:.2f} graphs/s → "
                   f"batched speedup {ds / dt:.2f}x, bit-identical={same}")
         pos, stats = outs[0]
     else:
         t0 = time.perf_counter()
         pos, stats = multigila_layout(edges, n, cfg, device=args.device)
         dt = time.perf_counter() - t0
-        print(f"levels={stats.levels} sizes={stats.level_sizes} "
+        say(f"levels={stats.levels} sizes={stats.level_sizes} "
               f"time={dt:.2f}s")
 
     g = build_graph(edges, n, device="cpu")
     rep = quality_report(g, np.pad(pos, ((0, g.n_pad - n), (0, 0))),
                          max_cre_edges=0 if args.no_cre else 40000)
-    print(f"CRE={rep['cre']:.3f} NELD={rep['neld']:.3f} "
+    say(f"CRE={rep['cre']:.3f} NELD={rep['neld']:.3f} "
           f"stress={rep['stress']:.4f}")
-    if args.svg:
+    if args.svg and rank0:
         save_svg(args.svg, pos, edges)
-        print(f"wrote {args.svg}")
-    if args.trace:
+        say(f"wrote {args.svg}")
+    if args.trace and rank0:
         obs_trace.export(args.trace)
-        print(f"wrote trace to {args.trace} "
+        say(f"wrote trace to {args.trace} "
               f"({len(obs_trace.get_tracer())} events)")
     return rep
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        mesh_mod.shutdown()

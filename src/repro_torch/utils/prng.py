@@ -14,7 +14,9 @@ The recipe is that of JAX's default ``threefry2x32`` implementation with
   ``threefry(k, (0, i))``;
 * ``uniform = bitcast_f32((bits >> 9) | 0x3F800000) - 1``, then
   ``u * (max - min) + min`` as one fused multiply-add (XLA fuses it), then
-  ``max(min, .)``.
+  ``max(min, .)``;
+* ``bernoulli(k, p, (n,))`` is ``uniform(k, (n,)) < p`` over the flat
+  indices ``0 .. n-1`` (Spinner's coin flips, ``core/partition.py``).
 
 A key is a pair of 32-bit words. Scalar keys are pairs of Python ints (the
 host derives them without touching the device); per-vertex keys are pairs of
@@ -103,3 +105,11 @@ def uniform2_per_vertex(key, ids: torch.Tensor, minval: float = 0.0,
                         maxval: float = 1.0) -> torch.Tensor:
     """float32[len(ids), 2] per-vertex uniforms (positions)."""
     return _per_vertex_uniform(key, ids, 2, minval, maxval)
+
+
+def bernoulli(key, p: float, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))``: bool[n] on ``device``, element
+    i true where the uniform at flat index i lies below ``p``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(key, (torch.zeros_like(i), i))
+    return _bits_to_unit(y0 ^ y1) < float(np.float32(p))

@@ -30,7 +30,8 @@ from repro_torch.kernels.grid_force import ops as grid_ops
 from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
                                                 grid_far_ref,
                                                 grid_near_lanes_ref,
-                                                grid_near_ref)
+                                                grid_near_ref,
+                                                near_field_ref)
 from repro_torch.kernels.nbody.ops import nbody_repulsion
 from repro_torch.kernels.nbody.ref import (nbody_repulsion_lanes_ref,
                                            nbody_repulsion_ref)
@@ -257,6 +258,100 @@ def test_grid_repulsion_on_card_matches_cpu(cuda):
     out = grid_ops.grid_repulsion(pos.to(cuda), mass.to(cuda),
                                   vmask.to(cuda), _consts(cuda), **kw)
     _close(out.cpu(), ref, atol_frac=1e-4)
+
+
+def _near_rows(R, N, ncell, cap, seed, dev):
+    """Rows, near9 (a fifth of them the empty last cell), a replicated
+    (pos, w) table with a zero sentinel row, and the slot table in both
+    forms: indices into it, and its (x, y, w) gathered."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    rows = (rng.random((R, 2)) * 10).astype(np.float32)
+    near9 = rng.integers(0, ncell, (R, 9)).astype(np.int32)
+    near9[rng.random((R, 9)) < 0.2] = ncell - 1
+    pos = (rng.random((N + 1, 2)) * 10).astype(np.float32)
+    w = (rng.random(N + 1) + 0.5).astype(np.float32)
+    pos[N], w[N] = 0, 0
+    slots = rng.integers(0, N + 1, (ncell, cap)).astype(np.int32)
+    slots[ncell - 1] = N
+    xyw = np.concatenate([pos[slots], w[slots][..., None]], -1)
+    return (t(rows), t(near9), t(slots), t(pos), t(w),
+            t(xyw.astype(np.float32)))
+
+
+@pytest.mark.parametrize("R,N,ncell,cap", [
+    (1, 10, 3, 1),
+    (777, 3000, 200, 7),        # 9·cap = 63: not a multiple of 4 or 32
+    (5003, 20000, 1025, 48),
+    (4099, 9000, 300, 120),     # the 1M path's cap: 1080 slots a row
+])
+@pytest.mark.parametrize("form", ["index", "direct"])
+def test_near_field_kernel_matches_plain(cuda, R, N, ncell, cap, form):
+    """The near field a row at a time on the card against its plain
+    version, both slot-table forms, at all columns and at a "model" rank's
+    chunk (the last one running past 9·cap); two calls give the same
+    bits."""
+    rows, near9, slots, pos, w, xyw = _near_rows(R, N, ncell, cap, R, cuda)
+    cl2, md2 = _build.force_consts(C, L, MD)
+    K = 9 * cap
+    for col0, ncols in ((0, K), (0, (K + 1) // 2), ((K + 1) // 2,
+                                                   (K + 1) // 2)):
+        if form == "index":
+            cells, kw = slots, dict(pos=pos, w=w)
+        else:
+            cells, kw = xyw, {}
+        out = _twice("near_field", lambda: grid_ops.near_field(
+            rows, near9, cells, _consts(cuda), col0=col0, ncols=ncols,
+            **kw))
+        _close(out, near_field_ref(rows, near9, cells, cl2, md2, col0=col0,
+                                   ncols=ncols, **kw))
+
+
+def test_near_field_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    rows, near9, slots, pos, w, xyw = _near_rows(300, 900, 40, 8, 0, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        grid_ops.near_field(rows, near9.long(), slots, _consts(cuda),
+                            pos=pos, w=w)
+    with pytest.raises(ValueError, match="shape"):
+        grid_ops.near_field(rows, near9, xyw[..., :2].contiguous(),
+                            _consts(cuda))
+    odd = torch.zeros(601, device=cuda)[1:].view(300, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        grid_ops.near_field(odd, near9, slots, _consts(cuda), pos=pos, w=w)
+
+
+def test_sharded_grid_step_on_card_matches_cpu(cuda):
+    """One grid-mode iteration of the sharded step on a one-rank mesh,
+    NCCL on the card against gloo on the CPU (one group with both), from
+    the same inputs: within 1e-4 · the largest move (the cell sums and the
+    attraction are ``index_add_`` atomics on the card)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_mod
+    rng = np.random.default_rng(4)
+    n_pad, m_pad = 4096, 256
+    pos = (rng.random((n_pad, 2)) * 40).astype(np.float32)
+    w = (rng.random(n_pad) + 0.5).astype(np.float32)
+    G_, cap = grid_ops.choose_grid(n_pad)
+    src = rng.integers(0, n_pad, m_pad).astype(np.int32)
+    dst = rng.integers(0, n_pad, m_pad).astype(np.int32)
+    outs = {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            mesh = mesh_mod.make_host_mesh(device=dev)
+            step = D.layout_train_step(mesh, n_pad, m_pad, 1, mode="grid",
+                                       grid_dim=G_, cell_cap=cap)
+            t = lambda a: torch.from_numpy(a).to(dev)
+            before = _build.launches["near_field"]
+            outs[dev.type] = step(
+                t(pos), t(w), t(np.full((n_pad, 1), n_pad, np.int32)),
+                t(src), t(dst), t(np.ones(m_pad, bool)),
+                t(np.ones(m_pad, np.float32)),
+                t(np.asarray([1.0, 1.0, 1e-3], np.float32)), 0.7).cpu()
+            assert _build.launches["near_field"] == before + (
+                dev.type == "cuda")
+    finally:
+        mesh_mod.shutdown()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=1e-4 * 0.7)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -111,21 +111,26 @@ def test_disconnected_input_packs_components():
 
 
 def test_unported_driver_and_engine_raise():
-    """What is not ported yet raises NotImplementedError, naming its
-    ROADMAP item: the sharded driver and the CLI's mesh option (its
-    ``--trace`` is ported: ``test_torch_service.py``). An unknown engine is
-    a ValueError, as in JAX."""
+    """What the drivers do not take raises: an unknown driver (ValueError,
+    from the config and from the CLI's choices), and a sharded mesh whose
+    size is not the world size (ValueError, from the config and from the
+    CLI's ``--mesh``; this process has one rank and no group). An unknown
+    engine is a ValueError, as in JAX. The sharded driver itself is held to
+    JAX in ``test_torch_distributed.py``."""
     from repro_torch.launch.layout import main
     edges, n = G.grid(4, 4)
-    for cfg in (LayoutConfig(driver="multigila_dist"),
-                LayoutConfig(engine="multigila_dist")):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="unknown driver"):
+        multigila_layout(edges, n, LayoutConfig(driver="nope"),
+                         device="cpu")
+    for cfg in (LayoutConfig(driver="multigila_dist", mesh_shape=(2, 2)),
+                LayoutConfig(engine="multigila_dist", mesh_shape=(4, 1))):
+        with pytest.raises(ValueError, match="ranks"):
             multigila_layout(edges, n, cfg, device="cpu")
     base = ["--graph", "grid", "--args", "4", "4", "--device", "cpu"]
-    for extra, item in ((["--mesh", "2x2"], 11),
-                        (["--driver", "multigila_dist"], 11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            main(base + extra)
+    with pytest.raises(ValueError, match="ranks"):
+        main(base + ["--driver", "multigila_dist", "--mesh", "2x2"])
+    with pytest.raises(SystemExit):
+        main(base + ["--driver", "nope"])
     with pytest.raises(ValueError, match="unknown refinement engine"):
         multigila_layout(edges, n, LayoutConfig(engine="nope"), device="cpu")
 

@@ -98,6 +98,9 @@ def test_import_hygiene_no_jax_no_repro():
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 20, mods\n"
+        "new = {'repro_torch.core.distributed', 'repro_torch.core.partition',"
+        " 'repro_torch.launch.mesh'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
