@@ -169,7 +169,10 @@ of them passed):
         and on the halo variant's direct form built from the same
         positions: against its plain version and itself, timed as phase 3
         times a row, the per-cell grid_near kernel's ms on the same level
-        beside it;
+        beside it, and the op's device ms split into its grouping, pack
+        and near kernels (``split_ms``, from a profile of eager calls),
+        with the grouping's plain version (``ops.group_rows``: torch.sort
+        and searchsorted) timed beside it;
         then the refine loop of grid level 1, staged on its warm entry,
         runs under ``torch.cuda.set_sync_debug_mode("error")``;
      c. phase 5's graph (all three modes), gila then stress with phase
@@ -671,14 +674,9 @@ class PathInputs:
         return sorted(out, key=lambda c: (c[0], c[3]["level"]))
 
 
-def profile_run(fn) -> dict:
-    """One more run of ``fn`` under torch.profiler — device time by kernel
-    and the device's busy share of the wall clock. Only device activity is
-    recorded, and read from the profiler's raw results: host ops would
-    inflate the idle share, and building the profiler's Python event tree
-    for the batched phase's runs takes longer than the runs. The profiler
-    still slows the host, so the wall here is longer than the unprofiled
-    run's."""
+def _device_events(fn) -> tuple:
+    """(wall s, [(name, start µs, end µs)] of every device activity) of one
+    run of ``fn`` under torch.profiler, read from its raw results."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -688,14 +686,30 @@ def profile_run(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        s, t = e.start_ns() / 1e3, e.end_ns() / 1e3       # µs
-        spans.append((s, t))
-        ms, cnt = by_name.get(e.name(), (0.0, 0))
-        by_name[e.name()] = (ms + (t - s) / 1e3, cnt + 1)
+    return wall, [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+
+
+def _ms_by_name(events) -> dict:
+    """{name: (device ms, count)} of ``_device_events``' events."""
+    by_name = {}
+    for name, s, t in events:
+        ms, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (t - s) / 1e3, cnt + 1)
+    return by_name
+
+
+def profile_run(fn) -> dict:
+    """One more run of ``fn`` under torch.profiler — device time by kernel
+    and the device's busy share of the wall clock. Only device activity is
+    recorded, and read from the profiler's raw results: host ops would
+    inflate the idle share, and building the profiler's Python event tree
+    for the batched phase's runs takes longer than the runs. The profiler
+    still slows the host, so the wall here is longer than the unprofiled
+    run's."""
+    wall, events = _device_events(fn)
+    spans, by_name = [(s, t) for _, s, t in events], _ms_by_name(events)
     if not spans:
         raise AssertionError("profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
@@ -2531,9 +2545,26 @@ def _near_pairs_rows(near9, cnt) -> int:
     return int(cnt[near9.long()].sum())
 
 
+def _near_field_split(f, calls: int) -> dict:
+    """Device ms a call of the op ``f`` spends in its three parts, from a
+    profile of ``calls`` eager calls: the pack kernel, the near kernel, and
+    the grouping (every other device activity of csrc/near_field.cu: the
+    memset and the counting sort's three kernels). Each name's mean over
+    the events recorded: a profile on the H100 has kept the events of only
+    some of the calls."""
+    _, events = _device_events(lambda: [f() for _ in range(calls)])
+    split = dict(pack=0.0, grouping=0.0, near=0.0)
+    for name, (ms, cnt) in _ms_by_name(events).items():  # once a call each
+        part = ("pack" if "nf_pack_kernel" in name else
+                "near" if "nf_near_kernel" in name else "grouping")
+        split[part] += ms / cnt
+    return split
+
+
 def time_near_field(args, shape, form, launches, per_cell_ms) -> dict:
     """One near_field input: against its plain version and itself (bit for
-    bit), timed as phase 3 times a row; ``per_cell_ms`` is the per-cell
+    bit, and each row bit for bit with the rows permuted), timed as phase 3
+    times a row; ``per_cell_ms`` is the per-cell
     ``grid_near`` kernel's device time on the same level's positions."""
     import torch
     from repro_torch.kernels.grid_force import ops as grid_ops
@@ -2543,9 +2574,15 @@ def time_near_field(args, shape, form, launches, per_cell_ms) -> dict:
     p = lambda: near_field_ref(rows, near9, cells, consts[0], consts[1],
                                **kw)
     out, again = f(), f()
+    perm = torch.randperm(rows.shape[0], device=rows.device,
+                          generator=torch.Generator(rows.device).manual_seed(0))
+    shuffled = grid_ops.near_field(rows[perm], near9[perm], cells, consts,
+                                   **kw)
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"near_field {form}: two calls differ")
+    if not torch.equal(shuffled, out[perm]):
+        raise AssertionError(f"near_field {form}: rows permuted differ")
     err = _compare("near_field", out, p())
     calls, replays, eager = _NEAR_REPS
     R, ncell, cap = rows.shape[0], cells.shape[0], cells.shape[1]
@@ -2557,6 +2594,7 @@ def time_near_field(args, shape, form, launches, per_cell_ms) -> dict:
         cnt = (cells[..., 2] > 0).sum(dim=1)
         table = 12 * ncell * cap
     pairs = _near_pairs_rows(near9, cnt)
+    rows_of = torch.bincount(near9[:, 4].long(), minlength=ncell)[:-1]
     bound, by = _bound_ms(52 * R + table, FLOPS_PER_PAIR * pairs)
     row = dict(name="near_field", route="cuda",
                source="src/repro_torch/kernels/grid_force/csrc/near_field.cu",
@@ -2568,6 +2606,13 @@ def time_near_field(args, shape, form, launches, per_cell_ms) -> dict:
                shape=_shape_label(shape), eager_ms=_per_call_ms(f, eager))
     print(json.dumps(dict(row, pairs=pairs, mufu_ms=pairs / MUFU_PER_S * 1e3,
                           grid_near_per_cell_ms=per_cell_ms,
+                          cells_over_cap=int((rows_of > cap).sum()),
+                          rows_over_cap=int((rows_of - cap).clamp_min(0)
+                                            .sum()),
+                          split_ms=_near_field_split(f, eager),
+                          plain_grouping_ms=_graph_ms(
+                              lambda: grid_ops.group_rows(near9, ncell),
+                              calls, replays),
                           tol=dict(rtol=RTOL, atol_frac_of_max=ATOL_FRAC))),
           flush=True)
     return row

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "grid_near_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                          _P, _P, _P],
     "near_field_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P,
-                          _P, _P],
+                          _P, _I, _P, _P, _P, _P],
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _L, _L, _I, _P],
     "flash_attention_split_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -346,6 +346,28 @@ def grid_far(pos, cell_xyw, consts) -> torch.Tensor:
     return out
 
 
+#: sorted rows a warp of the near_field kernel takes at most: a pass of its
+#: widest split (NEAR_MAX_RT rows a lane, one lane a row)
+NEAR_FIELD_CHUNK = NEAR_MAX_RT * 32
+
+
+def group_rows(near9, ncell: int) -> tuple:
+    """The plain version of the near_field kernel's grouping of its rows by
+    centre cell: (order int64[R], keys int32[R], starts int32[ncell + 2]).
+    The rows sorted stably by ``near9[:, 4]``, a centre outside [0, ncell)
+    keyed ``ncell`` (one last group); ``keys`` the sorted keys, and group g
+    the sorted rows ``starts[g] .. starts[g + 1] - 1``. The kernel's
+    counting sort gives the same keys and starts, and the rows of a group
+    in an order of its own, on which no result depends."""
+    key = near9[:, 4]
+    key = torch.where((key >= 0) & (key < ncell), key, ncell)
+    keys, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        keys, torch.arange(ncell + 2, dtype=keys.dtype, device=keys.device),
+        out_int32=True)
+    return order, keys, starts
+
+
 def near_field(rows, near9, cells, consts, *, pos=None, w=None,
                col0: int = 0, ncols: int | None = None) -> torch.Tensor:
     """The exact 3×3 near field a row at a time, as the sharded grid step
@@ -359,7 +381,9 @@ def near_field(rows, near9, cells, consts, *, pos=None, w=None,
         ``w`` f32[N] (a zero-weight sentinel row among them);
       * direct: f32[ncell, cap, 3] = (x, y, w) of each slot.
     A slot of weight 0 is empty. ``consts`` as ``grid_near`` takes it.
-    One launch of csrc/near_field.cu for all rows."""
+    On the card: one launch of csrc/near_field.cu (the rows grouped by
+    centre cell as ``group_rows`` groups them, the slot table packed, then
+    the near kernel, a warp a cell's rows)."""
     index = pos is not None
     K = 9 * int(cells.shape[1])
     ncols = K - col0 if ncols is None else int(ncols)
@@ -387,11 +411,15 @@ def near_field(rows, near9, cells, consts, *, pos=None, w=None,
         raise ValueError("near_field: rows must be 8-byte aligned")
     if col0 < 0 or ncols < 0:
         raise ValueError(f"near_field: columns {col0}, {ncols}")
+    packed = torch.empty((ncell, cap, 4), dtype=torch.float32, device=dev)
+    work = torch.empty(4 * R + 3 * ncell + 3, dtype=torch.int32, device=dev)
     out = torch.empty((R, 2), dtype=torch.float32, device=dev)
     err = _build.load().near_field_launch(
         rows.data_ptr(), near9.data_ptr(), R, cells.data_ptr(), ncell, cap,
         pos.data_ptr() if index else None, w.data_ptr() if index else None,
-        N, col0, ncols, consts.data_ptr(), out.data_ptr(),
+        N, col0, ncols, consts.data_ptr(),
+        near_split_table(NEAR_FIELD_CHUNK, dev).data_ptr(), NEAR_FIELD_CHUNK,
+        packed.data_ptr(), work.data_ptr(), out.data_ptr(),
         _build.stream_of(rows))
     _build.count("near_field", 1, R, ncell, cap, ncols)
     _build.check(err, "near_field")

@@ -307,6 +307,74 @@ def test_near_field_kernel_matches_plain(cuda, R, N, ncell, cap, form):
                                    ncols=ncols, **kw))
 
 
+def _path_near_rows(n, n_pad, seed, form, dev):
+    """near_field's arguments as the sharded grid step builds them on a
+    one-rank mesh (all columns), from n drawn positions (a tenth of them in
+    one spot, so that cell holds more rows than ``cap`` and than a warp's
+    chunk) and n_pad − n padding rows: the index form from ``bin_vertices``
+    and ``neighbor_table`` over the replicated arrays, the direct form from
+    ``_halo_binning``/``_halo_near``. Then one row in a hundred gets one of
+    its 9 cells moved to another (never at the call sites)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_mod
+    rng = np.random.default_rng(seed)
+    pos = (rng.random((n_pad, 2)) * 10).astype(np.float32)
+    pos[:n // 10] = 3.3 + rng.random((n // 10, 2)).astype(np.float32) * 1e-3
+    w = np.where(np.arange(n_pad) < n, rng.random(n_pad) + 0.5,
+                 0).astype(np.float32)
+    pos, w = torch.from_numpy(pos).to(dev), torch.from_numpy(w).to(dev)
+    G, cap = grid_ops.choose_grid(n)
+    if form == "index":
+        cid, bucket, _ = grid_ops.bin_vertices(pos, w > 0, G, cap)
+        near9 = grid_ops.neighbor_table(G, dev)[cid.long()]
+        zero = torch.zeros(1, device=dev)
+        cells, kw = bucket, dict(pos=torch.cat([pos, zero.expand(1, 2)]),
+                                 w=torch.cat([w, zero]))
+    else:
+        mesh = mesh_mod.make_host_mesh(device=dev)
+        try:
+            lo, hi = D._box(mesh, pos, w > 0)
+            bins = D._halo_binning(mesh, pos, w, lo, hi, G, cap)
+            near9, cells = D._halo_near(mesh, pos, w, *bins, G, cap)
+        finally:
+            mesh_mod.shutdown()
+        kw = {}
+    moved = torch.from_numpy(rng.random(n_pad) < 0.01).to(dev)
+    t = torch.from_numpy(rng.integers(0, 9, n_pad)).to(dev)
+    other = torch.from_numpy(rng.integers(0, cells.shape[0], n_pad)).to(dev)
+    near9 = near9.clone()
+    near9[moved, t[moved]] = other[moved].to(torch.int32)
+    return pos, near9.contiguous(), cells, kw, cap
+
+
+@pytest.mark.parametrize("n,n_pad", [(3000, 4096), (9000, 9216)])
+@pytest.mark.parametrize("form", ["index", "direct"])
+def test_near_field_kernel_on_path_inputs(cuda, n, n_pad, form):
+    """The near field on inputs with the sharded path's structure: rows
+    binned from drawn positions, a cell holding more rows than ``cap``,
+    padding rows (more than a warp's chunk of them), a few rows with an
+    altered near9; all columns and two "model" chunks. Against the plain
+    version, bit for bit across two calls, and each row bit for bit when
+    the rows are permuted."""
+    rows, near9, cells, kw, cap = _path_near_rows(n, n_pad, n, form, cuda)
+    cl2, md2 = _build.force_consts(C, L, MD)
+    K = 9 * cap
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n_pad)).to(
+        cuda)
+    for col0, ncols in ((0, K), (0, (K + 1) // 2), ((K + 1) // 2,
+                                                   (K + 1) // 2)):
+        out = _twice("near_field", lambda: grid_ops.near_field(
+            rows, near9, cells, _consts(cuda), col0=col0, ncols=ncols,
+            **kw))
+        _close(out, near_field_ref(rows, near9, cells, cl2, md2, col0=col0,
+                                   ncols=ncols, **kw))
+        shuffled = grid_ops.near_field(rows[perm], near9[perm], cells,
+                                       _consts(cuda), col0=col0,
+                                       ncols=ncols, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(shuffled, out[perm])
+
+
 def test_near_field_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     rows, near9, slots, pos, w, xyw = _near_rows(300, 900, 40, 8, 0, cuda)
     with pytest.raises(ValueError, match="dtype"):

@@ -282,3 +282,31 @@ def test_grid_near_split_table(cap):
         assert split[rows] == rt << 8 | s
     assert grid_ops.near_split(61) == (4, 2)
     assert grid_ops.near_split(10) == (2, 5)
+
+
+@pytest.mark.parametrize("R,ncell,bad", [
+    (1, 1, 0.0),
+    (500, 7, 0.0),
+    (3000, 130, 0.1),      # a tenth of the centres outside [0, ncell)
+    (257, 1, 0.5),         # one cell and the last group only
+])
+def test_near_field_grouping(R, ncell, bad):
+    """The near_field kernel's grouping of its rows (``group_rows``): the
+    rows in stable order of their centre cell ``near9[:, 4]``, every centre
+    outside [0, ncell) (below 0 or at and past ncell) in one last group
+    ``ncell``, and each group's start — what the kernel's warps read to
+    find their rows."""
+    rng = np.random.default_rng(R)
+    near9 = rng.integers(0, ncell, (R, 9)).astype(np.int32)
+    out = rng.random(R) < bad
+    near9[out, 4] = rng.choice([-3, -1, ncell, ncell + 5], out.sum())
+    order, keys, starts = grid_ops.group_rows(_t(near9), ncell)
+    want = np.where(out, ncell, near9[:, 4])
+    assert order.dtype == torch.int64 and keys.dtype == torch.int32
+    assert starts.dtype == torch.int32 and starts.shape == (ncell + 2,)
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(want, kind="stable"))
+    np.testing.assert_array_equal(keys.numpy(), want[order.numpy()])
+    np.testing.assert_array_equal(
+        starts.numpy(), np.searchsorted(np.sort(want), np.arange(ncell + 2)))
+    assert starts[-1] == R and starts[-2] == R - out.sum()
