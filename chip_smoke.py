@@ -75,6 +75,15 @@ of them passed):
      d. the weighted hierarchy of the same graph built on the card and on
         the CPU: level sizes and every array, ``ewt`` included, equal bit
         for bit, and the CPU build's seconds;
+     g. after 4b, every cached refine step of the layout path, both
+        engines, under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+        sync raises): the single-graph ``RefineProgram`` on a warm entry
+        at the largest level of each mode (4b's cold run cleared gila's
+        entries, which are captured again first), and the batched
+        ``RefineManyProgram`` on two lanes of the smallest level of each
+        mode; each SYNC_ITERS iterations (replays and a schedule chunk
+        reload), then EAGER_STEPS eager calls of the step function, its
+        launches equal to its iterations, positions finite;
   5. a ~5,000-vertex delaunay with exact_threshold=64, grid_threshold=512
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
@@ -99,16 +108,19 @@ of them passed):
         against the CPU each driver's lanes' mean within
         max(CRE_MEAN_DELTA, CRE_MEAN_SES standard errors), each lane
         printed (``many_card_vs_cpu``);
-  6. the LM serving path, internlm2-1.8b at its published width and depth
-     (24 layers) in bf16, weights drawn from a seed on the card:
+  6. the LM serving path, for each of LM_ARCHS in turn at its published
+     width and depth in bf16, weights drawn from a seed on the card and
+     freed before the next model's: internlm2-1.8b (24 layers, 16 heads
+     over 8 KV heads), starcoder2-7b (32 layers, 36 over 4: GQA group 9)
+     and starcoder2-15b (40 layers, 48 over 4: group 12);
      a. the flash-attention kernel against its plain version at the path's
-        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, 16 heads
-        over 8 KV heads, hd 128, causal; k/v = cache[:, :2048] of a
-        2088-row cache: the wgmma route) and decode (Sq 1 against the
-        whole 2088-row cache with ``kv_len`` an int32 on the device, as
-        ``decode_step`` calls it, checked at kv_len 2049, 2065 and 2080 and
-        timed at 2080, rotating over 3 caches that together exceed the L2:
-        the split-KV route) — timed as device time per call (CUDA-graph
+        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, hd 128,
+        causal; k/v = cache[:, :2048] of a 2088-row cache: the wgmma
+        route) and decode (Sq 1 against the whole 2088-row cache with
+        ``kv_len`` an int32 on the device, as ``decode_step`` calls it,
+        checked at kv_len 2049, 2065 and 2080 and timed at 2080, rotating
+        over caches of DECODE_KV_BYTES together, twice the L2: the
+        split-KV route) — timed as device time per call (CUDA-graph
         replay) and eagerly (host work included), beside
         ``scaled_dot_product_attention`` timed the same ways as a
         yardstick, with the bound max(bytes / 3.35 TB/s, flops / 989
@@ -118,12 +130,14 @@ of them passed):
         CUDA graph of a step, ``pos`` and ``kv_len`` on the device; a cold
         sequence that captures, then a warm one that is timed) beside 32
         eager ``decode_step``s: the same greedy tokens, prefill seconds,
-        decode ms a step and tokens/s of both, flash launches (24 per
-        prefill, 24 per step, replays included), every logit finite; then
-        prefill and each decode under torch.profiler (device busy share);
+        decode ms a step and tokens/s of both, flash launches (n_layers
+        per prefill, n_layers per step, replays included), every logit
+        finite, peak GB; then prefill and each decode under torch.profiler
+        (device busy share);
      c. a 2-layer model at full width, the same weights on the card and on
         the CPU (plain attention there): prefill's last-token logits and the
         first decode step's agree within LOGIT_TOL;
+     each model's 6a/6b/6c seconds are printed (``lm_seconds``);
   7. the batched driver, ``multigila_layout_many``, at the size a layout
      service's tenants submit: suite A, SUITE_A graphs
      ``generators.delaunay(5_000, seed=100+i)`` (L0 neighbor, coarser
@@ -196,6 +210,8 @@ stay out of the ``{"kernels": [...]}`` line.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -275,10 +291,17 @@ N_MAIN = 1_000_000
 SUITE_A = (32, 5_000, 100)
 SUITE_B = (8, 50_000, 200)
 LANES_5D = 8                          # suite A's first graphs, card vs CPU
+# the LM serving path's models, in turn: internlm2-1.8b (GQA group 2),
+# starcoder2-7b (36 heads over 4 KV heads: group 9) and starcoder2-15b (48
+# over 4: group 12), each at its published width and depth
 LM_ARCH = "internlm2-1.8b"
+LM_ARCHS = (LM_ARCH, "starcoder2-7b", "starcoder2-15b")
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
-DECODE_CACHES = 3                     # 3 × 34 MB of k/v: more than the L2
+# decode rotates over as many caches as give this many bytes of k and v
+# together, twice the 50 MB L2: 3 for internlm2 (34 MB a cache), 6 for
+# starcoder2 (17 MB: KV 4)
+DECODE_KV_BYTES = 100e6
 # decode's device kv_len at phase 6a's checks: the path's first and last
 # (2049 reads one key of the last split chunk) and one between; it is timed
 # at the last
@@ -295,6 +318,10 @@ ATTN_TOL = dict(flash_attention_prefill=dict(rtol=1e-2, atol=1e-2),
 # kernel's p rounding, and bf16 activations between layers; a logit near 4
 # has a bf16 ulp of 0.016
 LOGIT_TOL = dict(rtol=0.02, atol=0.1)
+# phase 4g: iterations of each cached refine program under sync-debug
+# "error" (more than a schedule buffer's 128 rows, so a chunk reload falls
+# inside), then eager calls of its step
+SYNC_ITERS, EAGER_STEPS = 136, 4
 
 
 def _card_line() -> str:
@@ -747,14 +774,21 @@ def _graph_ms(fn, calls: int, replays: int = 10) -> float:
     return a.elapsed_time(b) / (replays * calls)
 
 
-def attention_checks(device) -> list:
-    """Phase 6a: the flash-attention kernel against its plain version at the
-    LM path's prefill and decode shapes, on the path's own layout and
+def _attn_row_name(kind: str, arch: str) -> str:
+    """``flash_attention_prefill`` / ``_decode`` for internlm2-1.8b (the
+    rows' names since PR 12), the model's name appended for the others."""
+    name = f"flash_attention_{kind}"
+    return name if arch == LM_ARCH else f"{name}_{arch}"
+
+
+def attention_checks(device, arch: str = LM_ARCH) -> list:
+    """Phase 6a: the flash-attention kernel against its plain version at
+    ``arch``'s prefill and decode shapes, on the path's own layout and
     calls: prefill reads slices ``cache[:, :2048]`` of LM_CACHE-row caches;
     decode reads the whole cache with ``kv_len`` on the device (checked at
     each of DECODE_KV_LENS against the plain version on ``cache[:, :kv_len]``,
-    timed at the last) and rotates over DECODE_CACHES caches (more than the
-    50 MB L2 together), as the 24 layers each read their own. SDPA is timed
+    timed at the last) and rotates over caches of DECODE_KV_BYTES together
+    (twice the 50 MB L2), as the layers each read their own. SDPA is timed
     on the keys the kernel reads as a yardstick.
     ``ms`` and ``library_ms`` are device time per call (CUDA-graph replay);
     ``eager_ms`` and ``library_eager_ms`` time the same calls made back to
@@ -767,8 +801,9 @@ def attention_checks(device) -> list:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n_caches = -(-int(DECODE_KV_BYTES) // (2 * B * LM_CACHE * KV * hd * 2))
     rng = np.random.default_rng(7)
 
     def draw(*shape):
@@ -783,13 +818,15 @@ def attention_checks(device) -> list:
     cases = [
         # name, q, caches, keys read, kv_lens checked (None: the cache is
         # sliced on the host), causal, (query, key) pairs, calls per graph
-        ("flash_attention_prefill", draw(B, LM_PROMPT, H, hd), caches(1),
+        ("prefill", draw(B, LM_PROMPT, H, hd), caches(1),
          LM_PROMPT, None, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 10),
-        ("flash_attention_decode", draw(B, 1, H, hd), caches(DECODE_CACHES),
-         kv_len, DECODE_KV_LENS, True, kv_len, 3 * DECODE_CACHES),
+        ("decode", draw(B, 1, H, hd), caches(n_caches),
+         kv_len, DECODE_KV_LENS, True, kv_len, 3 * n_caches),
     ]
     rows = []
-    for name, q, cs, Sk, checked, causal, pairs, calls in cases:
+    for kind, q, cs, Sk, checked, causal, pairs, calls in cases:
+        name, tol = _attn_row_name(kind, arch), ATTN_TOL[
+            f"flash_attention_{kind}"]
         Sq = q.shape[1]
         # prefill hands the kernel cache[:, :Sk]; decode hands it the whole
         # cache with kv_len on the device, as decode_step does
@@ -827,8 +864,7 @@ def attention_checks(device) -> list:
             ref = flash_attention_ref(q, k[:, :n].contiguous(),
                                       v[:, :n].contiguous(), causal=causal)
             torch.cuda.synchronize()
-            torch.testing.assert_close(out.float(), ref.float(),
-                                       **ATTN_TOL[name])
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
             err = max(err, float((out.float() - ref.float()).abs().max()))
         lib_out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :Sk].transpose(1, 2),
@@ -854,20 +890,20 @@ def attention_checks(device) -> list:
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound, bound_by=by, library_ms=library_ms,
                    flash_route=flash_ops.route(Sq, H, KV))
-        print(json.dumps(dict(row, shape=dict(
-            B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd, causal=causal,
+        print(json.dumps(dict(row, lm=arch, shape=dict(
+            B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, G=H // KV, hd=hd, causal=causal,
             k_batch_stride=k.stride(0), caches=len(kvs),
             capacity=cs[0][0].shape[1],
             kv_len_on_device=checked is not None,
             kv_lens_checked=list(checked or (Sk,))),
             eager_ms=eager_ms, library_eager_ms=library_eager_ms,
-            library_max_abs_err=lib_err, tol=ATTN_TOL[name])), flush=True)
+            library_max_abs_err=lib_err, tol=tol)), flush=True)
         rows.append(row)
     return rows
 
 
-def lm_main_path(device) -> dict:
-    """Phase 6b: internlm2-1.8b, full width and depth, bf16: prefill of a
+def lm_main_path(device, arch: str = LM_ARCH) -> dict:
+    """Phase 6b: ``arch`` at full width and depth, bf16: prefill of a
     LM_BATCH × LM_PROMPT prompt, then LM_NEW greedy steps of the captured
     decode (``compile_decode``) beside LM_NEW eager ``decode_step``s, with
     the flash launches of each counted from 0. The captured decode runs
@@ -879,7 +915,8 @@ def lm_main_path(device) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.models import model as M
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
@@ -967,8 +1004,8 @@ def lm_main_path(device) -> dict:
             dec.step()
     prof_decode = profile_run(decode8)
     prof_graph = profile_run(graph8)
-    return dict(
-        lm=LM_ARCH, params=cfg.param_count(), dtype="bfloat16",
+    res = dict(
+        lm=arch, params=cfg.param_count(), dtype="bfloat16",
         batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
         cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
         prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
@@ -986,12 +1023,17 @@ def lm_main_path(device) -> dict:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode,
         profile_graph_decode_8_steps=prof_graph)
+    # the captured decode holds the model: break the cycle, so that the
+    # weights (~32 GB for starcoder2-15b) leave the card when this returns
+    model.__dict__.pop("_decode_graphs", None)
+    return res
 
 
-def lm_card_vs_cpu(device) -> dict:
-    """Phase 6c: a 2-layer internlm2-1.8b at full width, the same bf16
-    weights on the card and on the CPU: prefill's last-token logits and the
-    first decode step's logits agree within LOGIT_TOL."""
+def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
+    """Phase 6c: a 2-layer ``arch`` at full width, the same bf16 weights on
+    the card and on the CPU: prefill's last-token logits and the first
+    decode step's logits agree within LOGIT_TOL (2 × 130 tokens; the CPU
+    side's seconds printed)."""
     import dataclasses
 
     import numpy as np
@@ -999,7 +1041,7 @@ def lm_card_vs_cpu(device) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     card = M.init_params(cfg, seed=1, device=device)
     cpu = M.LM(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -1007,7 +1049,9 @@ def lm_card_vs_cpu(device) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
     res = {}
     lg_card, st_card, pos = M.prefill(card, {"tokens": tokens.to(device)}, 144)
+    t0 = time.perf_counter()
     lg_cpu, st_cpu, _ = M.prefill(cpu, {"tokens": tokens}, 144)
+    cpu_prefill_s = time.perf_counter() - t0
     tok = lg_cpu[:, -1].argmax(-1, keepdim=True)
     d_card, _ = M.decode_step(card, tok.to(device), st_card, pos)
     d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos)
@@ -1019,9 +1063,11 @@ def lm_card_vs_cpu(device) -> dict:
                          max_abs_logit=float(b.abs().max()),
                          argmax_agree=float((a.argmax(-1) == b.argmax(-1))
                                             .float().mean()))
-        print(json.dumps({f"card_vs_cpu_{name}": res[name]}), flush=True)
+        print(json.dumps({f"card_vs_cpu_{name}": res[name], "lm": arch}),
+              flush=True)
         torch.testing.assert_close(a, b, **LOGIT_TOL)
-    return dict(res, layers=2, d_model=cfg.d_model, tokens=list(tokens.shape),
+    return dict(res, lm=arch, layers=2, d_model=cfg.d_model,
+                tokens=list(tokens.shape), cpu_prefill_s=cpu_prefill_s,
                 tol=LOGIT_TOL)
 
 
@@ -1293,6 +1339,114 @@ def replay_vs_eager(graphs, scheds, engine, k=10) -> list:
             raise AssertionError(f"replay launches: {row}")
         rows.append(row)
     return rows
+
+
+@contextlib.contextmanager
+def _sync_debug_error():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the length of a
+    block (any host sync in it raises), the default mode restored after."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _sync_free_run(label, prog, fresh, args, kernels) -> dict:
+    """One warm ``run`` of a cached refine program whose iteration loop (the
+    graph replays and the schedule's chunk reloads) runs under sync-debug
+    "error", then EAGER_STEPS calls of its step function made eagerly on
+    the current stream under the same mode. The loop's launches of each of
+    ``kernels`` must equal its iterations."""
+    import torch
+    from repro_torch.kernels import _build
+
+    if fresh:
+        prog.run(*args)                      # warm-up and capture
+    iters = args[-2].shape[-2]               # the schedule's rows
+
+    def guarded(*a, _loop=prog._iterate, **kw):
+        with _sync_debug_error():
+            return _loop(*a, **kw)
+    prog._iterate = guarded
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    try:
+        pos = prog.run(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: _build.launches[k] for k in kernels}
+        with _sync_debug_error():
+            for _ in range(EAGER_STEPS):
+                prog._iteration()
+    finally:
+        del prog._iterate
+    torch.cuda.synchronize()
+    res = dict(sync_free_refine=label, fresh_entry=fresh, iterations=iters,
+               eager_steps=EAGER_STEPS, launches=launches, wall_s=wall,
+               sync_debug_mode="error")
+    print(json.dumps(res), flush=True)
+    after = prog._bufs["pos"]
+    if not (bool(torch.isfinite(pos).all())
+            and bool(torch.isfinite(after).all())):
+        raise AssertionError(f"phase 4g {label}: non-finite positions")
+    if any(c != iters for c in launches.values()):
+        raise AssertionError(f"phase 4g {label}: launches {launches}, "
+                             f"{iters} iterations")
+    return res
+
+
+MODE_KERNELS = dict(exact=("nbody",), neighbor=("neighbor_force",),
+                    grid=("grid_near", "grid_far"))
+
+
+def sync_free_refine(graphs, scheds) -> list:
+    """Phase 4g: every cached refine step of the layout path under
+    ``torch.cuda.set_sync_debug_mode("error")``, for both engines: the
+    single-graph ``RefineProgram`` at the largest level of each mode of the
+    1M hierarchy, and the batched ``RefineManyProgram`` on two lanes of the
+    smallest level of each mode (each lane its own drawn positions). An
+    entry not in the cache (gila's, which 4b's cold run cleared; every
+    batched one) is captured first, outside the sync-debug mode.
+    Each runs SYNC_ITERS iterations (more than a schedule buffer's ROWS, so
+    a chunk reload falls inside) and EAGER_STEPS eager steps
+    (``_sync_free_run``)."""
+    import dataclasses
+
+    from repro_torch.core import bucketing, gila
+    from repro_torch.core.engine import get_engine
+
+    out = []
+    for engine in ("gila", "stress"):
+        eng = get_engine(engine)
+        for mode in ("exact", "neighbor", "grid"):
+            idx = [i for i, s in enumerate(scheds) if s.mode == mode]
+            for i, many in ((max(idx, key=lambda i: graphs[i].n), False),
+                            (min(idx, key=lambda i: graphs[i].n), True)):
+                g = graphs[i]
+                sched = dataclasses.replace(scheds[i], engine=engine,
+                                            iters=SYNC_ITERS)
+                pos0 = gila.random_init(g, max(g.n, 4) ** 0.5, seed=3000 + i)
+                program = ("RefineManyProgram, 2 lanes" if many
+                           else "RefineProgram")
+                label = f"{engine} {mode} L{i} ({g.n} of {g.n_pad}) {program}"
+                if many:
+                    reqs = [bucketing.make_request(g, p, sched, i) for p in (
+                        pos0, gila.random_init(g, max(g.n, 4) ** 0.5,
+                                               seed=4000 + i))]
+                    nbrs = [eng.init_state(r.g, r.sched, r.seed)
+                            for r in reqs]
+                    _, prog, fresh, args = bucketing.cached_refine_many(
+                        reqs, nbrs, ideal_len=1.0, rep_const=1.0)
+                else:
+                    nbr_idx, nbr_mask = eng.init_state(g, sched, seed=i)
+                    _, prog, fresh, args = bucketing.cached_refine(
+                        g, pos0, sched, nbr_idx, nbr_mask, ideal_len=1.0,
+                        rep_const=1.0)
+                out.append(_sync_free_run(label, prog, fresh, args,
+                                          MODE_KERNELS[mode]))
+    return out
 
 
 def stress_path(edges, n, weights, gila, graphs, scheds) -> dict:
@@ -2675,11 +2829,8 @@ def sync_free_loop(mesh, edges, n, level) -> dict:
     torch.cuda.synchronize()
     start = run.pos.clone()
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with _sync_debug_error():
         run.iterate()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pos = run.gather()
@@ -3041,6 +3192,11 @@ def main(argv=None) -> int:
     for r in rows:              # a random row carries the kernel's totals
         if r["inputs"] == "random":
             r["stress_launches"] = stress["launches"][r["name"]]
+    # 4g. every cached refine step under sync-debug "error"
+    t = time.perf_counter()
+    sync_free_refine(graphs, scheds)
+    print(json.dumps({"sync_free_refine_s": time.perf_counter() - t}),
+          flush=True)
     del graphs
     flat_path(edges, n, wall, main_neld)
     weighted_hierarchy_card_vs_cpu(edges, n, weights)
@@ -3071,19 +3227,33 @@ def main(argv=None) -> int:
     # 5d. the batched driver, card vs CPU
     many_card_vs_cpu()
 
-    # 6. the LM serving path
+    # 6. the LM serving path, one model after another
     del p_card, p_cpu
     torch.cuda.empty_cache()
-    rows += attention_checks(device)
-    lm = lm_main_path(device)
-    for r in rows:
-        if r["name"] == "flash_attention_prefill":
-            r["launches"] = lm["launches"]["prefill"]
-        elif r["name"] == "flash_attention_decode":
-            r["launches"] = lm["launches"]["decode"]
-    print(json.dumps(lm), flush=True)
-    torch.cuda.empty_cache()
-    print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device))), flush=True)
+    lm_secs = {}
+    for arch in LM_ARCHS:
+        secs = lm_secs[arch] = {}
+        t = time.perf_counter()
+        lm_rows = attention_checks(device, arch)
+        secs["6a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        lm = lm_main_path(device, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["6b"] = time.perf_counter() - t
+        for kind in ("prefill", "decode"):
+            for r in lm_rows:
+                if r["name"] == _attn_row_name(kind, arch):
+                    r["launches"] = lm["launches"][kind]
+        rows += lm_rows
+        print(json.dumps(lm), flush=True)
+        t = time.perf_counter()
+        print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device, arch))),
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["6c"] = time.perf_counter() - t
+        print(json.dumps({"lm_seconds": {arch: secs}}), flush=True)
 
     # 7. the batched driver: suites A and B; 3d. the lane kernels on the
     # shapes it launched

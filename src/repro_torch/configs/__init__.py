@@ -1,13 +1,14 @@
 """Config registry: one module per architecture the port runs.
 
 ``get_config(name)`` returns the exact published config; ``get_smoke_config``
-returns the reduced same-family config used by CPU tests. Only the dense
-``internlm2-1.8b`` is registered so far: the other families of the JAX
-package need modules the port does not have yet (ROADMAP.md queue 1).
+returns the reduced same-family config used by CPU tests. The dense
+``internlm2-1.8b``, ``starcoder2-7b`` and ``starcoder2-15b`` are registered;
+the other families of the JAX package need modules the port does not have
+yet (ROADMAP.md queue 1).
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
                                       ShapeCell, SHAPES, get_config,
                                       get_smoke_config, list_archs, pad_to)
 
 # importing the modules populates the registry
-from repro_torch.configs import internlm2_1_8b
+from repro_torch.configs import internlm2_1_8b, starcoder2_7b, starcoder2_15b

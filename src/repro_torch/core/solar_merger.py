@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.graphs.graph import (PaddedGraph, bucket_pad, build_graph,
                                       edge_gather, push_max, segment_max,
-                                      segment_sum)
+                                      segment_sum, to_csr)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.utils import prng
@@ -348,3 +348,58 @@ def next_level_host(g: PaddedGraph, st: MergerState
         depth=t(depth.astype(np.int32)), state=t(state.astype(np.int32)),
         sun_pos_index=t(sun_pos_index))
     return cg, info
+
+
+def centralized_solar_merger(edges: np.ndarray, n: int, seed: int = 0
+                             ) -> tuple[np.ndarray, int]:
+    """Sequential Solar Merger reference (FM³'s greedy, Hachul 2005):
+    visit vertices in random order; an unassigned vertex becomes a sun and
+    absorbs its unassigned ≤2-hop neighborhood (planets then moons).
+    Returns (sun_of[n], n_suns) — used for the Fig.5 level-count baseline.
+    """
+    rng = np.random.default_rng(seed)
+    row_ptr, col = to_csr(edges, n)
+    sun_of = np.full(n, -1, dtype=np.int64)
+    n_suns = 0
+    for v in rng.permutation(n):
+        if sun_of[v] >= 0:
+            continue
+        sun_of[v] = v
+        n_suns += 1
+        planets = [u for u in col[row_ptr[v]:row_ptr[v + 1]]
+                   if sun_of[u] < 0]
+        for u in planets:
+            sun_of[u] = v
+        for u in planets:
+            for w in col[row_ptr[u]:row_ptr[u + 1]]:
+                if sun_of[w] < 0:
+                    sun_of[w] = v
+    return sun_of, n_suns
+
+
+def centralized_levels(edges: np.ndarray, n: int, *, threshold: int = 50,
+                       max_levels: int = 24, seed: int = 0) -> list[int]:
+    """Level sizes produced by iterating the centralized Solar Merger.
+
+    Each level derives its own seed (``seed + 101 * lvl``, mirroring
+    ``build_hierarchy``), so the coarsening decisions of successive levels
+    are not correlated through one visiting permutation.
+    """
+    sizes = [n]
+    cur_edges, cur_n = edges, n
+    for lvl in range(max_levels):
+        if cur_n <= threshold or len(cur_edges) == 0:
+            break
+        sun_of, n_suns = centralized_solar_merger(cur_edges, cur_n,
+                                                  seed + 101 * lvl)
+        if n_suns >= cur_n:
+            break
+        new_idx = np.full(cur_n, -1, dtype=np.int64)
+        suns = np.unique(sun_of)
+        new_idx[suns] = np.arange(len(suns))
+        ce = new_idx[sun_of[cur_edges]]
+        ce = ce[ce[:, 0] != ce[:, 1]]
+        ce = np.unique(np.sort(ce, axis=1), axis=0) if len(ce) else ce
+        cur_edges, cur_n = ce, len(suns)
+        sizes.append(cur_n)
+    return sizes

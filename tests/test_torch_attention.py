@@ -90,6 +90,48 @@ def test_plain_matches_pallas_interpret(B, S, H, KV, hd, causal, dtype):
                                rtol=tol, atol=tol)
 
 
+def _pallas_rows(q, k, v, jdt, causal):
+    """The Pallas kernel in interpret mode on the JAX op's flattened rows,
+    one block over all of Sq and Sk (it takes blocks that divide the
+    sequences). Its causal mask is aligned top-left, so for Sk > Sq the
+    queries are padded in front to Sk rows and the last Sq rows are kept:
+    the bottom-right mask of the port and of the model's cache."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    pad = Sk - Sq if causal and Sk > Sq else 0
+    qp = np.concatenate([np.zeros((B, pad, H, hd), np.float32), q], axis=1)
+    G = H // KV
+    out = flash_attention_pallas(
+        jnp.asarray(_flat(qp, 1), jdt), jnp.asarray(_flat(k, G), jdt),
+        jnp.asarray(_flat(v, G), jdt), causal=causal, block_q=Sq + pad,
+        block_k=Sk, interpret=True)
+    return _jax_rows_to_port(np.asarray(out, np.float32)[:, pad:], B, Sq, H,
+                             hd)
+
+
+# starcoder2's GQA groups: 9 (7b, 36 heads over 4) and 12 (15b, 48 over 4),
+# not powers of two, so the kernel's packed (position, head) rows put
+# several positions in one 16-row MMA tile and start a 128-row tile
+# mid-position. Sq 1 and 5 give the split-KV route's row counts (9 to 60
+# packed rows), Sq 77 and 128 the wgmma route's, with Sk == Sq and Sk > Sq.
+GQA_GROUPS = [(9, 1, 64, "bfloat16"), (18, 2, 128, "float32"),
+              (12, 1, 128, "bfloat16"), (24, 2, 64, "float32")]
+
+
+@pytest.mark.parametrize("H,KV,hd,dtype", GQA_GROUPS)
+@pytest.mark.parametrize("Sq,Sk", [(1, 130), (5, 37), (77, 77), (77, 200),
+                                   (128, 128), (128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_interpret_at_groups_9_and_12(H, KV, hd, dtype,
+                                                           Sq, Sk, causal):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(1, Sq, Sk, H, KV, hd, seed=Sq * Sk + H)
+    q, k, v = (np.asarray(jnp.asarray(a, jdt), np.float32) for a in (q, k, v))
+    ref = _pallas_rows(q, k, v, jdt, causal)
+    out = _port(q, k, v, tdt, causal=causal)
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("Sq,Sk", [(128, 256), (77, 200), (1, 130)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_plain_matches_jax_ref_longer_keys_causal(Sq, Sk, dtype):
@@ -183,7 +225,7 @@ def test_split_decomposition_matches_jax_ref(Sq, Sk, chunk, dtype):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 9, 12])
 def test_route_threshold(G):
     """Sq·G ≤ SPLIT_ROWS packed rows take the split-KV route."""
     at = flash_ops.SPLIT_ROWS // G
@@ -191,10 +233,14 @@ def test_route_threshold(G):
     assert flash_ops.route(at + 1, 2 * G, 2) == "wgmma"
     assert flash_ops.route(1, 16, 8) == "split_kv"          # LM decode
     assert flash_ops.route(2048, 16, 8) == "wgmma"          # LM prefill
+    for H in (36, 48):                                      # starcoder2
+        assert flash_ops.route(1, H, 4) == "split_kv"
+        assert flash_ops.route(2048, H, 4) == "wgmma"
 
 
 @pytest.mark.parametrize("B,KV,Sk,sms", [(4, 8, 2080, 132), (1, 8, 2080, 132),
-                                         (4, 8, 2080, 78), (1, 1, 1, 132),
+                                         (4, 8, 2080, 78), (4, 4, 2088, 132),
+                                         (1, 1, 1, 132),
                                          (1, 1, 0, 132), (8, 32, 32768, 132)])
 def test_split_plan(B, KV, Sk, sms):
     splits, chunk = flash_ops.split_plan(B, KV, Sk, sms)

@@ -534,12 +534,14 @@ def test_flash_kernel_both_sides_of_the_route_threshold(cuda, G, above):
     _flash_case(cuda, 2, Sq, 300, 2 * G, 2, 128, True)
 
 
+@pytest.mark.parametrize("H,KV", [(16, 8), (36, 4), (48, 4)])
 @pytest.mark.parametrize("hd", [64, 128])
-def test_flash_kernel_prefill_shape_on_a_cache_slice(cuda, hd):
-    """The LM path's prefill: Sq = Sk = 2048, 16 heads over 8, k/v a slice
-    cache[:, :2048] of a 2088-row cache."""
-    out = _flash_case(cuda, 2, 2048, 2048, 16, 8, hd, True, cache_len=2088)
-    assert flash_ops.route(2048, 16, 8) == "wgmma"
+def test_flash_kernel_prefill_shape_on_a_cache_slice(cuda, hd, H, KV):
+    """The LM path's prefill: Sq = Sk = 2048, the heads of internlm2-1.8b
+    (16 over 8), starcoder2-7b (36 over 4) and -15b (48 over 4), k/v a
+    slice cache[:, :2048] of a 2088-row cache."""
+    out = _flash_case(cuda, 2, 2048, 2048, H, KV, hd, True, cache_len=2088)
+    assert flash_ops.route(2048, H, KV) == "wgmma"
     assert torch.isfinite(out.float()).all()
 
 
@@ -568,6 +570,24 @@ def test_flash_kernel_fully_masked_rows_give_zero(cuda, Sq, Sk, G):
     for 36 packed rows, wgmma for 160 and 300)."""
     out = _flash_case(cuda, 2, Sq, Sk, 2 * G, 2, 128, True)
     assert (out[:, :Sq - Sk] == 0).all()
+
+
+# starcoder2's GQA groups, 9 (36 heads over 4) and 12 (48 over 4), and
+# multiples of them: a 16-row MMA tile holds rows of several positions, a
+# 128-row wgmma tile starts mid-position, and the split route's tile has
+# 16 − 9 or 16 − 12 dead rows at Sq 1
+GQA_GROUPS = [(9, 1, 64), (18, 2, 128), (12, 1, 128), (36, 4, 128),
+              (48, 4, 128), (24, 2, 64)]
+
+
+@pytest.mark.parametrize("H,KV,hd", GQA_GROUPS)
+@pytest.mark.parametrize("Sq,Sk", [(1, 130), (5, 300), (77, 77), (77, 200),
+                                   (128, 128), (128, 1000), (301, 301)])
+def test_flash_kernel_at_groups_9_and_12(cuda, H, KV, hd, Sq, Sk):
+    """Both routes (Sq·G ≤ 64: split-KV; above: wgmma), causal on a longer
+    cache's slice and not causal."""
+    _flash_case(cuda, 3, Sq, Sk, H, KV, hd, True, cache_len=Sk + 24)
+    _flash_case(cuda, 2, Sq, Sk, H, KV, hd, False)
 
 
 def test_flash_kernel_decode_shape_spreads_over_the_card(cuda):
@@ -623,15 +643,18 @@ def test_force_kernels_device_constants_equal_host_constants(cuda):
         assert torch.equal(host, dev), name
 
 
-@pytest.mark.parametrize("kv_len", [1, 17, 2080])
-def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len):
+@pytest.mark.parametrize("H,KV", [(16, 8), (36, 4), (48, 4)])
+@pytest.mark.parametrize("kv_len", [1, 17, 2049, 2080])
+def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len, H, KV):
     """The split-KV route over a 2088-row cache with ``kv_len`` an int32 on
     the device (the splits planned from the capacity) against the plain
-    version, within phase 6a's tolerance for the output's size: rtol 1e-2
-    and atol 2e-3 where a row averages 2080 values (|out| ~0.04), atol
-    1e-2 where it averages 1 or 17 (|out| up to ~1, a bf16 ulp ~0.004)."""
+    version, at the decode heads of internlm2-1.8b (16 over 8: 2 packed
+    rows), starcoder2-7b (36 over 4: 9) and -15b (48 over 4: 12), within
+    phase 6a's tolerance for the output's size: rtol 1e-2 and atol 2e-3
+    where a row averages 2049 or 2080 values (|out| ~0.04), atol 1e-2
+    where it averages 1 or 17 (|out| up to ~1, a bf16 ulp ~0.004)."""
     tol = dict(rtol=1e-2, atol=2e-3 if kv_len > 1024 else 1e-2)
-    q, ck, cv = _attn_inputs(4, 1, 2088, 16, 8, 128, kv_len, cuda)
+    q, ck, cv = _attn_inputs(4, 1, 2088, H, KV, 128, kv_len, cuda)
     n = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
     out = _launched("flash_attention", lambda: flash_attention(
         q, ck, cv, causal=True, kv_len=n))
@@ -643,7 +666,7 @@ def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len):
         flash_attention_ref(q, ck, cv, causal=True, kv_len=n).float(),
         ref.float(), **tol)
     with pytest.raises(ValueError, match="split-KV route only"):
-        flash_attention(q.expand(4, 128, 16, 128).contiguous(), ck, cv,
+        flash_attention(q.expand(4, 128, H, 128).contiguous(), ck, cv,
                         kv_len=n)
 
 

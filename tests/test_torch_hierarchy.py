@@ -119,3 +119,30 @@ def test_placer_matches_jax(seed):
     # suns sit exactly on their coarse position
     suns = np.asarray(info.sun_pos_index)
     np.testing.assert_array_equal(pt[suns], coarse[:g1.n])
+
+
+CENTRALIZED = [
+    pytest.param(*G.delaunay(1500, 2), id="delaunay_1500"),
+    pytest.param(*G.grid(30, 30), id="grid_30_30"),
+    pytest.param(*_pruned(*G.tree(5, 5))[:2], id="tree_5_5_pruned"),
+]
+
+
+@pytest.mark.parametrize("edges,n", CENTRALIZED)
+@pytest.mark.parametrize("seed", [0, 7])
+def test_centralized_merger_equals_jax(edges, n, seed):
+    """FM³'s sequential merger (the Fig. 5 baseline): ``sun_of`` and
+    ``n_suns`` of one level, and the level sizes of the whole iteration
+    (its per-level seeds ``seed + 101·lvl``), equal to JAX's."""
+    sun_j, k_j = jax_merger.centralized_solar_merger(edges, n, seed)
+    sun_t, k_t = solar_merger.centralized_solar_merger(edges, n, seed)
+    assert k_t == k_j and sun_t.dtype == sun_j.dtype
+    np.testing.assert_array_equal(sun_t, sun_j)
+    assert 1 < k_t < n
+    lv_j = jax_merger.centralized_levels(edges, n, seed=seed)
+    lv_t = solar_merger.centralized_levels(edges, n, seed=seed)
+    assert lv_t == lv_j and len(lv_t) >= 2
+    assert (solar_merger.centralized_levels(edges, n, threshold=200,
+                                            seed=seed)
+            == jax_merger.centralized_levels(edges, n, threshold=200,
+                                             seed=seed))

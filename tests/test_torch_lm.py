@@ -1,7 +1,9 @@
 """The port's dense LM against the JAX package on the CPU.
 
-The JAX package's ``init_params`` weights for the internlm2-1.8b smoke
-config (2 layers, d_model 64, 4 heads over 2 KV heads) are carried across
+For each registered dense model — internlm2-1.8b (RMSNorm, SwiGLU) and
+starcoder2-7b and -15b (LayerNorm with its bias, the tanh GELU MLP) — the
+JAX package's ``init_params`` weights for its smoke config (2 layers,
+d_model 64 or 72, 4 heads over 2 KV heads or 6 over 2) are carried across
 with ``repro_torch.convert.lm_params``; then ``forward``, ``prefill`` (one
 chunk and two), and four greedy ``decode_step``s of both packages run on the
 same numpy-seeded tokens. Attention goes through the flash-attention
@@ -43,16 +45,19 @@ from repro_torch.configs import (SHAPES, ArchConfig, MoEConfig, SSMConfig,
 from repro_torch.models import model as M
 
 ARCH = "internlm2-1.8b"
+ARCHS = ("internlm2-1.8b", "starcoder2-7b", "starcoder2-15b")
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=0.02, atol=0.1)}
 B, S, CACHE = 2, 64, 80
 
 
-@pytest.fixture(scope="module")
-def jax_params():
-    cfg = jax_get_smoke_config(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def jax_params(request):
+    """(arch, JAX smoke cfg, JAX params, the params as numpy), one case a
+    registered dense model."""
+    cfg = jax_get_smoke_config(request.param)
     params = jax_model.init_params(cfg, jax.random.PRNGKey(0))
-    return cfg, params, jax.tree.map(np.asarray, params)
+    return request.param, cfg, params, jax.tree.map(np.asarray, params)
 
 
 @pytest.fixture(params=sorted(TOL))
@@ -63,8 +68,8 @@ def pair(request, jax_params, monkeypatch):
     jdt = jnp.float32 if name == "float32" else jnp.bfloat16
     monkeypatch.setattr(jax_layers, "ACT_DTYPE", jdt)
     monkeypatch.setattr(jax_model, "ACT", jdt)
-    cfg, params, np_params = jax_params
-    model = convert.lm_params(np_params, get_smoke_config(ARCH),
+    arch, cfg, params, np_params = jax_params
+    model = convert.lm_params(np_params, get_smoke_config(arch),
                               device="cpu", dtype=getattr(torch, name))
     return cfg, params, model, TOL[name]
 
@@ -92,12 +97,14 @@ def _caches(jax_state, port_state):
 
 
 def test_configs_match_jax():
+    assert set(ARCHS) <= set(list_archs())
     for arch in list_archs():
         assert (dataclasses.asdict(get_config(arch))
                 == dataclasses.asdict(jax_get_config(arch)))
         assert (dataclasses.asdict(get_smoke_config(arch))
                 == dataclasses.asdict(jax_get_smoke_config(arch)))
-    assert get_config(ARCH).param_count() == jax_get_config(ARCH).param_count()
+        assert (get_config(arch).param_count()
+                == jax_get_config(arch).param_count())
     assert ({k: dataclasses.asdict(v) for k, v in SHAPES.items()}
             == {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()})
 
@@ -162,16 +169,17 @@ def test_greedy_decode_matches_jax(pair):
         np.testing.assert_allclose(kp, kj, **tol)
 
 
-def _port_bf16_model(seed):
-    return M.init_params(get_smoke_config(ARCH), seed=seed, device="cpu")
+def _port_bf16_model(arch, seed):
+    return M.init_params(get_smoke_config(arch), seed=seed, device="cpu")
 
 
-def test_prefill_decode_matches_forward():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_forward(arch):
     """The port's own counterpart of the JAX package's
     ``test_prefill_decode_matches_forward``: greedy next-token from (prefill
     S−1 → decode 1) equals the next-token from the full forward, in bf16,
     at that test's tolerance (rtol 0.1, atol 0.25)."""
-    model = _port_bf16_model(1)
+    model = _port_bf16_model(arch, 1)
     tokens = torch.from_numpy(_tokens(3)).long()
     logits_full, _ = M.forward(model, {"tokens": tokens})
     lg, state, pos = M.prefill(model, {"tokens": tokens[:, :S - 1]},
@@ -182,10 +190,11 @@ def test_prefill_decode_matches_forward():
     np.testing.assert_allclose(a, b, rtol=0.1, atol=0.25)
 
 
-def test_chunked_prefill_matches_single_shot():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_chunked_prefill_matches_single_shot(arch):
     """Counterpart of the JAX package's
     ``test_chunked_prefill_matches_single_shot``, at its tolerance."""
-    model = _port_bf16_model(0)
+    model = _port_bf16_model(arch, 0)
     batch = {"tokens": torch.from_numpy(_tokens(0)).long()}
     l1, _, _ = M.prefill(model, batch, cache_len=80, chunks=1)
     l2, _, _ = M.prefill(model, batch, cache_len=80, chunks=2)
@@ -197,10 +206,10 @@ def test_chunked_prefill_matches_single_shot():
 def test_init_params_shapes_and_scales_match_jax(jax_params):
     """The port's own random weights have JAX's shapes and scales (std
     within 10% of JAX's for each weight; the bits differ by design)."""
-    _, _, np_params = jax_params
-    ref = convert.lm_params(np_params, get_smoke_config(ARCH), device="cpu",
+    arch, _, _, np_params = jax_params
+    ref = convert.lm_params(np_params, get_smoke_config(arch), device="cpu",
                             dtype=torch.float32)
-    own = M.init_params(get_smoke_config(ARCH), seed=0, device="cpu",
+    own = M.init_params(get_smoke_config(arch), seed=0, device="cpu",
                         dtype=torch.float32)
     mine = dict(own.named_parameters())
     for name, p in ref.named_parameters():
@@ -276,3 +285,31 @@ def test_rope_and_tied_head_match_jax():
     out = L.apply_lm_head({"tok": torch.tensor(tok)}, None, torch.tensor(h),
                           tie=True)
     np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_with_drawn_norms_matches_jax(arch, monkeypatch):
+    """Every norm's scale (and LayerNorm's bias) drawn away from JAX's 1 and
+    0 before ``convert.lm_params`` carries the weights across: the port's
+    float32 forward still equals JAX's within the float32 tolerance, so
+    each scale and bias reaches the layer that reads it."""
+    monkeypatch.setattr(jax_layers, "ACT_DTYPE", jnp.float32)
+    monkeypatch.setattr(jax_model, "ACT", jnp.float32)
+    cfg = jax_get_smoke_config(arch)
+    params = jax.tree.map(np.asarray, jax_model.init_params(
+        cfg, jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(14)
+    norms = [params["final_norm"]] + [params["groups"][0][k]
+                                      for k in ("norm1", "norm2")]
+    for norm in norms:
+        for name, a in norm.items():
+            base = 1.0 if name == "scale" else 0.0
+            norm[name] = (base + 0.3 * rng.standard_normal(a.shape)
+                          ).astype(np.float32)
+    assert ("bias" in norms[0]) == (cfg.norm == "layernorm")
+    model = convert.lm_params(params, get_smoke_config(arch), device="cpu",
+                              dtype=torch.float32)
+    jb, tb = _batch(_tokens(4))
+    lj, _ = jax_model.forward(jax.tree.map(jnp.asarray, params), cfg, jb)
+    lp, _ = M.forward(model, tb)
+    np.testing.assert_allclose(_np(lp), _np(lj), **TOL["float32"])
