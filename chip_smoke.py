@@ -111,12 +111,19 @@ of them passed):
   6. the LM serving path, for each of LM_ARCHS in turn at its published
      width and depth in bf16, weights drawn from a seed on the card and
      freed before the next model's: internlm2-1.8b (24 layers, 16 heads
-     over 8 KV heads), starcoder2-7b (32 layers, 36 over 4: GQA group 9)
-     and starcoder2-15b (40 layers, 48 over 4: group 12);
+     over 8 KV heads), starcoder2-7b (32 layers, 36 over 4: GQA group 9),
+     starcoder2-15b (40 layers, 48 over 4: group 12), gemma-2b (18 layers,
+     8 heads over 1 at hd 256: MQA, GeGLU, a tied head over 256000 tokens),
+     granite-moe-3b-a800m (32 layers, 24 over 8 at hd 64: group 3; 40
+     experts top-8) and deepseek-moe-16b (28 layers, 16 over 16: MHA; a
+     dense layer 0 of width 10944, then 64 experts top-6 and 2 shared
+     experts), the last at a named depth cut in 6b (LM_DEPTH: its dense
+     layer 0 and 7 of its 27 MoE layers, at full width), so that the
+     script keeps inside its time limit on a slow host;
      a. the flash-attention kernel against its plain version at the path's
-        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, hd 128,
-        causal; k/v = cache[:, :2048] of a 2088-row cache: the wgmma
-        route) and decode (Sq 1 against the whole 2088-row cache with
+        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, the
+        model's hd, causal; k/v = cache[:, :2048] of a 2088-row cache:
+        the wgmma route) and decode (Sq 1 against the whole 2088-row cache with
         ``kv_len`` an int32 on the device, as ``decode_step`` calls it,
         checked at kv_len 2049, 2065 and 2080 and timed at 2080, rotating
         over caches of DECODE_KV_BYTES together, twice the L2: the
@@ -136,7 +143,14 @@ of them passed):
         (device busy share);
      c. a 2-layer model at full width, the same weights on the card and on
         the CPU (plain attention there): prefill's last-token logits and the
-        first decode step's agree within LOGIT_TOL;
+        first decode step's agree within LOGIT_TOL; for an MoE model (2
+        layers: granite's two MoE layers, deepseek's dense layer 0 and one
+        MoE layer) each MoE layer's expert choices, card against CPU, are
+        equal on every token whose CPU margin between the k-th and (k+1)-th
+        router probability is at least ROUTE_MARGIN; at most one of the two
+        sequences may be left out of the LOGIT_TOL check, and only for a
+        flip below that margin at its own last token (the flips are
+        counted and printed);
      each model's 6a/6b/6c seconds are printed (``lm_seconds``);
   7. the batched driver, ``multigila_layout_many``, at the size a layout
      service's tenants submit: suite A, SUITE_A graphs
@@ -292,15 +306,24 @@ SUITE_A = (32, 5_000, 100)
 SUITE_B = (8, 50_000, 200)
 LANES_5D = 8                          # suite A's first graphs, card vs CPU
 # the LM serving path's models, in turn: internlm2-1.8b (GQA group 2),
-# starcoder2-7b (36 heads over 4 KV heads: group 9) and starcoder2-15b (48
-# over 4: group 12), each at its published width and depth
+# starcoder2-7b (36 heads over 4 KV heads: group 9), starcoder2-15b (48
+# over 4: group 12), gemma-2b (8 over 1 at hd 256: group 8),
+# granite-moe-3b-a800m (24 over 8 at hd 64: group 3) and deepseek-moe-16b
+# (16 over 16: group 1), each at its published width and depth
 LM_ARCH = "internlm2-1.8b"
-LM_ARCHS = (LM_ARCH, "starcoder2-7b", "starcoder2-15b")
+LM_ARCHS = (LM_ARCH, "starcoder2-7b", "starcoder2-15b", "gemma-2b",
+            "granite-moe-3b-a800m", "deepseek-moe-16b")
+# phase 6b's depth cuts: deepseek-moe-16b runs its dense layer 0 and 7 MoE
+# layers (of 27) at full width. A whole run of the script at full depth took
+# 1199 s of its 1200 on a slow host of an NVIDIA H100 80GB HBM3 (700 W),
+# most of it in the layout phases' host work (5d's CPU side 148 s, 8c 68 s)
+LM_DEPTH = {"deepseek-moe-16b": 8}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
 # decode rotates over as many caches as give this many bytes of k and v
 # together, twice the 50 MB L2: 3 for internlm2 (34 MB a cache), 6 for
-# starcoder2 (17 MB: KV 4)
+# starcoder2 and granite (17 MB: KV 4 at hd 128, KV 8 at hd 64), 12 for
+# gemma (8.6 MB: KV 1 at hd 256), 2 for deepseek (68 MB: KV 16)
 DECODE_KV_BYTES = 100e6
 # decode's device kv_len at phase 6a's checks: the path's first and last
 # (2049 reads one key of the last split chunk) and one between; it is timed
@@ -318,6 +341,13 @@ ATTN_TOL = dict(flash_attention_prefill=dict(rtol=1e-2, atol=1e-2),
 # kernel's p rounding, and bf16 activations between layers; a logit near 4
 # has a bf16 ulp of 0.016
 LOGIT_TOL = dict(rtol=0.02, atol=0.1)
+# phase 6c, MoE models: the card's expert choices equal the CPU's on every
+# token whose CPU router margin (k-th minus (k+1)-th probability) is at
+# least this. The card and the CPU round the bf16 activations at other
+# points, which moves a router input by ~2^-8 relative: a router logit of
+# ~1 by ~0.004, a probability of ~1/E by ~1e-4, so a flip needs a margin
+# ten times smaller than this
+ROUTE_MARGIN = 1e-3
 # phase 4g: iterations of each cached refine program under sync-debug
 # "error" (more than a schedule buffer's 128 rows, so a chunk reload falls
 # inside), then eager calls of its step
@@ -903,7 +933,8 @@ def attention_checks(device, arch: str = LM_ARCH) -> list:
 
 
 def lm_main_path(device, arch: str = LM_ARCH) -> dict:
-    """Phase 6b: ``arch`` at full width and depth, bf16: prefill of a
+    """Phase 6b: ``arch`` at full width and depth (or LM_DEPTH's cut of
+    it), bf16: prefill of a
     LM_BATCH × LM_PROMPT prompt, then LM_NEW greedy steps of the captured
     decode (``compile_decode``) beside LM_NEW eager ``decode_step``s, with
     the flash launches of each counted from 0. The captured decode runs
@@ -915,7 +946,9 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.models import model as M
 
+    import dataclasses
     cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH.get(arch, cfg.n_layers))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.init_params(cfg, seed=0, device=device)
@@ -1005,7 +1038,8 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     prof_decode = profile_run(decode8)
     prof_graph = profile_run(graph8)
     res = dict(
-        lm=arch, params=cfg.param_count(), dtype="bfloat16",
+        lm=arch, layers=cfg.n_layers, params=cfg.param_count(),
+        dtype="bfloat16",
         batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
         cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
         prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
@@ -1029,11 +1063,65 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     return res
 
 
+class RouteRecorder:
+    """Within ``with``: every MoE layer call's router output (probs and
+    expert indices, copied to the CPU) appended to ``calls``, by wrapping
+    ``repro_torch.models.moe.route``, which ``apply_moe`` calls."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.calls, self._moe, self._route = [], MOE, MOE.route
+
+        def route(p, x, m):
+            out = self._route(p, x, m)
+            self.calls.append((out[0].float().cpu(), out[2].cpu()))
+            return out
+        MOE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def _route_flips(card_calls, cpu_calls, k: int, positions, first) -> list:
+    """[(call, sequence, position, CPU margin)] of every token whose set of
+    top-k experts differs between the card's and the CPU's run of the same
+    MoE calls, the tokens of call c at positions ``positions[c]``. A flip
+    changes the value of its token from that layer on, and through
+    attention those of the later positions: ``first`` (one entry a
+    sequence, updated in place) holds each sequence's first flipped
+    position, and a flip at or past it in a later call follows from it.
+    Raises where a token before it flips at a CPU margin of ROUTE_MARGIN or
+    more."""
+    flips = []
+    for c, ((_, e_card), (p_cpu, e_cpu)) in enumerate(zip(card_calls,
+                                                          cpu_calls)):
+        srt = p_cpu.sort(dim=-1, descending=True).values
+        margin = srt[..., k - 1] - srt[..., k]
+        differ = (e_card.sort(-1).values != e_cpu.sort(-1).values).any(-1)
+        new = dict(first)
+        for b, s in differ.nonzero().tolist():
+            pos = positions[c] + s
+            if pos < first[b] and float(margin[b, s]) >= ROUTE_MARGIN:
+                raise AssertionError(
+                    f"card vs CPU: MoE call {c}, sequence {b}, position "
+                    f"{pos}: experts {e_card[b, s].tolist()} against "
+                    f"{e_cpu[b, s].tolist()} at a margin of "
+                    f"{float(margin[b, s])}")
+            flips.append((c, b, pos, float(margin[b, s])))
+            new[b] = min(new[b], pos)
+        first.update(new)
+    return flips
+
+
 def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
     """Phase 6c: a 2-layer ``arch`` at full width, the same bf16 weights on
     the card and on the CPU: prefill's last-token logits and the first
     decode step's logits agree within LOGIT_TOL (2 × 130 tokens; the CPU
-    side's seconds printed)."""
+    side's seconds printed). For an MoE model each MoE layer's expert
+    choices agree (``_route_flips``); a sequence whose own last token
+    flipped (at prefill's last position or at the decode step) is left out
+    of the LOGIT_TOL check, at most one of the two."""
     import dataclasses
 
     import numpy as np
@@ -1047,25 +1135,56 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
     cpu.load_state_dict(card.state_dict())
     rng = np.random.default_rng(1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
+    S = tokens.shape[1]
     res = {}
-    lg_card, st_card, pos = M.prefill(card, {"tokens": tokens.to(device)}, 144)
+    with RouteRecorder() as r_card:
+        lg_card, st_card, pos = M.prefill(card, {"tokens": tokens.to(device)},
+                                          144)
     t0 = time.perf_counter()
-    lg_cpu, st_cpu, _ = M.prefill(cpu, {"tokens": tokens}, 144)
+    with RouteRecorder() as r_cpu:
+        lg_cpu, st_cpu, _ = M.prefill(cpu, {"tokens": tokens}, 144)
     cpu_prefill_s = time.perf_counter() - t0
     tok = lg_cpu[:, -1].argmax(-1, keepdim=True)
-    d_card, _ = M.decode_step(card, tok.to(device), st_card, pos)
-    d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos)
+    with RouteRecorder() as d_r_card:
+        d_card, _ = M.decode_step(card, tok.to(device), st_card, pos)
+    with RouteRecorder() as d_r_cpu:
+        d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos)
+    left_out, flips = set(), []
+    if cfg.moe is not None:
+        k, first = cfg.moe.top_k, {0: S + 1, 1: S + 1}
+        flips = _route_flips(r_card.calls, r_cpu.calls, k,
+                             [0] * len(r_card.calls), first)
+        d_flips = _route_flips(d_r_card.calls, d_r_cpu.calls, k,
+                               [S] * len(d_r_card.calls), first)
+        # a sequence whose own last token flipped, at prefill's last
+        # position or at the decode step
+        left_out = {b for _, b, s, _ in flips + d_flips if s >= S - 1}
+        flips += d_flips
+        res["routing"] = dict(moe_calls=len(r_card.calls)
+                              + len(d_r_card.calls),
+                              tokens_routed=(len(r_card.calls) * 2 * S
+                                             + len(d_r_card.calls) * 2),
+                              flips=len(flips), flipped=flips,
+                              left_out=sorted(left_out),
+                              margin=ROUTE_MARGIN)
+        print(json.dumps({"card_vs_cpu_routing": res["routing"], "lm": arch}),
+              flush=True)
+        if len(left_out) > 1:
+            raise AssertionError(f"card vs CPU: both sequences' last tokens "
+                                 f"flipped: {flips}")
+    keep = [b for b in range(2) if b not in left_out]
     for name, a, b in (("prefill", lg_card, lg_cpu), ("decode", d_card, d_cpu)):
         a, b = a.float().cpu(), b.float()
         if not torch.isfinite(a).all():
             raise AssertionError(f"card vs CPU {name}: non-finite logits")
-        res[name] = dict(max_abs_err=float((a - b).abs().max()),
+        res[name] = dict(max_abs_err=float((a - b)[keep].abs().max()),
                          max_abs_logit=float(b.abs().max()),
                          argmax_agree=float((a.argmax(-1) == b.argmax(-1))
-                                            .float().mean()))
+                                            .float().mean()),
+                         sequences_checked=keep)
         print(json.dumps({f"card_vs_cpu_{name}": res[name], "lm": arch}),
               flush=True)
-        torch.testing.assert_close(a, b, **LOGIT_TOL)
+        torch.testing.assert_close(a[keep], b[keep], **LOGIT_TOL)
     return dict(res, lm=arch, layers=2, d_model=cfg.d_model,
                 tokens=list(tokens.shape), cpu_prefill_s=cpu_prefill_s,
                 tol=LOGIT_TOL)

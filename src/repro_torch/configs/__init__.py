@@ -1,14 +1,18 @@
 """Config registry: one module per architecture the port runs.
 
 ``get_config(name)`` returns the exact published config; ``get_smoke_config``
-returns the reduced same-family config used by CPU tests. The dense
-``internlm2-1.8b``, ``starcoder2-7b`` and ``starcoder2-15b`` are registered;
-the other families of the JAX package need modules the port does not have
-yet (ROADMAP.md queue 1).
+returns the reduced same-family config used by CPU tests. Registered: the
+dense ``internlm2-1.8b``, ``starcoder2-7b``, ``starcoder2-15b`` and
+``gemma-2b``, and the mixture-of-experts ``granite-moe-3b-a800m`` and
+``deepseek-moe-16b``; the other families of the JAX package (SSM, hybrid,
+encoder-decoder, VLM) need modules the port does not have yet (ROADMAP.md
+queue 1).
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
                                       ShapeCell, SHAPES, get_config,
                                       get_smoke_config, list_archs, pad_to)
 
 # importing the modules populates the registry
-from repro_torch.configs import internlm2_1_8b, starcoder2_7b, starcoder2_15b
+from repro_torch.configs import (deepseek_moe_16b, gemma_2b,
+                                 granite_moe_3b_a800m, internlm2_1_8b,
+                                 starcoder2_7b, starcoder2_15b)

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.solar_merger import LevelInfo, MergerState
 from repro_torch.graphs.graph import PaddedGraph
 from repro_torch.models.model import LM
+from repro_torch.models.moe import MoE
 from repro_torch.utils.device import resolve_device
 
 
@@ -55,24 +56,51 @@ def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
 
     ``params`` is that pytree with numpy leaves; its layer weights are
     stacked ``[G, ...]`` under ``params["groups"][0]`` (one entry per
-    position of the layer pattern, which for the dense family is one).
-    Matmul weights are cast once to ``dtype``, as JAX casts them at use;
-    norm scales stay float32.
+    position of the layer pattern, which for the dense and MoE families is
+    one). DeepSeekMoE's dense layer 0 sits unstacked in
+    ``params["prefix"][0]``, and the stacked groups then map to layers
+    1, 2, …. An MoE layer's ``moe`` carries the router (kept float32), the
+    experts' weights and, with shared experts, ``moe["shared"]``. Matmul
+    weights are cast once to ``dtype``, as JAX casts them at use; norm
+    scales stay float32.
     """
     model = LM(cfg, dtype=dtype, device=device)
-
-    def put(dst: dict, src: dict):
-        for name, p in dst.items():
-            p.copy_(torch.from_numpy(np.array(src[name], np.float32)))
-
-    put(model.embed, params["embed"])
-    put(model.final_norm, params["final_norm"])
+    _put(model.embed, params["embed"])
+    _put(model.final_norm, params["final_norm"])
     if model.lm_head is not None:
-        put(model.lm_head, params["lm_head"])
+        _put(model.lm_head, params["lm_head"])
     groups = params["groups"][0]
-    for i, layer in enumerate(model.layers):
-        for part in ("norm1", "attn", "norm2", "mlp"):
+    per_layer = list(params.get("prefix", [])) + [
+        _take(groups, i) for i in range(len(groups["norm1"]["scale"]))]
+    for layer, p in zip(model.layers, per_layer, strict=True):
+        for part in ("norm1", "attn", "norm2", "mlp", "moe"):
             if getattr(layer, part) is not None:
-                put(getattr(layer, part),
-                    {k: a[i] for k, a in groups[part].items()})
+                _put(getattr(layer, part), p[part])
     return model
+
+
+def moe_params(p, m, d_model: int, *, device=None,
+               dtype=torch.bfloat16) -> MoE:
+    """An ``MoE`` layer holding the JAX package's ``init_moe`` weights
+    ``p`` (numpy leaves; the router stays float32)."""
+    layer = MoE(d_model, m, dtype, resolve_device(device))
+    _put(layer, p)
+    return layer
+
+
+def _put(dst, src: dict) -> None:
+    """Copy each parameter of the module ``dst`` from the (nested) dict
+    ``src`` of numpy arrays, at the parameter's dotted name, into its
+    dtype."""
+    for name, p in dst.named_parameters():
+        node = src
+        for part in name.split("."):
+            node = node[part]
+        p.copy_(torch.from_numpy(np.array(node, np.float32)))
+
+
+def _take(tree, i):
+    """Entry ``i`` of every leaf of a stacked (nested) dict."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i]

@@ -11,8 +11,8 @@
 // with scores and softmax in float32, p rounded to bf16 for the p·v product,
 // and, when causal, the mask aligned bottom-right: row i sits at absolute
 // position Sk − Sq + i and sees keys 0 … Sk − Sq + i. A row that sees no key
-// is written 0. Any Sq and Sk work; hd is 64 or 128. The k/v batch strides
-// are arguments, so cache[:, :kv_len] is read where it lies.
+// is written 0. Any Sq and Sk work; hd is 64, 128 or 256. The k/v batch
+// strides are arguments, so cache[:, :kv_len] is read where it lies.
 //
 // The G = H/KV query heads that share a KV head are packed into the rows of
 // one tile (row r = position r / G, head r % G), so each K/V tile is read
@@ -24,11 +24,12 @@
 //    at the LM path's prefill. A persistent grid, one block an SM, walks
 //    query tiles of 128 packed rows of one (batch, KV head), the heaviest
 //    causal tiles first. A block is three warpgroups: a producer whose
-//    single thread keeps K/V tiles of FA_BK keys in flight by TMA (128-byte
+//    single thread keeps K/V tiles of BK keys in flight by TMA (128-byte
 //    swizzle) into a ring of FA_STAGES shared-memory stages, with
 //    full/empty mbarriers, running on across query tiles; and two consumer
 //    warpgroups of 64 rows each, which load the q rows of their next tile
-//    while they work on this one. setmaxnreg moves registers from the
+//    while they work on this one (FaPlan: not at hd 256, whose shared
+//    memory holds one q buffer). setmaxnreg moves registers from the
 //    producer to the consumers. S = Q·Kᵀ is wgmma with Q and K from shared
 //    memory (both K-major); O += P·V is wgmma with P as the register operand
 //    (the S accumulators, rounded to bf16) and V from shared memory
@@ -41,12 +42,14 @@
 // 2. split-KV (decode; flash-decoding): bound by bytes — a decode step reads
 //    the whole cache for a few flops a byte. Sq·G ≤ 64 rows use at most 4
 //    tiles of 16, so the keys of each (batch, KV head) are split into chunks
-//    of 64 or 128 keys (ops.split_plan), one block each, to put hundreds of
-//    blocks on the 132 SMs. A block loads its chunk once with cp.async
-//    (16-byte copies), computes S and P·V with mma.sync (the four warps
-//    split the keys for S and the head dim for P·V, the chunk's softmax
-//    shared through shared memory), and writes its unnormalised float32 o
-//    with the chunk's max and sum to a scratch buffer. The last block of each
+//    of 64 or 128 keys (64 only at hd 256: ops.split_plan), one block each,
+//    to put hundreds of blocks on the 132 SMs. A block loads its chunk once
+//    with cp.async (16-byte copies), computes S and P·V with mma.sync (the
+//    four warps split the keys for S and the head dim for P·V, the chunk's
+//    softmax shared through shared memory), and writes its unnormalised
+//    float32 o with the chunk's max and sum to a scratch buffer. At hd 256 a
+//    warp's P·V takes 64 columns (32 fp32 accumulators a thread, one row
+//    tile at a time). The last block of each
 //    (batch, KV head) to finish, found by an atomic ticket, merges the
 //    chunks by the log-sum-exp rule and writes bf16. Given a kv_len pointer
 //    (an int32 on the device, as a captured decode step keeps it), the
@@ -70,25 +73,40 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Route 1: warp-specialised wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int FA_BK = 128;      // keys per K/V tile
 constexpr int FA_STAGES = 2;    // K/V tiles in flight
 constexpr int FA_CONSUMERS = 2; // consumer warpgroups, 64 rows each
 constexpr int FA_ROWS = 64 * FA_CONSUMERS;
 constexpr int FA_THREADS = 128 * (FA_CONSUMERS + 1);
 
+// The plan of each head dim. hd 64 and 128: K/V tiles of 128 keys and q
+// double-buffered. At hd 256 that plan needs 2 stages × (K + V) × 128 keys
+// × 512 B = 256 KB plus 2 × 64 KB of q, past the 227 KB a block may use,
+// and a consumer thread would hold O's 128 fp32 accumulators beside S's 64
+// and P's 32 registers, past the 232 that setmaxnreg gives it. So hd 256
+// takes 64-key tiles (S 32 registers, P 16) in the same 2 stages (128 KB)
+// and one q buffer (64 KB), which stages the output after the tile's last
+// S and takes the next tile's q after that: 192 KB. O's columns go in
+// wgmmas of at most 128 (the m64n128 form), so hd 256 issues two a step.
+template <int HD>
+struct FaPlan {
+  static constexpr int BK = HD == 256 ? 64 : 128;   // keys per K/V tile
+  static constexpr int QBUF = HD == 256 ? 1 : 2;    // q buffers
+  static constexpr int ON = HD < 128 ? HD : 128;    // O columns a P·V wgmma
+};
+
 // Shared memory, every tile 1024-byte aligned (128-byte swizzle atoms). A
-// tile with hd 128 is two 64-column halves, each its own [rows][64] block.
-// q is double-buffered: a warpgroup's rows of its next query tile load
-// while it works on this one, and the buffer of a finished tile stages its
-// output. K and V stages are filled and freed apart: a
+// tile with hd 128 or 256 is two or four 64-column halves, each its own
+// [rows][64] block. With two q buffers, a warpgroup's rows of its next
+// query tile load while it works on this one; the buffer of a finished
+// tile stages its output. K and V stages are filled and freed apart: a
 // K tile is free once its S is computed, a V tile only after the P·V one
 // tile later.
 template <int HD>
 struct FaSmem {
-  static constexpr int HALVES = HD / 64;
-  bf16 q[2][FA_CONSUMERS][HALVES][64 * 64];
-  bf16 k[FA_STAGES][HALVES][FA_BK * 64];
-  bf16 v[FA_STAGES][HALVES][FA_BK * 64];
+  static constexpr int HALVES = HD / 64, BK = FaPlan<HD>::BK;
+  bf16 q[FaPlan<HD>::QBUF][FA_CONSUMERS][HALVES][64 * 64];
+  bf16 k[FA_STAGES][HALVES][BK * 64];
+  bf16 v[FA_STAGES][HALVES][BK * 64];
   uint64_t full_k[FA_STAGES], full_v[FA_STAGES];
   uint64_t empty_k[FA_STAGES], empty_v[FA_STAGES];
 };
@@ -121,8 +139,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                 const bf16* __restrict__ q, bf16* __restrict__ out, int B,
                 int Sq, int Sk, int H, int KV, float scale_log2, int causal) {
   using namespace fa;
-  constexpr int HALVES = HD / 64;
-  constexpr int TILE_BYTES = FA_BK * HD * 2;
+  constexpr int HALVES = HD / 64, BK = FaPlan<HD>::BK;
+  constexpr int QBUF = FaPlan<HD>::QBUF, ON = FaPlan<HD>::ON, OB = HD / ON;
+  constexpr int TILE_BYTES = BK * HD * 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   FaSmem<HD>& sm = *reinterpret_cast<FaSmem<HD>*>(
@@ -136,10 +155,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   // first packed row of item w, and the K/V tiles it reads
   auto row0 = [&](int w) { return (work.n_qt - 1 - w / work.BKV) * FA_ROWS; };
   auto tiles = [&](int w) {
-    const int n = (Sk + FA_BK - 1) / FA_BK;
+    const int n = (Sk + BK - 1) / BK;
     if (!causal) return n;
     const int maxq = (min(row0(w) + FA_ROWS, rows) - 1) / G + shift;
-    return maxq < 0 ? 0 : min(n, maxq / FA_BK + 1);
+    return maxq < 0 ? 0 : min(n, maxq / BK + 1);
   };
 
   const int tid = threadIdx.x;
@@ -174,14 +193,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
           for (int h = 0; h < HALVES; ++h)
             tma_load_4d(smem_addr(sm.k[stage][h]), &kmap, h * 64, kvh,
-                        t * FA_BK, b, fk);
+                        t * BK, b, fk);
           const uint32_t fv = smem_addr(&sm.full_v[stage]);
           mbar_wait(smem_addr(&sm.empty_v[stage]), phase ^ 1);
           mbar_expect_tx(fv, TILE_BYTES);
 #pragma unroll
           for (int h = 0; h < HALVES; ++h)
             tma_load_4d(smem_addr(sm.v[stage][h]), &vmap, h * 64, kvh,
-                        t * FA_BK, b, fv);
+                        t * BK, b, fv);
         }
       }
     }
@@ -223,10 +242,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       cp_async_commit();
     };
 
-    float o[HD / 2];
+    float o[OB][ON / 2];         // O: column 8j + 2·t4 of ON-column block ob
     float m[2], l[2];
-    float s[FA_BK / 2];
-    uint32_t p[FA_BK / 16][4];   // P of the tile whose P·V is pending
+    float s[BK / 2];
+    uint32_t p[BK / 16][4];      // P of the tile whose P·V is pending
     int qpos[2], wg_minq = 0, qbuf = 0;
 
     // a stage is free once every consumer warp says so
@@ -234,27 +253,37 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_addr(bar));
     };
-    // S = Q·Kᵀ of one tile (one wgmma group)
+    // S = Q·Kᵀ of one tile (one wgmma group). Each step's descriptors are
+    // formed right before its wgmma (desc_advance): at hd 256, 16 steps'
+    // worth held in registers beside O's 128 accumulators spilled twice as
+    // much
     auto issue_s = [&](int stage) {
       wgmma_fence();
+      const uint64_t dq = desc_sw128(smem_addr(sm.q[qbuf][wg][0]), 16);
+      const uint64_t dk = desc_sw128(smem_addr(sm.k[stage][0]), 16);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss(s,
-                 desc_sw128(smem_addr(sm.q[qbuf][wg][kk / 4]) + (kk % 4) * 32,
-                            16),
-                 desc_sw128(smem_addr(sm.k[stage][kk / 4]) + (kk % 4) * 32, 16),
+        wgmma_ss(s, desc_advance(dq, (kk / 4) * 64 * 64 * 2 + (kk % 4) * 32),
+                 desc_advance(dk, (kk / 4) * BK * 64 * 2 + (kk % 4) * 32),
                  kk > 0);
       wgmma_commit();
     };
     // O += P·V of the pending tile (one wgmma group)
+    auto fence_o = [&] {
+#pragma unroll
+      for (int ob = 0; ob < OB; ++ob) reg_fence(o[ob]);
+    };
     auto issue_pv = [&](int stage, int phase) {
       mbar_wait(smem_addr(&sm.full_v[stage]), phase);
-      reg_fence(o);
+      fence_o();
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < FA_BK / 16; ++kk)
-        wgmma_rs(o, p[kk], desc_sw128(smem_addr(sm.v[stage][0]) +
-                                          kk * 16 * 128, FA_BK * 128));
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int ob = 0; ob < OB; ++ob)
+          wgmma_rs(o[ob], p[kk],
+                   desc_sw128(smem_addr(sm.v[stage][ob * (ON / 64)]) +
+                                  kk * 16 * 128, BK * 128));
       wgmma_commit();
     };
     // mask, running max and p = 2^(s·scale − max) in place; returns the
@@ -262,14 +291,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     // warpgroup (or rows past the end) is computed and masked like any
     // other, so that every wgmma is issued and awaited on one path.
     auto softmax = [&](int k0, float (&corr)[2]) {
-      if (k0 + FA_BK > Sk || (causal && k0 + FA_BK - 1 > wg_minq)) {
+      if (k0 + BK > Sk || (causal && k0 + BK - 1 > wg_minq)) {
         // the last key each row sees, relative to this thread's column
         int last[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           last[i] = (causal ? min(qpos[i], Sk - 1) : Sk - 1) - k0 - 2 * t4;
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j)
+        for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (8 * j + (e & 1) > last[e >> 1]) s[4 * j + e] = -INFINITY;
@@ -278,7 +307,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int i = 0; i < 2; ++i) {
         float mx = m[i];
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j)
+        for (int j = 0; j < BK / 8; ++j)
           mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -287,7 +316,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         m[i] = mx;
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < FA_BK / 8; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
           s[4 * j + 2 * i] = ex2(fmaf(s[4 * j + 2 * i], scale_log2, -base));
           s[4 * j + 2 * i + 1] =
               ex2(fmaf(s[4 * j + 2 * i + 1], scale_log2, -base));
@@ -299,14 +328,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     // O *= corr, then the tile's p → bf16 A fragments of the next P·V
     auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        o[4 * j + 0] *= corr[0];
-        o[4 * j + 1] *= corr[0];
-        o[4 * j + 2] *= corr[1];
-        o[4 * j + 3] *= corr[1];
-      }
+      for (int ob = 0; ob < OB; ++ob)
 #pragma unroll
-      for (int j = 0; j < FA_BK / 8; ++j) {
+        for (int j = 0; j < ON / 8; ++j) {
+          o[ob][4 * j + 0] *= corr[0];
+          o[ob][4 * j + 1] *= corr[0];
+          o[ob][4 * j + 2] *= corr[1];
+          o[ob][4 * j + 3] *= corr[1];
+        }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
         p[j / 2][(j % 2) * 2 + 0] = pack_bf16(s[4 * j], s[4 * j + 1]);
         p[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
       }
@@ -323,7 +354,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       cp_async_wait_all();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_sync(BAR_WG + wg, 128);
-      if (work.item(round + 1) >= 0) load_q(work.item(round + 1), qbuf ^ 1);
+      if constexpr (QBUF == 2) {
+        if (work.item(round + 1) >= 0) load_q(work.item(round + 1), qbuf ^ 1);
+      }
 
       // this thread's two rows (g and g + 8 of its warp's 16)
 #pragma unroll
@@ -333,7 +366,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
       }
       wg_minq = wg_r0 / G + shift;
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      for (int ob = 0; ob < OB; ++ob)
+#pragma unroll
+        for (int i = 0; i < ON / 2; ++i) o[ob][i] = 0.f;
       m[0] = m[1] = -INFINITY;
       l[0] = l[1] = 0.f;
 
@@ -369,9 +404,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         reg_fence(s);
         free_stage(&sm.empty_k[stage]);
         float corr[2];
-        softmax(t * FA_BK, corr);
+        softmax(t * BK, corr);
         wgmma_wait<0>();
-        reg_fence(o);
+        fence_o();
         free_stage(&sm.empty_v[pstage]);
         rescale_and_pack(corr);
       }
@@ -380,17 +415,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         const int last = it + n_tiles - 1;
         issue_pv(last % FA_STAGES, (last / FA_STAGES) & 1);
         wgmma_wait<0>();
-        reg_fence(o);
+        fence_o();
         free_stage(&sm.empty_v[last % FA_STAGES]);
       }
       it += n_tiles;
-      qbuf ^= 1;
 
       // normalise (the four threads of a row each summed a quarter) and
       // stage the 64 × HD tile in this item's q buffer, free since its last
       // S, as rows of HD bf16 whose 16-byte chunk c sits at c ^ (row % 8);
       // then write it out a 16-byte chunk a thread, row by row
-      const uint32_t stage_o = smem_addr(sm.q[qbuf ^ 1][wg][0]);
+      const uint32_t stage_o = smem_addr(sm.q[qbuf][wg][0]);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -398,13 +432,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // unseen row → 0
         const int row = 16 * warp + g + 8 * i;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-          const uint32_t v = pack_bf16(o[4 * j + 2 * i] * inv,
-                                       o[4 * j + 2 * i + 1] * inv);
-          asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(
-              stage_o + row * HD * 2 + ((j ^ (row % 8)) * 16) + t4 * 4),
-              "r"(v) : "memory");
-        }
+        for (int ob = 0; ob < OB; ++ob)
+#pragma unroll
+          for (int j = 0; j < ON / 8; ++j) {
+            const int c = ob * (ON / 8) + j;    // 16-byte chunk of the row
+            const uint32_t v = pack_bf16(o[ob][4 * j + 2 * i] * inv,
+                                         o[ob][4 * j + 2 * i + 1] * inv);
+            asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(
+                stage_o + row * HD * 2 + ((c ^ (row % 8)) * 16) + t4 * 4),
+                "r"(v) : "memory");
+          }
       }
       named_sync(BAR_WG + wg, 128);
       for_rows(w, [&](int row, long long off) {
@@ -416,6 +453,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                            ((chunk ^ (row % 8)) * 16)));
         *reinterpret_cast<uint4*>(out + off + chunk * 8) = val;
       });
+      if constexpr (QBUF == 2) {
+        qbuf ^= 1;
+      } else if (work.item(round + 1) >= 0) {
+        // one q buffer: the next tile's q once every row is out
+        named_sync(BAR_WG + wg, 128);
+        load_q(work.item(round + 1), 0);
+      }
     }
   }
 }
@@ -448,10 +492,10 @@ EncodeTiled encode_tiled() {
 }
 
 // [B, Sk, KV, hd] with dense rows and a batch stride (elements) as the 4-D
-// map (hd, KV, Sk, B); one box is 64 columns of FA_BK keys of one KV head.
+// map (hd, KV, Sk, B); one box is 64 columns of BK keys of one KV head.
 // Keys past Sk read as zeros.
 bool kv_map(CUtensorMap* map, const void* base, int HD, int KV, int Sk, int B,
-            long long bstride) {
+            long long bstride, int BK) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)KV,
@@ -459,7 +503,7 @@ bool kv_map(CUtensorMap* map, const void* base, int HD, int KV, int Sk, int B,
   const cuuint64_t row = (cuuint64_t)KV * HD * 2;
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, row,
                                  B > 1 ? (cuuint64_t)bstride * 2 : row * Sk};
-  const cuuint32_t box[4] = {64, 1, FA_BK, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
@@ -494,8 +538,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int rows = Sq * (H / KV);
   if (B == 0 || rows == 0) return (int)cudaGetLastError();
   CUtensorMap kmap{}, vmap{};       // never read when there are no keys
-  if (Sk > 0 && !(kv_map(&kmap, k, HD, KV, Sk, B, k_bstride) &&
-                  kv_map(&vmap, v, HD, KV, Sk, B, v_bstride)))
+  constexpr int BK = FaPlan<HD>::BK;
+  if (Sk > 0 && !(kv_map(&kmap, k, HD, KV, Sk, B, k_bstride, BK) &&
+                  kv_map(&vmap, v, HD, KV, Sk, B, v_bstride, BK)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -801,7 +846,8 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q, out: bf16 [B, Sq, H, hd] contiguous; k, v: bf16 [B, Sk, KV, hd] with
-// dense rows and batch strides k_bstride, v_bstride (elements); hd 64 or 128.
+// dense rows and batch strides k_bstride, v_bstride (elements); hd 64, 128
+// or 256.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* out, int B,
                                             int Sq, int Sk, int H, int KV,
@@ -814,12 +860,16 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   if (hd == 128)
     return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, KV, k_bstride,
                              v_bstride, causal, stream);
+  if (hd == 256)
+    return launch_wgmma<256>(q, k, v, out, B, Sq, Sk, H, KV, k_bstride,
+                             v_bstride, causal, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The same arguments, Sq·(H/KV) ≤ 64, plus the split plan (splits chunks of
-// `chunk` keys, 64 or 128), float32 scratch (part_o holds
-// B·KV·splits·Sq·(H/KV)·hd values, part_ml twice B·KV·splits·Sq·(H/KV))
+// `chunk` keys: 64 or 128 at hd 64 and 128, 64 at hd 256), float32 scratch
+// (part_o holds B·KV·splits·Sq·(H/KV)·hd values, part_ml twice
+// B·KV·splits·Sq·(H/KV))
 // and B·KV int32 tickets, zero before the launch and left zero after it.
 // kv_len: null (all Sk keys), or an int32 on the device, read by each
 // block: keys at or past it are masked, the causal mask aligned at it.
@@ -837,6 +887,7 @@ extern "C" int flash_attention_split_launch(
   FA_SPLIT(64, 128)
   FA_SPLIT(128, 64)
   FA_SPLIT(128, 128)
+  FA_SPLIT(256, 64)
 #undef FA_SPLIT
   return (int)cudaErrorInvalidValue;
 }

@@ -95,6 +95,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// a descriptor advanced by `bytes` (a multiple of 16, within its 256 KB
+// window), by an add the compiler may not move: each step of a chain of
+// wgmmas forms its descriptor right before it, instead of every step's
+// descriptor being formed ahead and held in registers
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc,
+                                                 uint32_t bytes) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(r) : "l"(desc), "l"((uint64_t)(bytes >> 4)));
+  return r;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -32,9 +32,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (64, 128)          # the kernels' template instantiations
+HEAD_DIMS = (64, 128, 256)     # the kernels' template instantiations
 SPLIT_ROWS = 64                # Sq·(H/KV) ≤ this → the split-KV route
-SPLIT_CHUNKS = (64, 128)       # keys per split chunk the kernel is built for
+# keys per split chunk the kernel is built for, by head dim: at hd 256 a
+# 128-key chunk's shared memory (~168 KB for 4 row tiles) leaves one block
+# an SM, a 64-key chunk's (~101 KB) two
+SPLIT_CHUNKS = {64: (64, 128), 128: (64, 128), 256: (64,)}
 SPLIT_BLOCKS_PER_SM = 4        # split until this many blocks per SM, or the
                                # chunks reach the shorter length
 
@@ -45,13 +48,15 @@ def route(Sq: int, H: int, KV: int) -> str:
     return "split_kv" if Sq * (H // KV) <= SPLIT_ROWS else "wgmma"
 
 
-def split_plan(B: int, KV: int, Sk: int, sm_count: int) -> tuple[int, int]:
-    """``(splits, chunk)`` of the split-KV route: the longer chunk when it
-    still gives ``SPLIT_BLOCKS_PER_SM`` blocks per SM over the ``B·KV``
-    (batch, KV head) pairs, else the shorter; ``splits = ⌈Sk / chunk⌉``
-    (at least 1: a block with no keys writes an empty partial)."""
+def split_plan(B: int, KV: int, Sk: int, sm_count: int,
+               hd: int) -> tuple[int, int]:
+    """``(splits, chunk)`` of the split-KV route at head dim ``hd``: of its
+    ``SPLIT_CHUNKS``, the longer chunk when it still gives
+    ``SPLIT_BLOCKS_PER_SM`` blocks per SM over the ``B·KV`` (batch, KV head)
+    pairs, else the shorter; ``splits = ⌈Sk / chunk⌉`` (at least 1: a block
+    with no keys writes an empty partial)."""
     want = SPLIT_BLOCKS_PER_SM * sm_count
-    long_, short = max(SPLIT_CHUNKS), min(SPLIT_CHUNKS)
+    long_, short = max(SPLIT_CHUNKS[hd]), min(SPLIT_CHUNKS[hd])
     chunk = long_ if B * KV * -(-Sk // long_) >= want else short
     return max(1, -(-Sk // chunk)), chunk
 
@@ -119,7 +124,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              f"{SPLIT_ROWS}), not at Sq {Sq}")
         _build.require(kv_len, "kv_len", torch.int32, (), dev)
     if split:
-        splits, chunk = split_plan(B, KV, Sk, _sm_count(dev.index))
+        splits, chunk = split_plan(B, KV, Sk, _sm_count(dev.index), hd)
         rows = B * KV * splits * Sq * (H // KV)
         part_o = torch.empty(rows * hd, dtype=torch.float32, device=dev)
         part_ml = torch.empty(rows * 2, dtype=torch.float32, device=dev)

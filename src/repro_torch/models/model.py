@@ -1,12 +1,15 @@
-"""The dense decoder-only LM: weights, forward, prefill and greedy decode.
+"""The decoder-only LM: weights, forward, prefill and greedy decode.
 
-Ported from the JAX package's ``models/model.py`` for the dense family
-(every layer attention + MLP): ``init_params``, ``forward``, ``prefill``
-(chunked prefill included) and ``decode_step``. The weights live in
+Ported from the JAX package's ``models/model.py`` for the dense and the
+mixture-of-experts families (every layer attention, then an MLP or an MoE
+layer, ``moe.py``): ``init_params``, ``forward``, ``prefill`` (chunked
+prefill included) and ``decode_step``. The weights live in
 ``nn.Module``s, one ``DecoderLayer`` per layer, and the layers are looped
-over in Python where the JAX package scans over stacked weights. Every
-weight keeps the JAX layout (``wq [D,H,hd]``, ``wo [H,hd,D]``,
-``wup [D,F]`` …), so ``repro_torch.convert.lm_params`` is a copy without
+over in Python where the JAX package scans over stacked weights (and keeps
+DeepSeekMoE's dense layer 0 as a prefix outside the scan: here it is layer
+0 with an MLP of width ``first_dense_ff``). Every weight keeps the JAX
+layout (``wq [D,H,hd]``, ``wo [H,hd,D]``, ``wup [D,F]``, the experts'
+``wup [E,D,F]`` …), so ``repro_torch.convert.lm_params`` is a copy without
 reshapes.
 
 The decode state is one (k, v) cache pair [B, cache_len, KV, hd] per layer,
@@ -29,28 +32,34 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     """Raise for the families the port does not run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (moe.py) wait for a later "
-            "slice (ROADMAP.md queue 1, item 13: the other LM families)")
     if cfg.ssm is not None or "ssm" in cfg.layer_pattern():
         raise NotImplementedError(
             f"{cfg.name}: SSM layers (ssm.py) wait for a later slice "
-            "(ROADMAP.md queue 1, item 13: the other LM families)")
+            "(ROADMAP.md queue 1, item 13.4: SSM)")
     if cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family waits for a later slice "
-            "(ROADMAP.md queue 1, item 13: the other LM families)")
+            "(ROADMAP.md queue 1, item 13.5: encoder-decoder)")
     if cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: modality {cfg.modality!r} waits for a later slice "
-            "(ROADMAP.md queue 1, item 13: the other LM families)")
+            "(ROADMAP.md queue 1, item 13.6: VLM)")
+
+
+def _use_moe(cfg: ArchConfig, layer: int) -> bool:
+    """Whether layer ``layer`` holds an MoE layer (the JAX package's rule:
+    every ``every``-th layer, but not a dense layer 0)."""
+    m = cfg.moe
+    if m is None or (layer == 0 and m.first_dense_ff):
+        return False
+    return layer % m.every == m.every - 1
 
 
 def _weights(dtype, dev, **shapes) -> nn.ParameterDict:
@@ -67,9 +76,11 @@ def _norm(cfg: ArchConfig, dev) -> nn.ParameterDict:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm residual layer: attention, then the MLP."""
+    """One pre-norm residual layer: attention, then the MLP or the MoE
+    layer (``_use_moe``); DeepSeekMoE's layer 0 takes an MLP of width
+    ``first_dense_ff``."""
 
-    def __init__(self, cfg: ArchConfig, dtype, dev):
+    def __init__(self, cfg: ArchConfig, layer: int, dtype, dev):
         super().__init__()
         D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                            cfg.d_ff)
@@ -77,6 +88,12 @@ class DecoderLayer(nn.Module):
         self.attn = _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
                              wv=(D, KV, hd), wo=(H, hd, D))
         self.norm2 = _norm(cfg, dev)
+        self.mlp = self.moe = None
+        if _use_moe(cfg, layer):
+            self.moe = MOE.MoE(D, cfg.moe, dtype, dev)
+            return
+        if layer == 0 and cfg.moe is not None and cfg.moe.first_dense_ff:
+            F = cfg.moe.first_dense_ff
         mlp = dict(wup=(D, F), wdown=(F, D))
         if cfg.activation in ("swiglu", "geglu"):
             mlp["wgate"] = (D, F)
@@ -98,22 +115,25 @@ class LM(nn.Module):
         self.final_norm = _norm(cfg, dev)
         self.lm_head = (None if cfg.tie_embeddings
                         else _weights(dtype, dev, w=(D, V)))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, dtype, dev)
+                                    for i in range(cfg.n_layers))
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 dtype=torch.bfloat16) -> LM:
     """A model with random weights of the JAX package's shapes and scales
-    (normal with std D^-½ for wq/wk/wv/wup/wgate, the embedding and the LM
-    head, (H·hd)^-½ for wo, F^-½ for wdown; norm scales 1, biases 0), drawn
-    in float32 by a ``torch.Generator`` on ``device`` from ``seed``. The
-    bits are not JAX's: ``convert.lm_params`` carries JAX's weights across."""
+    (normal with std D^-½ for wq/wk/wv/wup/wgate, the MoE router, the
+    embedding and the LM head, (H·hd)^-½ for wo, and F^-½ for a wdown of F
+    rows: the MLP's d_ff, an expert's d_expert, the shared experts'
+    n_shared·d_expert, the dense layer 0's first_dense_ff; norm scales 1,
+    biases 0), drawn in float32 by a ``torch.Generator`` on ``device`` from
+    ``seed``. The bits are not JAX's: ``convert.lm_params`` carries JAX's
+    weights across."""
     model = LM(cfg, dtype=dtype, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    D, F, Hhd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.hd
+    D, Hhd = cfg.d_model, cfg.n_heads * cfg.hd
     std = dict(wq=D ** -0.5, wk=D ** -0.5, wv=D ** -0.5, wo=Hhd ** -0.5,
-               wup=D ** -0.5, wgate=D ** -0.5, wdown=F ** -0.5 if F else 0.0,
+               wup=D ** -0.5, wgate=D ** -0.5, router=D ** -0.5,
                tok=D ** -0.5, w=D ** -0.5)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -124,7 +144,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
         else:
             x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                             device=model.device)
-            p.copy_(x.mul_(std[leaf]))
+            p.copy_(x.mul_(p.shape[-2] ** -0.5 if leaf == "wdown"
+                           else std[leaf]))
     return model
 
 
@@ -132,14 +153,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
 
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
                     cache=None, cache_pos=None):
-    """Pre-norm residual layer; ``cache`` (k, v) is written in place."""
+    """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
+    ``cache`` (k, v) is written in place."""
     h = L.apply_norm(layer.norm1, x, cfg.norm)
     x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
                               cache_pos=cache_pos)
-    if layer.mlp is not None:
+    aux = None
+    if layer.moe is not None or layer.mlp is not None:
         h = L.apply_norm(layer.norm2, x, cfg.norm)
-        x = x + L.apply_mlp(layer.mlp, h, cfg.activation)
-    return x
+        if layer.moe is not None:
+            y, aux = MOE.apply_moe(layer.moe, h, cfg.moe, cfg.activation)
+        else:
+            y = L.apply_mlp(layer.mlp, h, cfg.activation)
+        x = x + y
+    return x, aux
 
 
 def _head(model: LM, x):
@@ -149,15 +176,19 @@ def _head(model: LM, x):
 
 
 def forward(model: LM, batch: dict):
-    """Training/prefill forward → (logits [B, S, vocab_padded], aux loss 0:
-    a dense model has no auxiliary loss). batch: tokens int [B, S]."""
+    """Training/prefill forward → (logits [B, S, vocab_padded], aux loss:
+    the float32 sum of the MoE layers' load-balancing losses, 0 for a dense
+    model). batch: tokens int [B, S]."""
     cfg = model.cfg
     tokens = batch["tokens"].to(model.device)
     x = L.apply_embedding(model.embed, tokens)
     rope = L.rope_for(torch.arange(tokens.shape[1], device=model.device), cfg)
+    aux_total = torch.zeros((), device=model.device)
     for layer in model.layers:
-        x = _apply_sublayer(layer, x, cfg, rope)
-    return _head(model, x), torch.zeros((), device=model.device)
+        x, aux = _apply_sublayer(layer, x, cfg, rope)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _head(model, x), aux_total
 
 
 # -- serving --------------------------------------------------------------------
@@ -187,8 +218,8 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
         rope = L.rope_for(torch.arange(c * Sc, (c + 1) * Sc,
                                        device=model.device), cfg)
         for layer, cache in zip(model.layers, state):
-            x = _apply_sublayer(layer, x, cfg, rope, cache=cache,
-                                cache_pos=c * Sc)
+            x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
+                                   cache_pos=c * Sc)
     return _head(model, x[:, -1:]), state, S
 
 
@@ -201,7 +232,8 @@ def decode_step(model: LM, token, state: list, pos):
     x = L.apply_embedding(model.embed, token.to(model.device))
     rope = L.rope_for(pos.reshape(1), cfg)
     for layer, cache in zip(model.layers, state):
-        x = _apply_sublayer(layer, x, cfg, rope, cache=cache, cache_pos=pos)
+        x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
+                               cache_pos=pos)
     return _head(model, x), state
 
 

@@ -7,6 +7,9 @@ tests hold to JAX on the same numpy-seeded inputs:
 - ``flash_attention_pallas(..., interpret=True)`` for Sq == Sk, causal and
   full, on the flattened [B·H, S, hd] rows the JAX op builds (k/v repeated
   over each KV head's query heads), as ``tests/test_kernels.py`` sweeps it;
+  and, with the queries padded in front, for Sk > Sq, at the LM models'
+  head layouts: GQA groups 9 and 12 (starcoder2), 8 at hd 256 (gemma-2b's
+  MQA), 3 at hd 64 and 1 (the MoE models);
 - JAX's ``flash_attention_ref`` for Sk > Sq, causal (the case that sweep
   skips: both align the mask bottom-right);
 - the model's ``repro.models.layers._sdpa`` with GQA, ``q_offset`` and
@@ -132,6 +135,28 @@ def test_plain_matches_pallas_interpret_at_groups_9_and_12(H, KV, hd, dtype,
     np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
 
 
+# gemma-2b's MQA at hd 256 (8 heads over 1: group 8), granite-moe-3b-a800m's
+# group 3 at hd 64 (24 over 8) and deepseek-moe-16b's MHA at hd 128 (16
+# over 16): Sq 1, 5 and 8 give the split-KV route's row counts, Sq 77 and
+# 128 the wgmma route's
+NEW_SHAPES = [(8, 1, 256, "bfloat16"), (8, 1, 256, "float32"),
+              (24, 8, 64, "bfloat16"), (16, 16, 128, "float32")]
+
+
+@pytest.mark.parametrize("H,KV,hd,dtype", NEW_SHAPES)
+@pytest.mark.parametrize("Sq,Sk", [(1, 130), (5, 37), (8, 100), (77, 77),
+                                   (77, 200), (128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_interpret_at_hd_256_and_groups_3_and_1(
+        H, KV, hd, dtype, Sq, Sk, causal):
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _inputs(1, Sq, Sk, H, KV, hd, seed=Sq * Sk + H + hd)
+    q, k, v = (np.asarray(jnp.asarray(a, jdt), np.float32) for a in (q, k, v))
+    ref = _pallas_rows(q, k, v, jdt, causal)
+    out = _port(q, k, v, tdt, causal=causal)
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("Sq,Sk", [(128, 256), (77, 200), (1, 130)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_plain_matches_jax_ref_longer_keys_causal(Sq, Sk, dtype):
@@ -233,20 +258,40 @@ def test_route_threshold(G):
     assert flash_ops.route(at + 1, 2 * G, 2) == "wgmma"
     assert flash_ops.route(1, 16, 8) == "split_kv"          # LM decode
     assert flash_ops.route(2048, 16, 8) == "wgmma"          # LM prefill
-    for H in (36, 48):                                      # starcoder2
-        assert flash_ops.route(1, H, 4) == "split_kv"
-        assert flash_ops.route(2048, H, 4) == "wgmma"
+    for H, KV in ((36, 4), (48, 4),                        # starcoder2
+                  (8, 1), (24, 8), (16, 16)):                # gemma, MoE
+        assert flash_ops.route(1, H, KV) == "split_kv"
+        assert flash_ops.route(2048, H, KV) == "wgmma"
 
 
-@pytest.mark.parametrize("B,KV,Sk,sms", [(4, 8, 2080, 132), (1, 8, 2080, 132),
-                                         (4, 8, 2080, 78), (4, 4, 2088, 132),
-                                         (1, 1, 1, 132),
-                                         (1, 1, 0, 132), (8, 32, 32768, 132)])
+SPLIT_SHAPES = [(4, 8, 2080, 132), (1, 8, 2080, 132), (4, 8, 2080, 78),
+                (4, 4, 2088, 132), (1, 1, 1, 132), (1, 1, 0, 132),
+                (8, 32, 32768, 132)]
+
+
+@pytest.mark.parametrize("B,KV,Sk,sms", SPLIT_SHAPES)
 def test_split_plan(B, KV, Sk, sms):
-    splits, chunk = flash_ops.split_plan(B, KV, Sk, sms)
-    assert chunk in flash_ops.SPLIT_CHUNKS and splits >= 1
+    _check_split_plan(B, KV, Sk, sms, 128)
+
+
+# gemma-2b's decode (KV 1) and deepseek-moe-16b's (KV 16) beside the
+# shapes above, at each head dim the kernel is built for
+@pytest.mark.parametrize("B,KV,Sk,sms", SPLIT_SHAPES + [(4, 1, 2088, 132),
+                                                        (4, 16, 2088, 132)])
+@pytest.mark.parametrize("hd", flash_ops.HEAD_DIMS)
+def test_split_plan_at_each_head_dim(B, KV, Sk, sms, hd):
+    _check_split_plan(B, KV, Sk, sms, hd)
+
+
+def _check_split_plan(B, KV, Sk, sms, hd):
+    splits, chunk = flash_ops.split_plan(B, KV, Sk, sms, hd)
+    assert chunk in flash_ops.SPLIT_CHUNKS[hd] and splits >= 1
     assert splits * chunk >= Sk > (splits - 1) * chunk or Sk == 0
-    if chunk == max(flash_ops.SPLIT_CHUNKS):   # the long chunk fills the card
+    if chunk == 128:                           # the long chunk fills the card
         assert B * KV * splits >= flash_ops.SPLIT_BLOCKS_PER_SM * sms
     if (B, KV, Sk, sms) == (4, 8, 2080, 132):  # the LM path's decode
         assert B * KV * splits >= 2 * sms
+    if hd == 256:                              # one chunk length, 64 keys
+        assert chunk == 64
+    if (B, KV, Sk, hd) == (4, 1, 2088, 256):   # gemma-2b's decode
+        assert (splits, B * KV * splits) == (33, 132)

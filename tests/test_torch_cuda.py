@@ -590,11 +590,46 @@ def test_flash_kernel_at_groups_9_and_12(cuda, H, KV, hd, Sq, Sk):
     _flash_case(cuda, 2, Sq, Sk, H, KV, hd, False)
 
 
+# gemma-2b's MQA at hd 256 (8 heads over 1: group 8), granite-moe-3b-a800m's
+# group 3 at hd 64 (24 heads over 8) and deepseek-moe-16b's MHA at hd 128
+# (16 over 16: group 1), and smaller multiples of each. hd 256 takes 64-key
+# wgmma tiles and one q buffer, and 64-key split chunks (ops.SPLIT_CHUNKS)
+HD_256_AND_GROUPS = [(8, 1, 256), (16, 2, 256), (24, 8, 64), (6, 2, 64),
+                     (16, 16, 128), (2, 2, 128)]
+
+
+@pytest.mark.parametrize("H,KV,hd", HD_256_AND_GROUPS)
+@pytest.mark.parametrize("Sq,Sk", [(1, 130), (5, 300), (8, 1000), (77, 77),
+                                   (77, 200), (128, 1000), (301, 301)])
+def test_flash_kernel_at_hd_256_and_groups_8_3_1(cuda, H, KV, hd, Sq, Sk):
+    """Both routes (Sq·G ≤ 64: split-KV; above: wgmma), causal on a longer
+    cache's slice and not causal, Sk not a multiple of the 64-key tile;
+    a second call on the same inputs gives the same bits."""
+    out = _flash_case(cuda, 3, Sq, Sk, H, KV, hd, True, cache_len=Sk + 24)
+    q, ck, cv = _attn_inputs(3, Sq, Sk + 24, H, KV, hd, Sq + Sk, cuda)
+    again = flash_attention(q, ck[:, :Sk], cv[:, :Sk], causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _flash_case(cuda, 2, Sq, Sk, H, KV, hd, False)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(8, 1, 256), (24, 8, 64),
+                                     (16, 16, 128)])
+def test_flash_kernel_prefill_shape_of_gemma_and_the_moe_models(cuda, H, KV,
+                                                                  hd):
+    """The LM path's prefill for gemma-2b, granite-moe-3b-a800m and
+    deepseek-moe-16b: Sq = Sk = 2048, k/v a slice cache[:, :2048] of a
+    2088-row cache."""
+    out = _flash_case(cuda, 2, 2048, 2048, H, KV, hd, True, cache_len=2088)
+    assert flash_ops.route(2048, H, KV) == "wgmma"
+    assert torch.isfinite(out.float()).all()
+
+
 def test_flash_kernel_decode_shape_spreads_over_the_card(cuda):
     """The LM path's decode (B 4, 8 KV heads, 2080 keys): at least 256
     blocks of the split-KV route."""
     splits, chunk = flash_ops.split_plan(4, 8, 2080, flash_ops._sm_count(
-        cuda.index or 0))
+        cuda.index or 0), 128)
     assert 4 * 8 * splits >= 256 and splits * chunk >= 2080
     _flash_case(cuda, 4, 1, 2080, 16, 8, 128, True, cache_len=2088)
 
@@ -643,18 +678,23 @@ def test_force_kernels_device_constants_equal_host_constants(cuda):
         assert torch.equal(host, dev), name
 
 
-@pytest.mark.parametrize("H,KV", [(16, 8), (36, 4), (48, 4)])
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (36, 4, 128),
+                                     (48, 4, 128), (8, 1, 256), (24, 8, 64),
+                                     (16, 16, 128)])
 @pytest.mark.parametrize("kv_len", [1, 17, 2049, 2080])
-def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len, H, KV):
+def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len, H, KV,
+                                                     hd):
     """The split-KV route over a 2088-row cache with ``kv_len`` an int32 on
     the device (the splits planned from the capacity) against the plain
     version, at the decode heads of internlm2-1.8b (16 over 8: 2 packed
-    rows), starcoder2-7b (36 over 4: 9) and -15b (48 over 4: 12), within
+    rows), starcoder2-7b (36 over 4: 9) and -15b (48 over 4: 12), gemma-2b
+    (8 over 1 at hd 256: 8), granite-moe-3b-a800m (24 over 8 at hd 64: 3)
+    and deepseek-moe-16b (16 over 16: 1), within
     phase 6a's tolerance for the output's size: rtol 1e-2 and atol 2e-3
     where a row averages 2049 or 2080 values (|out| ~0.04), atol 1e-2
     where it averages 1 or 17 (|out| up to ~1, a bf16 ulp ~0.004)."""
     tol = dict(rtol=1e-2, atol=2e-3 if kv_len > 1024 else 1e-2)
-    q, ck, cv = _attn_inputs(4, 1, 2088, H, KV, 128, kv_len, cuda)
+    q, ck, cv = _attn_inputs(4, 1, 2088, H, KV, hd, kv_len, cuda)
     n = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
     out = _launched("flash_attention", lambda: flash_attention(
         q, ck, cv, causal=True, kv_len=n))
@@ -666,7 +706,7 @@ def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len, H, KV):
         flash_attention_ref(q, ck, cv, causal=True, kv_len=n).float(),
         ref.float(), **tol)
     with pytest.raises(ValueError, match="split-KV route only"):
-        flash_attention(q.expand(4, 128, H, 128).contiguous(), ck, cv,
+        flash_attention(q.expand(4, 128, H, hd).contiguous(), ck, cv,
                         kv_len=n)
 
 
@@ -755,6 +795,43 @@ def test_captured_decode_gives_the_eager_greedy_tokens(cuda):
     assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
     assert _build.launches["flash_attention"] == 2 * 32
     assert int(dec.pos) == pos + 32
+
+
+@pytest.mark.parametrize("arch,hd", [("gemma-2b", 256),
+                                     ("granite-moe-3b-a800m", 64),
+                                     ("deepseek-moe-16b", 128)])
+def test_captured_decode_of_gemma_and_the_moe_models(cuda, arch, hd):
+    """The smoke configs of gemma-2b (MQA, GeGLU, tied head) and the two
+    MoE models (deepseek's dense layer 0 and shared experts), their head
+    dim raised to one the kernel takes, in bf16: 32 replayed steps of the
+    captured ``DecodeGraph`` pick the eager ``decode_step``'s tokens, the
+    MoE layers' routing (top-k, dispatch scatter, expert products) captured
+    with the rest of the step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=hd)
+    model = M.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (3, 40))).to(cuda)
+    logits, state, pos = M.prefill(model, {"tokens": tokens}, 80)
+    first = logits[:, -1].argmax(-1, keepdim=True)
+    dec = M.compile_decode(model, 3, 80)
+    dec.start(state, first, pos)
+    tok, eager = first, []
+    for i in range(32):
+        lg, state = M.decode_step(model, tok, state, pos + i)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        eager.append(tok)
+    graph = []
+    _build.launches.clear()
+    for _ in range(32):
+        dec.step()
+        graph.append(dec.token.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
+    assert _build.launches["flash_attention"] == cfg.n_layers * 32
 
 
 # -- the lane axis: the batched driver's [B, n_pad] groups ------------------------
