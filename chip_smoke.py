@@ -84,6 +84,12 @@ of them passed):
         mode; each SYNC_ITERS iterations (replays and a schedule chunk
         reload), then EAGER_STEPS eager calls of the step function, its
         launches equal to its iterations, positions finite;
+  The CPU sides of phases 4d, 5, 5b, 5d and 9c (hierarchies and layouts
+  on the CPU, the references of card-against-CPU checks) run in
+  CPU_WORKERS worker processes (``CpuRefs``) from the end of phase 4c
+  until phase 7, beside the card's phases 4d to 6; each card side runs in
+  its place, and its check against the CPU reference is made once the
+  workers are done, before phase 7 (9c's in phase 9c);
   5. a ~5,000-vertex delaunay with exact_threshold=64, grid_threshold=512
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
@@ -117,9 +123,15 @@ of them passed):
      granite-moe-3b-a800m (32 layers, 24 over 8 at hd 64: group 3; 40
      experts top-8) and deepseek-moe-16b (28 layers, 16 over 16: MHA; a
      dense layer 0 of width 10944, then 64 experts top-6 and 2 shared
-     experts), the last at a named depth cut in 6b (LM_DEPTH: its dense
-     layer 0 and 7 of its 27 MoE layers, at full width), so that the
-     script keeps inside its time limit on a slow host;
+     experts), mamba2-1.3b (48 SSD layers, d_model 2048, 64 heads of P
+     64 over N 128, chunk 256, no attention, a tied head over 50288
+     tokens) and jamba-v0.1-52b (d_model 4096; a period of 8 layers: SSD
+     layers of 128 heads over N 16, attention at position 4 with 32 heads
+     over 8, MoE of 16 experts top-2 on odd layers), deepseek and jamba at
+     named depth cuts in 6b (LM_DEPTH, at full width: deepseek's dense
+     layer 0 and 7 of its 27 MoE layers, so that the script keeps inside
+     its time limit on a slow host; jamba's first period, 8 of its 32
+     layers, since its ~103 GB of bf16 weights do not fit the card);
      a. the flash-attention kernel against its plain version at the path's
         two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, the
         model's hd, causal; k/v = cache[:, :2048] of a 2088-row cache:
@@ -131,26 +143,38 @@ of them passed):
         replay) and eagerly (host work included), beside
         ``scaled_dot_product_attention`` timed the same ways as a
         yardstick, with the bound max(bytes / 3.35 TB/s, flops / 989
-        TFLOP/s bf16);
+        TFLOP/s bf16); a model without attention (mamba2-1.3b) prints
+        that its path makes no flash call;
      b. ``repro_torch.models.prefill`` of a 4 × 2048-token prompt, then 32
         greedy steps of the captured decode (``models.compile_decode``: one
         CUDA graph of a step, ``pos`` and ``kv_len`` on the device; a cold
         sequence that captures, then a warm one that is timed) beside 32
         eager ``decode_step``s: the same greedy tokens, prefill seconds,
-        decode ms a step and tokens/s of both, flash launches (n_layers
-        per prefill, n_layers per step, replays included), every logit
-        finite, peak GB; then prefill and each decode under torch.profiler
-        (device busy share);
+        decode ms a step and tokens/s of both, flash launches (its
+        attention layers' count per prefill and per step, replays
+        included), every logit finite, peak GB; then prefill and each
+        decode under torch.profiler (device busy share, device ms by
+        kernel, kernels a step; the weight floor a step, the weights' bytes
+        over 3.35 TB/s, beside); for a model with SSD layers, the prompt
+        prefilled in two chunks as well (``chunks=2``: the SSD state and
+        the caches carried from one chunk to the next) against the
+        single-shot prefill, last-token logits within LOGIT_TOL, its MoE
+        layers' capacity lifted to the chunk's length for both prefills
+        (an expert's capacity is per chunk, so capacity drops differ
+        between one chunk and two by design);
      c. a 2-layer model at full width, the same weights on the card and on
         the CPU (plain attention there): prefill's last-token logits and the
         first decode step's agree within LOGIT_TOL; for an MoE model (2
         layers: granite's two MoE layers, deepseek's dense layer 0 and one
-        MoE layer) each MoE layer's expert choices, card against CPU, are
+        MoE layer, jamba's SSD layer with an MLP and one with an MoE) each
+        MoE layer's expert choices, card against CPU, are
         equal on every token whose CPU margin between the k-th and (k+1)-th
         router probability is at least ROUTE_MARGIN; at most one of the two
         sequences may be left out of the LOGIT_TOL check, and only for a
         flip below that margin at its own last token (the flips are
-        counted and printed);
+        counted and printed); for jamba (LM_DEPTH_SWEEP), measured and not
+        held, its first 5 layers the same way, the card dispatching as the
+        CPU did: the last-token logits' distance after each layer;
      each model's 6a/6b/6c seconds are printed (``lm_seconds``);
   7. the batched driver, ``multigila_layout_many``, at the size a layout
      service's tenants submit: suite A, SUITE_A graphs
@@ -209,7 +233,12 @@ of them passed):
         included, NELD and CRE within phase 5's deltas;
      d. the layout CLI with ``--driver multigila_dist --mesh 1x1`` in
         process on the card;
-  10. the ``{"kernels": [...]}`` summary, the card line, and
+  10. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
+     worker), ``{"phase_seconds": {...}}`` (the wall seconds of every phase
+     and sub-phase: a phase whose check waits for a CPU reference counts
+     its card side and its check; ``cpu_refs_wait`` is the wait for the
+     workers before phase 7; ``7`` leaves out ``3d``), the
+     ``{"kernels": [...]}`` summary, the card line, and
      ``{"ok": true, "device": {...}}`` as the last line.
 
 It imports neither JAX nor the JAX package.
@@ -305,19 +334,40 @@ N_MAIN = 1_000_000
 SUITE_A = (32, 5_000, 100)
 SUITE_B = (8, 50_000, 200)
 LANES_5D = 8                          # suite A's first graphs, card vs CPU
+# the card-free CPU references of phases 4d, 5, 5b, 5d and 9c run in
+# CPU_WORKERS spawned processes of CPU_THREADS torch threads each
+# (``CpuRefs``), started after phase 4c and joined before phase 7: they
+# overlap the card's phases 4d-6 and none of the walls that phases 4, 7, 8
+# and 9 measure. Each check keeps its inputs, comparison and tolerance; in
+# PR 23's runs (NVIDIA H100 80GB HBM3, 700 W) these CPU sides took the
+# script 40 (4d), 89 (5b), 95-148 (5d) and 16 (9c) s in the main process
+CPU_WORKERS, CPU_THREADS = 3, 2
 # the LM serving path's models, in turn: internlm2-1.8b (GQA group 2),
 # starcoder2-7b (36 heads over 4 KV heads: group 9), starcoder2-15b (48
 # over 4: group 12), gemma-2b (8 over 1 at hd 256: group 8),
-# granite-moe-3b-a800m (24 over 8 at hd 64: group 3) and deepseek-moe-16b
-# (16 over 16: group 1), each at its published width and depth
+# granite-moe-3b-a800m (24 over 8 at hd 64: group 3), deepseek-moe-16b
+# (16 over 16: group 1), mamba2-1.3b (48 SSD layers, no attention) and
+# jamba-v0.1-52b (SSD layers with attention at position 4 of each period
+# of 8, 32 over 8: group 4), each at its published width and depth
 LM_ARCH = "internlm2-1.8b"
 LM_ARCHS = (LM_ARCH, "starcoder2-7b", "starcoder2-15b", "gemma-2b",
-            "granite-moe-3b-a800m", "deepseek-moe-16b")
-# phase 6b's depth cuts: deepseek-moe-16b runs its dense layer 0 and 7 MoE
-# layers (of 27) at full width. A whole run of the script at full depth took
-# 1199 s of its 1200 on a slow host of an NVIDIA H100 80GB HBM3 (700 W),
-# most of it in the layout phases' host work (5d's CPU side 148 s, 8c 68 s)
-LM_DEPTH = {"deepseek-moe-16b": 8}
+            "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
+            "jamba-v0.1-52b")
+# phase 6b's depth cuts, each at full width: deepseek-moe-16b runs its
+# dense layer 0 and 7 MoE layers (of 27): a whole run of the script at full
+# depth took 1199 s of its 1200 on a slow host of an NVIDIA H100 80GB HBM3
+# (700 W), most of it in the layout phases' host work (5d's CPU side 148 s,
+# 8c 68 s). jamba-v0.1-52b runs one period of its pattern (8 of 32 layers:
+# 7 SSD layers, 1 attention layer, 4 MoE layers of 16 experts; ~26.5 GB):
+# its 51.5 B parameters (~103 GB in bf16) do not fit one 80 GB card
+LM_DEPTH = {"deepseek-moe-16b": 8, "jamba-v0.1-52b": 8}
+# phase 6c holds 2 layers of each model at full width, card against CPU.
+# For jamba it also measures, and does not hold, its first 5 layers (four
+# SSD layers, two with MoE, then its attention layer; ~14.3 GB a side):
+# the logits' distance after each layer, the card following the CPU's
+# routes (``lm_depth_distance``). The bf16 distance grows with depth and
+# reaches LOGIT_TOL's bound near 4 layers of jamba's width
+LM_DEPTH_SWEEP = {"jamba-v0.1-52b": 5}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
 # decode rotates over as many caches as give this many bytes of k and v
@@ -352,6 +402,73 @@ ROUTE_MARGIN = 1e-3
 # "error" (more than a schedule buffer's 128 rows, so a chunk reload falls
 # inside), then eager calls of its step
 SYNC_ITERS, EAGER_STEPS = 136, 4
+
+
+#: wall seconds of each phase and sub-phase, printed before the last lines
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Add the wall seconds of the ``with`` body to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+
+def _cpu_worker_init(src: str) -> None:
+    """A CPU-reference worker: the card hidden, CPU_THREADS threads."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = str(CPU_THREADS)
+    sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+
+
+def _cpu_ref(kind: str, *args):
+    """One CPU reference, in a worker: (its result, its seconds)."""
+    t0 = time.perf_counter()
+    out = _CPU_REFS[kind](*args)
+    return out, time.perf_counter() - t0
+
+
+class CpuRefs:
+    """The card-free CPU references (see the module docstring), each
+    computed in one of CPU_WORKERS spawned worker processes while the
+    main process drives the card. ``start`` submits the tasks {name: (kind,
+    args)}, longest first; ``get(name)`` is a task's result; ``join`` waits
+    for every task; ``close`` ends the workers, whatever state they are
+    in."""
+
+    def __init__(self, src: Path):
+        self.src, self._pool, self._res, self.seconds = str(src), None, {}, {}
+
+    def start(self, tasks: dict) -> None:
+        import multiprocessing as mp
+        self._pool = mp.get_context("spawn").Pool(
+            CPU_WORKERS, initializer=_cpu_worker_init, initargs=(self.src,))
+        self._res = {name: self._pool.apply_async(_cpu_ref, (kind, *args))
+                     for name, (kind, args) in tasks.items()}
+
+    def join(self) -> None:
+        self._pool.close()
+        self._pool.join()
+        for name in self._res:
+            self.get(name)
+
+    def get(self, name: str):
+        out, self.seconds[name] = self._res[name].get()
+        return out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
 
 
 def _card_line() -> str:
@@ -776,7 +893,7 @@ def profile_run(fn) -> dict:
             end = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(wall_s=wall, device_busy_s=busy_us / 1e6,
-                idle_share=1.0 - busy_us / 1e6 / wall,
+                idle_share=1.0 - busy_us / 1e6 / wall, kernels=len(events),
                 top=[[name[:90], ms, cnt] for name, (ms, cnt) in top])
 
 
@@ -832,6 +949,11 @@ def attention_checks(device, arch: str = LM_ARCH) -> list:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     cfg = get_config(arch)
+    if "attn" not in cfg.layer_pattern():
+        print(json.dumps(dict(attention_checks=arch, flash_calls=0,
+                              reason="no attention layer: the path makes "
+                                     "no flash call")), flush=True)
+        return []
     B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     n_caches = -(-int(DECODE_KV_BYTES) // (2 * B * LM_CACHE * KV * hd * 2))
     rng = np.random.default_rng(7)
@@ -937,9 +1059,11 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     it), bf16: prefill of a
     LM_BATCH × LM_PROMPT prompt, then LM_NEW greedy steps of the captured
     decode (``compile_decode``) beside LM_NEW eager ``decode_step``s, with
-    the flash launches of each counted from 0. The captured decode runs
-    twice: the first sequence captures the step (its first step runs
-    eagerly), the second is timed; all three give the same tokens."""
+    the flash launches of each counted from 0 (one a layer with attention
+    a call; none for mamba2-1.3b). The captured decode runs twice: the
+    first sequence captures the step (its first step runs eagerly), the
+    second is timed; all three give the same tokens. A model with SSD
+    layers also prefills in two chunks (``chunked_prefill_check``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1014,14 +1138,19 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         if not torch.equal(s, eager_seq):
             raise AssertionError(f"captured decode tokens {s[:, :12]}, "
                                  f"eager {eager_seq[:, :12]}")
-    want = {"flash_attention": cfg.n_layers}
+    n_attn = sum(layer.kind == "attn" for layer in model.layers)
+    want = {"flash_attention": n_attn} if n_attn else {}
     if prefill_launches != want:
         raise AssertionError(f"prefill launches {prefill_launches}, "
                              f"expected {want}")
-    want = {"flash_attention": cfg.n_layers * LM_NEW}
+    want = {"flash_attention": n_attn * LM_NEW} if n_attn else {}
     for got in (eager_launches, *launches):
         if got != want:
             raise AssertionError(f"decode launches {got}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    chunked = (chunked_prefill_check(model, tokens)
+               if any(layer.kind == "ssm" for layer in model.layers)
+               else None)
 
     prof_prefill = profile_run(
         lambda: M.prefill(model, {"tokens": tokens}, LM_CACHE))
@@ -1037,9 +1166,14 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
             dec.step()
     prof_decode = profile_run(decode8)
     prof_graph = profile_run(graph8)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
     res = dict(
         lm=arch, layers=cfg.n_layers, params=cfg.param_count(),
-        dtype="bfloat16",
+        dtype="bfloat16", weight_gb=weight_bytes / 1e9,
+        weight_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        kernels_per_step=prof_graph["kernels"] / 8,
+        eager_kernels_per_step=prof_decode["kernels"] / 8,
         batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
         cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
         prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
@@ -1050,11 +1184,12 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         eager_decode_ms_per_step=eager_s / LM_NEW * 1e3,
         eager_decode_tok_per_s=LM_BATCH * LM_NEW / eager_s,
         tokens_equal_eager=True,
-        launches=dict(prefill=prefill_launches["flash_attention"],
-                      decode=launches[1]["flash_attention"],
-                      eager_decode=eager_launches["flash_attention"]),
+        launches=dict(prefill=prefill_launches.get("flash_attention", 0),
+                      decode=launches[1].get("flash_attention", 0),
+                      eager_decode=eager_launches.get("flash_attention", 0)),
+        chunked_prefill=chunked,
         logits_finite=True, sample=eager_seq[0, :12].tolist(),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_mem_gb=peak / 1e9,
         profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode,
         profile_graph_decode_8_steps=prof_graph)
     # the captured decode holds the model: break the cycle, so that the
@@ -1063,18 +1198,76 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     return res
 
 
+def chunked_prefill_check(model, tokens) -> dict:
+    """Phase 6b, a model with SSD layers: the prompt prefilled in two
+    chunks (``chunks=2``: the SSD state and the KV caches carried from the
+    first chunk to the second) against one prefill of it, last-token
+    logits within LOGIT_TOL, each prefill's seconds printed. An MoE
+    layer's capacity is per chunk (⌈cf · S · k / E⌉ slots an expert), so
+    one chunk and two drop different tokens by design: both prefills run
+    with the capacity factor at E / k, where an expert takes every token
+    of its chunk and none is dropped."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import model as M
+    cfg = model.cfg
+    if cfg.moe is not None:
+        model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out, secs = {}, {}
+        for chunks in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[chunks] = M.prefill(model, {"tokens": tokens}, LM_CACHE,
+                                    chunks=chunks)[0].float()
+            torch.cuda.synchronize()
+            secs[chunks] = time.perf_counter() - t0
+    finally:
+        model.cfg = cfg
+    a, b = out[2], out[1]
+    res = dict(chunks=2, max_abs_err=float((a - b).abs().max()),
+               max_abs_logit=float(b.abs().max()),
+               argmax_agree=float((a.argmax(-1) == b.argmax(-1)).float()
+                                  .mean()),
+               prefill_s=secs[1], chunked_prefill_s=secs[2],
+               capacity_factor=(None if cfg.moe is None
+                                else cfg.moe.n_experts / cfg.moe.top_k),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tol=LOGIT_TOL)
+    print(json.dumps({"chunked_prefill": res, "lm": cfg.name}), flush=True)
+    if not torch.isfinite(a).all():
+        raise AssertionError("chunked prefill: non-finite logits")
+    torch.testing.assert_close(a, b, **LOGIT_TOL)
+    return res
+
+
 class RouteRecorder:
     """Within ``with``: every MoE layer call's router output (probs and
-    expert indices, copied to the CPU) appended to ``calls``, by wrapping
-    ``repro_torch.models.moe.route``, which ``apply_moe`` calls."""
+    expert indices, copied to the CPU) appended to ``calls``, and the whole
+    output to ``routes``, by wrapping ``repro_torch.models.moe.route``,
+    which ``apply_moe`` calls. Given ``follow`` (another recorder's
+    ``routes``), each call records its own router output and returns the
+    one of ``follow`` at its place instead: the layer then dispatches as
+    the other run did."""
+
+    def __init__(self, follow=None):
+        self.follow = follow
 
     def __enter__(self):
         from repro_torch.models import moe as MOE
-        self.calls, self._moe, self._route = [], MOE, MOE.route
+        self.calls, self.routes = [], []
+        self._moe, self._route = MOE, MOE.route
 
         def route(p, x, m):
             out = self._route(p, x, m)
             self.calls.append((out[0].float().cpu(), out[2].cpu()))
+            self.routes.append(tuple(t.cpu() for t in out))
+            if self.follow is not None:
+                return tuple(t.to(x.device)
+                             for t in self.follow[len(self.routes) - 1])
             return out
         MOE.route = route
         return self
@@ -1114,6 +1307,24 @@ def _route_flips(card_calls, cpu_calls, k: int, positions, first) -> list:
     return flips
 
 
+def _card_and_cpu_lm(device, arch: str, n_layers: int) -> tuple:
+    """(the card's model, the CPU's with the same bf16 weights, the 2 × 130
+    prompt) of ``arch``'s first ``n_layers`` layers at full width."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    card = M.init_params(cfg, seed=1, device=device)
+    cpu = M.LM(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(1)
+    return card, cpu, torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
+
+
 def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
     """Phase 6c: a 2-layer ``arch`` at full width, the same bf16 weights on
     the card and on the CPU: prefill's last-token logits and the first
@@ -1122,19 +1333,11 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
     choices agree (``_route_flips``); a sequence whose own last token
     flipped (at prefill's last position or at the decode step) is left out
     of the LOGIT_TOL check, at most one of the two."""
-    import dataclasses
-
-    import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
-    card = M.init_params(cfg, seed=1, device=device)
-    cpu = M.LM(cfg, device="cpu")
-    cpu.load_state_dict(card.state_dict())
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
+    card, cpu, tokens = _card_and_cpu_lm(device, arch, 2)
+    cfg = card.cfg
     S = tokens.shape[1]
     res = {}
     with RouteRecorder() as r_card:
@@ -1185,9 +1388,53 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
         print(json.dumps({f"card_vs_cpu_{name}": res[name], "lm": arch}),
               flush=True)
         torch.testing.assert_close(a[keep], b[keep], **LOGIT_TOL)
-    return dict(res, lm=arch, layers=2, d_model=cfg.d_model,
+    return dict(res, lm=arch, layers=cfg.n_layers, d_model=cfg.d_model,
                 tokens=list(tokens.shape), cpu_prefill_s=cpu_prefill_s,
                 tol=LOGIT_TOL)
+
+
+def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
+    """Phase 6c, measured and not held: ``arch``'s first ``n_layers``
+    layers at full width on the card and on the CPU (6c's weights and
+    prompt), the card's MoE layers dispatching as the CPU's did
+    (``RouteRecorder(follow=…)``), so that no routing near-tie moves a
+    value: after each layer, the prompt's last-token logits (the final
+    norm and the head on that layer's output, as a model cut there
+    computes them), card against CPU, as the largest |Δ| and the largest
+    |Δ| over LOGIT_TOL's bound (atol + rtol·|CPU logit|)."""
+    from repro_torch.models import model as M
+
+    card, cpu, tokens = _card_and_cpu_lm(device, arch, n_layers)
+    real = M._apply_sublayer
+    logits, routes = {}, None
+    for side, model, toks in (("cpu", cpu, tokens),
+                              ("card", card, tokens.to(device))):
+        lasts = []
+
+        def sublayer(layer, x, *args, **kw):
+            x, aux = real(layer, x, *args, **kw)
+            lasts.append(x[:, -1:])
+            return x, aux
+        M._apply_sublayer = sublayer
+        try:
+            with RouteRecorder(routes) as rec:
+                M.prefill(model, {"tokens": toks}, 144)
+        finally:
+            M._apply_sublayer = real
+        routes = rec.routes
+        logits[side] = [M._head(model, x).float().cpu() for x in lasts]
+    rows = []
+    for layer, a, b in zip(card.layers, logits["card"], logits["cpu"]):
+        d = (a - b).abs()
+        bound = LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * b.abs()
+        rows.append(dict(depth=len(rows) + 1, kind=layer.kind,
+                         moe=layer.moe is not None,
+                         max_abs=float(d.max()), mean_abs=float(d.mean()),
+                         max_over_bound=float((d / bound).max())))
+    res = dict(lm=arch, layers=n_layers, d_model=card.cfg.d_model,
+               follows_cpu_routes=True, by_depth=rows, tol=LOGIT_TOL)
+    print(json.dumps({"card_vs_cpu_by_depth": res}), flush=True)
+    return res
 
 
 def stress_constant_checks(cases) -> list:
@@ -1644,23 +1891,43 @@ def flat_path(edges, n, main_wall, main_neld) -> dict:
     return res
 
 
+_GRAPH_FIELDS = ("src", "dst", "vmask", "emask", "mass", "ewt")
+_INFO_FIELDS = ("parent_coarse", "sun_of", "depth", "state", "sun_pos_index")
+
+
+def _plain_hierarchy(h) -> dict:
+    """A hierarchy (graphs, infos) as host numpy arrays — the form a CPU
+    worker returns; a plain hierarchy is returned as it is."""
+    if isinstance(h, dict):
+        return h
+    graphs, infos = h
+    return dict(sizes=[(g.n, g.m) for g in graphs],
+                graphs=[{f: getattr(g, f).cpu().numpy() for f in _GRAPH_FIELDS}
+                        for g in graphs],
+                infos=[{f: getattr(i, f).cpu().numpy() for f in _INFO_FIELDS}
+                       for i in infos])
+
+
+def _same(a, b) -> bool:
+    """Two numpy arrays equal in dtype, shape and every element."""
+    import numpy as np
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
 def _assert_hierarchies_equal(label, card, cpu) -> None:
     """Level sizes and every coarse-graph and LevelInfo array equal, bit for
-    bit (two hierarchies on any devices: card against CPU, or two runs)."""
-    import torch
-    (gc, ic), (gh, ih) = card, cpu
-    if [(g.n, g.m) for g in gc] != [(g.n, g.m) for g in gh]:
+    bit (two hierarchies on any devices, or their ``_plain_hierarchy``:
+    card against CPU, or two runs)."""
+    a, b = _plain_hierarchy(card), _plain_hierarchy(cpu)
+    if a["sizes"] != b["sizes"]:
         raise AssertionError(f"{label}: level sizes differ")
-    for a, b in zip(ic, ih):
-        for field in ("parent_coarse", "sun_of", "depth", "state",
-                      "sun_pos_index"):
-            if not torch.equal(getattr(a, field).cpu(),
-                               getattr(b, field).cpu()):
+    for x, y in zip(a["infos"], b["infos"]):
+        for field in _INFO_FIELDS:
+            if not _same(x[field], y[field]):
                 raise AssertionError(f"{label}: {field} differs")
-    for a, b in zip(gc, gh):
-        for field in ("src", "dst", "vmask", "emask", "mass", "ewt"):
-            if not torch.equal(getattr(a, field).cpu(),
-                               getattr(b, field).cpu()):
+    for x, y in zip(a["graphs"], b["graphs"]):
+        for field in _GRAPH_FIELDS:
+            if not _same(x[field], y[field]):
                 raise AssertionError(f"{label}: coarse graph {field} differs")
 
 
@@ -1681,80 +1948,145 @@ def _hierarchy(edges, n, cfg, device, weights=None):
     return h, time.perf_counter() - t0
 
 
-def weighted_hierarchy_card_vs_cpu(edges, n, weights) -> dict:
-    """Phase 4d: the main path's graph with its weights, hierarchy built on
-    the card and on the CPU: equal bit for bit, ``ewt`` included."""
+def weighted_hierarchy_card(edges, n, weights) -> tuple:
+    """Phase 4d's card side: (the main path's graph's weighted hierarchy,
+    plain, its build seconds on the card)."""
     from repro_torch.core import LayoutConfig
-    cfg = LayoutConfig()
-    card, card_s = _hierarchy(edges, n, cfg, "cuda", weights)
-    cpu, cpu_s = _hierarchy(edges, n, cfg, "cpu", weights)
-    _assert_hierarchies_equal(f"weighted delaunay({n})", card, cpu)
+    h, secs = _hierarchy(edges, n, LayoutConfig(), "cuda", weights)
+    return _plain_hierarchy(h), secs
+
+
+def weighted_hierarchy_card_vs_cpu(n, card, cpu) -> dict:
+    """Phase 4d: the weighted hierarchy built on the card and on the CPU
+    (``CpuRefs``' "4d"): equal bit for bit, ``ewt`` included."""
+    (card_h, card_s), (cpu_h, cpu_s) = card, cpu
+    _assert_hierarchies_equal(f"weighted delaunay({n})", card_h, cpu_h)
     res = dict(weighted_hierarchy=f"delaunay({n})",
-               level_sizes=[(g.n, g.m) for g in card[0]],
+               level_sizes=card_h["sizes"],
                card_build_s=card_s, cpu_build_s=cpu_s, equal=True)
     print(json.dumps(res), flush=True)
     return res
 
 
-def engines_card_vs_cpu(e5, n5, cfg5) -> dict:
-    """Phase 5b: the ported engine and drivers, card against CPU, on the
-    phase-5 graph (see the module docstring)."""
-    import dataclasses
-
+def _weights5(e5):
+    """Phases 5b and 9c's per-edge weights of the 5k graph."""
     import numpy as np
-    import torch
-    from repro_torch.core import LayoutConfig, bucketing, gila
-    from repro_torch.core import multigila_layout
-    from repro_torch.core.multilevel import _build_export, _schedule
-    from repro_torch.graphs.graph import build_graph
-    from repro_torch.graphs.metrics import cre, neld
+    return np.random.default_rng(0).uniform(WEIGHT_LO, WEIGHT_HI,
+                                            len(e5)).astype(np.float32)
 
-    w5 = np.random.default_rng(0).uniform(WEIGHT_LO, WEIGHT_HI,
-                                          len(e5)).astype(np.float32)
-    res = {}
-    cases = (("stress_weighted", dataclasses.replace(cfg5, engine="stress"),
-              w5, True),
-             ("centralized", LayoutConfig(driver="centralized"), None, True),
-             ("flat", LayoutConfig(driver="flat"), None, False))
-    for name, cfg, w, cre_compared in cases:
-        if w is not None:
-            _assert_hierarchies_equal(
-                f"{name} delaunay({n5})", _hierarchy(e5, n5, cfg, "cuda", w)[0],
-                _hierarchy(e5, n5, cfg, "cpu", w)[0])
+
+def small_card(e5, n5, cfg5) -> dict:
+    """Phase 5's card side: the 5k graph's hierarchy (plain) and layout."""
+    import numpy as np
+    from repro_torch.core import multigila_layout
+    from repro_torch.graphs.metrics import cre, neld
+    h = _plain_hierarchy(_hierarchy(e5, n5, cfg5, "cuda")[0])
+    pos, stats = multigila_layout(e5, n5, cfg5)
+    if not np.isfinite(pos).all():
+        raise AssertionError("small layout on the card: non-finite")
+    return dict(hierarchy=h, stats=stats, neld_cre=(neld(pos, e5),
+                                                    cre(pos, e5)))
+
+
+def small_card_vs_cpu(n5, card, cpu) -> dict:
+    """Phase 5: the 5k graph's hierarchy built on the card equals the one
+    built on the CPU (``CpuRefs``' "5"), and the card's layout scores
+    within NELD_DELTA and CRE_DELTA of the CPU layout's."""
+    _assert_hierarchies_equal("delaunay(5000)", card["hierarchy"],
+                              cpu["hierarchy"])
+    q = {"cuda": card["neld_cre"], "cpu": cpu["neld_cre"]}
+    if (abs(q["cuda"][0] - q["cpu"][0]) > NELD_DELTA
+            or abs(q["cuda"][1] - q["cpu"][1]) > CRE_DELTA):
+        raise AssertionError(f"small layout quality differs: {q}")
+    res = dict(small=f"delaunay(5000) n={n5}",
+               level_sizes=card["stats"].level_sizes,
+               level_modes=card["stats"].level_modes,
+               hierarchy_equal=True, neld_cre=q)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def _engine_cases(cfg5) -> tuple:
+    """Phase 5b's cases: (name, config, weighted, CRE compared)."""
+    import dataclasses
+    from repro_torch.core import LayoutConfig
+    return (("stress_weighted", dataclasses.replace(cfg5, engine="stress"),
+             True, True),
+            ("centralized", LayoutConfig(driver="centralized"), False, True),
+            ("flat", LayoutConfig(driver="flat"), False, False))
+
+
+def _flat_early(e5, n5, cfg, device) -> tuple:
+    """The flat driver's own random init on ``device`` and 5 iterations of
+    its level from it, the schedule from the graph built on the CPU:
+    (init, positions) as numpy."""
+    import dataclasses
+    from repro_torch.core import bucketing, gila
+    from repro_torch.core.multilevel import _schedule
+    from repro_torch.graphs.graph import build_graph
+    g_cpu = build_graph(e5, n5, bucket=True, device="cpu")
+    g = (g_cpu if device == "cpu"
+         else build_graph(e5, n5, bucket=True, device=device))
+    sched = dataclasses.replace(_schedule(cfg, 0, 1, g_cpu), iters=5)
+    scale = cfg.ideal_len * max(n5, 4) ** 0.5
+    p0 = gila.random_init(g, scale, cfg.seed)
+    early = bucketing.refine_level(g, p0, sched, ideal_len=cfg.ideal_len,
+                                   rep_const=cfg.rep_const, seed=cfg.seed)
+    return p0.cpu().numpy(), early.cpu().numpy()
+
+
+def engines_card(e5, n5, cfg5) -> dict:
+    """Phase 5b's card side, case by case: the weighted hierarchy (plain),
+    the layout and its seconds, and the flat driver's early iterations."""
+    import numpy as np
+    from repro_torch.core import multigila_layout
+    from repro_torch.graphs.metrics import cre, neld
+    w5 = _weights5(e5)
+    out = {}
+    for name, cfg, weighted, _ in _engine_cases(cfg5):
+        w = w5 if weighted else None
+        row = out[name] = {}
+        if weighted:
+            row["hierarchy"] = _plain_hierarchy(
+                _hierarchy(e5, n5, cfg, "cuda", w)[0])
         t0 = time.perf_counter()
-        p_card, s_card = multigila_layout(e5, n5, cfg, weights=w)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        p_cpu, s_cpu = multigila_layout(e5, n5, cfg, weights=w, device="cpu")
-        cpu_s = time.perf_counter() - t0
-        if not np.isfinite(p_card).all():
+        pos, row["stats"] = multigila_layout(e5, n5, cfg, weights=w)
+        row["card_s"] = time.perf_counter() - t0
+        if not np.isfinite(pos).all():
             raise AssertionError(f"{name} on the card: non-finite")
-        if s_card.level_sizes != s_cpu.level_sizes:
+        row["neld_cre"] = (neld(pos, e5), cre(pos, e5))
+        if name == "flat":
+            row["early"] = _flat_early(e5, n5, cfg, "cuda")
+    return out
+
+
+def engines_card_vs_cpu(n5, cfg5, card, refs) -> dict:
+    """Phase 5b: the ported engine and drivers, card (``engines_card``)
+    against CPU (``CpuRefs``' "5b:…"), on the phase-5 graph (see the
+    module docstring)."""
+    import numpy as np
+    res = {}
+    for name, _, weighted, cre_compared in _engine_cases(cfg5):
+        c, h = card[name], refs.get(f"5b:{name}")
+        if weighted:
+            _assert_hierarchies_equal(f"{name} delaunay({n5})",
+                                      c["hierarchy"], h["hierarchy"])
+        if c["stats"].level_sizes != h["stats"].level_sizes:
             raise AssertionError(f"{name}: level sizes differ")
-        q = {k: (neld(p, e5), cre(p, e5)) for k, p in
-             (("cuda", p_card), ("cpu", p_cpu))}
-        row = dict(level_sizes=s_card.level_sizes,
-                   level_modes=s_card.level_modes, neld_cre=q,
-                   card_s=card_s, cpu_s=cpu_s,
-                   hierarchy_equal=True if w is not None else None,
+        q = {"cuda": c["neld_cre"], "cpu": h["neld_cre"]}
+        row = dict(level_sizes=c["stats"].level_sizes,
+                   level_modes=c["stats"].level_modes, neld_cre=q,
+                   card_s=c["card_s"], cpu_s=h["cpu_s"],
+                   hierarchy_equal=True if weighted else None,
                    cre_compared=cre_compared)
         if name == "flat":
             # the driver's own random init, then 5 iterations of its level
-            gs = {d: build_graph(e5, n5, bucket=True, device=d)
-                  for d in ("cuda", "cpu")}
-            sched = dataclasses.replace(
-                _schedule(cfg, 0, 1, gs["cpu"]), iters=5)
-            scale = cfg.ideal_len * max(n5, 4) ** 0.5
-            p0 = {d: gila.random_init(g, scale, cfg.seed)
-                  for d, g in gs.items()}
-            if not torch.equal(p0["cuda"].cpu(), p0["cpu"]):
+            (p0_card, early_card), (p0_cpu, early_cpu) = (
+                c["early"], refs.get("5b:flat_early"))
+            if not _same(p0_card, p0_cpu):
                 raise AssertionError("flat: random init differs")
-            early = {d: bucketing.refine_level(
-                g, p0[d], sched, ideal_len=cfg.ideal_len,
-                rep_const=cfg.rep_const, seed=cfg.seed).cpu()
-                for d, g in gs.items()}
             row["first_5_iterations_max_abs_diff"] = float(
-                (early["cuda"] - early["cpu"]).abs().max())
+                np.abs(early_card - early_cpu).max())
             row["flat_early_tol"] = FLAT_EARLY_TOL
             if row["first_5_iterations_max_abs_diff"] > FLAT_EARLY_TOL:
                 raise AssertionError(f"flat: {row}")
@@ -2362,28 +2694,21 @@ def lane_rows(cases, launches) -> list:
     return rows
 
 
-def many_card_vs_cpu() -> dict:
-    """Phase 5d: the first LANES_5D graphs of suite A with
+def many_card() -> dict:
+    """Phase 5d's card side: the first LANES_5D graphs of suite A with
     exact_threshold=64, grid_threshold=512 (all three modes) through
     ``multigila_layout_many`` on the card (and again with every seed moved
-    by SPREAD_SEED) and on the CPU: each lane's hierarchy equal bit for
-    bit and NELD within NELD_DELTA, for the batched and the sequential
-    driver on the card against the CPU. CRE is held lane by lane on one
-    device, where its spread over the seed is measured: the batched lanes
-    against the sequential driver's on the card within max(CRE_DELTA,
-    CRE_SPREAD_MULT × the median gap between the card's batched runs with
-    the seeds as given and moved). Against the CPU each driver's lanes'
-    mean is held (``_lanes_against``) and each lane printed: the card's
-    arithmetic moves one lane's CRE from the CPU's by 0.10–0.18 under
-    either driver while two card runs differ by at most 0.06 there
-    (``ROADMAP.md`` queue 3)."""
+    by SPREAD_SEED) and through the sequential driver; each batched lane
+    against its sequential run: hierarchy equal bit for bit, NELD within
+    NELD_DELTA, CRE within max(CRE_DELTA, CRE_SPREAD_MULT × the median
+    gap between the card's batched runs with the seeds as given and
+    moved)."""
     from repro_torch.core import LayoutConfig
     graphs = _suite(LANES_5D, SUITE_A[1], SUITE_A[2])
     cfg = LayoutConfig(exact_threshold=64, grid_threshold=512)
     card = _batched_run("many_5d_card", graphs, cfg)
     moved = _batched_run("many_5d_card_seeds_moved", graphs, cfg,
                          seeds=[cfg.seed + SPREAD_SEED] * len(graphs))
-    cpu = _batched_run("many_5d_cpu", graphs, cfg, device="cpu")
     modes = {m for _, s in card["outs"] for m in s.level_modes}
     if modes != {"exact", "neighbor", "grid"}:
         raise AssertionError(f"phase 5d: modes {modes}")
@@ -2392,9 +2717,25 @@ def many_card_vs_cpu() -> dict:
     seq = _sequential_run("many_5d_card_sequential", graphs, cfg)
     _lanes_against("many_5d_card_vs_card_sequential", graphs, card, seq,
                    cre_spread=spread)
-    _lanes_against("many_5d_card_sequential_vs_cpu", graphs, seq, cpu,
-                   cre_spread=spread, lane_cre=False)
-    return _lanes_against("many_5d_card_vs_cpu", graphs, card, cpu,
+    return dict(graphs=graphs, card=card, seq=seq, spread=spread)
+
+
+def many_card_vs_cpu(card, cpu) -> dict:
+    """Phase 5d against the CPU (``CpuRefs``' "5d", the same batched run
+    on the CPU): each lane's hierarchy equal bit for bit and NELD within
+    NELD_DELTA, for the batched and the sequential driver on the card.
+    Against the CPU each driver's lanes' mean CRE is held
+    (``_lanes_against``) and each lane printed: the card's arithmetic
+    moves one lane's CRE from the CPU's by 0.10–0.18 under either driver
+    while two card runs differ by at most 0.06 there (``ROADMAP.md`` queue
+    3)."""
+    import types
+    graphs, spread = card["graphs"], card["spread"]
+    cpu = dict(outs=cpu["outs"],
+               rec=types.SimpleNamespace(hierarchies=cpu["hierarchies"]))
+    _lanes_against("many_5d_card_sequential_vs_cpu", graphs, card["seq"],
+                   cpu, cre_spread=spread, lane_cre=False)
+    return _lanes_against("many_5d_card_vs_cpu", graphs, card["card"], cpu,
                           cre_spread=spread, lane_cre=False)
 
 
@@ -2425,7 +2766,9 @@ def many_phase() -> tuple:
     kernels = {k[0] for k in cases}
     if kernels != set(_FORCE_KERNELS):
         raise AssertionError(f"phase 7 launched only {kernels} over lanes")
-    return out, lane_rows(cases, launches)
+    with phase("3d"):
+        rows = lane_rows(cases, launches)
+    return out, rows
 
 
 # -- phase 8: serving on the card --------------------------------------------
@@ -2775,6 +3118,7 @@ def serving_phase(edges, n, ref_levels, card: str) -> dict:
         out[key] = fn()
         secs[key] = time.perf_counter() - t
         print(json.dumps({"serve_seconds": secs}), flush=True)
+    PHASE_SECONDS.update(secs)
     return out
 
 
@@ -2961,45 +3305,47 @@ def sync_free_loop(mesh, edges, n, level) -> dict:
     return res
 
 
-def dist_card_vs_cpu(e5, n5, cfg5) -> dict:
+def _dist_cases(cfg5) -> tuple:
+    """Phase 9c's cases: (name, config, weighted)."""
+    import dataclasses
+    base = dataclasses.replace(cfg5, driver="multigila_dist",
+                               mesh_shape=(1, 1))
+    return (("gila", base, False),
+            ("stress_weighted", dataclasses.replace(base, engine="stress"),
+             True))
+
+
+def dist_card_vs_cpu(e5, n5, cfg5, refs) -> dict:
     """Phase 9c: the sharded driver on phase 5's graph (all three modes),
     mesh 1x1, gila then stress with phase 5b's weights, on the card (NCCL)
-    against the CPU (gloo, the same one-rank group): the hierarchy equal
-    bit for bit (``ewt`` included), levels and modes equal, NELD and CRE
-    within phase 5's deltas."""
-    import dataclasses
-
+    against the CPU (``CpuRefs``' "9c:…", over a one-rank gloo group of the
+    worker's own): the hierarchy equal bit for bit (``ewt`` included),
+    levels and modes equal, NELD and CRE within phase 5's deltas."""
     import numpy as np
     from repro_torch.core import multigila_layout
     from repro_torch.graphs.metrics import cre, neld
-    w5 = np.random.default_rng(0).uniform(WEIGHT_LO, WEIGHT_HI,
-                                          len(e5)).astype(np.float32)
-    base = dataclasses.replace(cfg5, driver="multigila_dist",
-                               mesh_shape=(1, 1))
+    w5 = _weights5(e5)
     res = {}
-    for name, cfg, w in (("gila", base, None),
-                         ("stress_weighted",
-                          dataclasses.replace(base, engine="stress"), w5)):
+    for name, cfg, weighted in _dist_cases(cfg5):
+        w = w5 if weighted else None
+        h = refs.get(f"9c:{name}")
         _assert_hierarchies_equal(
             f"dist {name} delaunay({n5})",
-            _hierarchy(e5, n5, cfg, "cuda", w)[0],
-            _hierarchy(e5, n5, cfg, "cpu", w)[0])
+            _hierarchy(e5, n5, cfg, "cuda", w)[0], h["hierarchy"])
         t0 = time.perf_counter()
         p_card, s_card = multigila_layout(e5, n5, cfg, weights=w)
         card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        p_cpu, s_cpu = multigila_layout(e5, n5, cfg, weights=w, device="cpu")
-        cpu_s = time.perf_counter() - t0
+        s_cpu = h["stats"]
         if not np.isfinite(p_card).all():
             raise AssertionError(f"dist {name} on the card: non-finite")
         if (s_card.level_sizes, s_card.level_modes) != (s_cpu.level_sizes,
                                                         s_cpu.level_modes):
             raise AssertionError(f"dist {name}: levels differ")
-        q = {k: (neld(p, e5), cre(p, e5)) for k, p in
-             (("cuda", p_card), ("cpu", p_cpu))}
+        q = {"cuda": (neld(p_card, e5), cre(p_card, e5)),
+             "cpu": h["neld_cre"]}
         row = dict(level_sizes=s_card.level_sizes,
                    level_modes=s_card.level_modes, neld_cre=q,
-                   card_s=card_s, cpu_s=cpu_s, hierarchy_equal=True,
+                   card_s=card_s, cpu_s=h["cpu_s"], hierarchy_equal=True,
                    gaps=dict(neld=q["cuda"][0] - q["cpu"][0],
                              cre=q["cuda"][1] - q["cpu"][1]))
         print(json.dumps({f"dist_small_{name}": row}), flush=True)
@@ -3009,6 +3355,74 @@ def dist_card_vs_cpu(e5, n5, cfg5) -> dict:
                                  f"CPU: {q}")
         res[name] = row
     return res
+
+
+# -- the CPU references, computed in CpuRefs' workers ---------------------------
+
+def _cpu_hierarchy_ref(edges, n, cfg, weights=None) -> tuple:
+    """(the hierarchy built on the CPU, plain, and its seconds)."""
+    h, secs = _hierarchy(edges, n, cfg, "cpu", weights)
+    return _plain_hierarchy(h), secs
+
+
+def _cpu_layout_ref(edges, n, cfg, weights=None, hierarchy=False) -> dict:
+    """``multigila_layout`` on the CPU: positions, stats, seconds and
+    (NELD, CRE), the hierarchy (plain) first when asked; the sharded
+    driver over a one-rank gloo group made here and taken down after."""
+    from repro_torch.core import multigila_layout
+    from repro_torch.graphs.metrics import cre, neld
+    from repro_torch.launch import mesh as mesh_mod
+    dist = cfg.driver == "multigila_dist"
+    if dist:
+        mesh_mod.make_host_mesh(device="cpu")
+    try:
+        out = {}
+        if hierarchy:
+            out["hierarchy"] = _cpu_hierarchy_ref(edges, n, cfg, weights)[0]
+        t0 = time.perf_counter()
+        pos, stats = multigila_layout(edges, n, cfg, weights=weights,
+                                      device="cpu")
+        out.update(cpu_s=time.perf_counter() - t0, pos=pos, stats=stats,
+                   neld_cre=(neld(pos, edges), cre(pos, edges)))
+    finally:
+        if dist:
+            mesh_mod.shutdown()
+    return out
+
+
+def _cpu_many_ref(cfg) -> dict:
+    """Phase 5d's batched run on the CPU: positions, stats, hierarchies."""
+    graphs = _suite(LANES_5D, SUITE_A[1], SUITE_A[2])
+    run = _batched_run("many_5d_cpu", graphs, cfg, device="cpu")
+    return dict(outs=run["outs"], hierarchies=[
+        _plain_hierarchy(h) for h in run["rec"].hierarchies])
+
+
+_CPU_REFS = dict(hierarchy=_cpu_hierarchy_ref, layout=_cpu_layout_ref,
+                 many=_cpu_many_ref, flat_early=_flat_early)
+
+
+def cpu_ref_tasks(edges, n, weights, e5, n5, cfg5) -> dict:
+    """The CPU references of phases 4d, 5, 5b, 5d and 9c, {name: (kind,
+    args)}, the longest first (by PR 23's seconds)."""
+    from repro_torch.core import LayoutConfig
+    w5 = _weights5(e5)
+    cases = {name: (cfg, w5 if weighted else None, weighted)
+             for name, cfg, weighted, _ in _engine_cases(cfg5)}
+    tasks = {"5d": ("many", (LayoutConfig(exact_threshold=64,
+                                          grid_threshold=512),))}
+    tasks["5b:centralized"] = ("layout", (e5, n5, *cases["centralized"]))
+    tasks["4d"] = ("hierarchy", (edges, n, LayoutConfig(), weights))
+    tasks["5b:flat"] = ("layout", (e5, n5, *cases["flat"]))
+    tasks["5b:flat_early"] = ("flat_early",
+                              (e5, n5, cases["flat"][0], "cpu"))
+    tasks["5b:stress_weighted"] = ("layout",
+                                   (e5, n5, *cases["stress_weighted"]))
+    tasks["5"] = ("layout", (e5, n5, cfg5, None, True))
+    for name, cfg, weighted in _dist_cases(cfg5):
+        tasks[f"9c:{name}"] = ("layout", (e5, n5, cfg, w5 if weighted
+                                          else None, True))
+    return tasks
 
 
 def dist_cli_on_card() -> dict:
@@ -3034,14 +3448,15 @@ def dist_cli_on_card() -> dict:
     return res
 
 
-def dist_phase(edges, n, main, scheds, e5, n5, cfg5) -> tuple:
+def dist_phase(edges, n, main, scheds, e5, n5, cfg5, refs) -> tuple:
     """Phase 9, the sharded driver on the card over a one-rank NCCL group
     (made through a FileStore by ``launch.mesh.make_host_mesh`` and
     destroyed at the end): 9b the 1M layout with
     ``LayoutConfig(driver="multigila_dist", mesh_shape=(1, 1))``, cold then
     warm (the latter recording near_field's arguments); 9a the near_field
     rows; the sync-free loop of grid level 1; 9c card against CPU at 5k;
-    9d the CLI. ``main`` is phase 4's warm run, ``scheds`` its schedules.
+    9d the CLI. ``main`` is phase 4's warm run, ``scheds`` its schedules,
+    ``refs`` the CPU references (9c's).
     Returns (the near_field rows, the phase's summary)."""
     import torch
     from repro_torch.core import LayoutConfig, bucketing, multigila_layout
@@ -3113,7 +3528,7 @@ def dist_phase(edges, n, main, scheds, e5, n5, cfg5) -> tuple:
         loop = sync_free_loop(mesh, edges, n, max(grid_levels))
         secs["sync_free"] = time.perf_counter() - t
         t = time.perf_counter()
-        small = dist_card_vs_cpu(e5, n5, cfg5)
+        small = dist_card_vs_cpu(e5, n5, cfg5, refs)
         secs["9c"] = time.perf_counter() - t
         t = time.perf_counter()
         cli = dist_cli_on_card()
@@ -3122,6 +3537,8 @@ def dist_phase(edges, n, main, scheds, e5, n5, cfg5) -> tuple:
         bucketing.STEP_CACHE.clear()
         mesh_mod.shutdown()
     secs["phase"] = time.perf_counter() - t_phase
+    PHASE_SECONDS.update({k: v for k, v in secs.items() if k[0] == "9"})
+    PHASE_SECONDS["9_sync_free"] = secs["sync_free"]
     summary = dict(runs=runs, sync_free=loop, small=small, cli=cli,
                    seconds=secs)
     print(json.dumps({"dist_seconds": secs}), flush=True)
@@ -3196,6 +3613,17 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
     sys.path.insert(0, str(src))
+    refs = CpuRefs(src)
+    try:
+        return _phases(torch, others, refs)
+    finally:
+        refs.close()
+
+
+def _phases(torch, others, refs) -> int:
+    """Phases 1-10 (the module docstring), the CPU references in ``refs``'
+    workers."""
+    t_all = time.perf_counter()
     import numpy as np
     from repro_torch.core import (LayoutConfig, LayoutStats,
                                   build_hierarchy, multigila_layout)
@@ -3203,7 +3631,6 @@ def main(argv=None) -> int:
     from repro_torch.core.pruning import prune_degree_one
     from repro_torch.graphs import generators
     from repro_torch.graphs.graph import build_graph
-    from repro_torch.graphs.metrics import cre, neld
     from repro_torch.kernels import _build
     from repro_torch.utils.device import resolve_device
 
@@ -3218,85 +3645,97 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     # 2. build
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)",
-          flush=True)
+    with phase("2"):
+        t0 = time.perf_counter()
+        _build.load()
+        print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+              f"{_build.build_seconds:.2f} s)", flush=True)
     for src, log in sorted(_build.build_log.items()):
         for kernel, info in _ptxas_report(log):
             print(f"  ptxas {src} {kernel}: {info}", flush=True)
 
     # the main path's graph and its hierarchy (kernel shapes come from it)
-    t0 = time.perf_counter()
-    edges, n = generators.delaunay(N_MAIN, seed=0)
-    print(f"graph: delaunay({N_MAIN}) n={n} m={len(edges)} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    cfg = LayoutConfig()
-    pr = prune_degree_one(edges, n)
-    g0 = build_graph(pr.edges, pr.n, mass=pr.mass, bucket=True, device=device)
-    graphs, infos = build_hierarchy(g0, cfg, device=device)
-    scheds = [_schedule(cfg, i, len(graphs), g) for i, g in enumerate(graphs)]
-    # phase 8a's reference: the export's levels, derived on the host
-    ref_levels = _export_levels(_build_export(
-        edges, n, pr, graphs, infos, np.zeros((n, 2), np.float32)))
-    del infos
+    with phase("graph"):
+        t0 = time.perf_counter()
+        edges, n = generators.delaunay(N_MAIN, seed=0)
+        print(f"graph: delaunay({N_MAIN}) n={n} m={len(edges)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        cfg = LayoutConfig()
+        pr = prune_degree_one(edges, n)
+        g0 = build_graph(pr.edges, pr.n, mass=pr.mass, bucket=True,
+                         device=device)
+        graphs, infos = build_hierarchy(g0, cfg, device=device)
+        scheds = [_schedule(cfg, i, len(graphs), g)
+                  for i, g in enumerate(graphs)]
+        # phase 8a's reference: the export's levels, derived on the host
+        ref_levels = _export_levels(_build_export(
+            edges, n, pr, graphs, infos, np.zeros((n, 2), np.float32)))
+        del infos
 
     # 3a. kernels against their plain versions on drawn positions
-    random_cases = random_input_cases(graphs, scheds, device)
-    rows = [time_force_case(name, args, consts, shape, "random")
-            for name, args, consts, shape in random_cases]
+    with phase("3a"):
+        random_cases = random_input_cases(graphs, scheds, device)
+        rows = [time_force_case(name, args, consts, shape, "random")
+                for name, args, consts, shape in random_cases]
     # 3c. the same inputs at the stress engine's entropy constants
-    stress_constant_checks(random_cases)
+    with phase("3c"):
+        stress_constant_checks(random_cases)
     random_cases = [c + (0,) for c in random_cases]
     del g0
     torch.cuda.empty_cache()
 
     # 4. the main path: through the step cache, cold and warm, and eagerly
-    run = lambda: multigila_layout(edges, n, cfg)
-    runs = cached_and_eager("main_path", run, n, edges,
-                            [r["name"] for r in rows])
-    launches, main_neld = runs["cold"]["launches"], runs["cold"]["neld"]
-    wall = runs["warm"]["wall_s"]
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    stats = LayoutStats(levels=len(runs["cold"]["level_sizes"]),
-                        level_sizes=runs["cold"]["level_sizes"],
-                        level_modes=runs["cold"]["level_modes"])
-    print(json.dumps(dict(
-        main_path=f"delaunay({N_MAIN})", n=n, m=int(len(edges)),
-        level_sizes=stats.level_sizes, level_modes=stats.level_modes,
-        launches=launches, neld=main_neld)), flush=True)
-    # profiled: the warm cached run, then the eager run with its force
-    # calls' first arguments at each level kept
-    _build.launches.clear()
-    prof = profile_run(run)
-    if dict(_build.launches) != launches:
-        raise AssertionError(f"profiled run launched {dict(_build.launches)}"
-                             f", the timed run {launches}")
-    _build.launches.clear()
-    with EagerRefine(), PathInputs() as rec:
-        prof_eager = profile_run(run)
-    if dict(_build.launches) != launches:
-        raise AssertionError(f"profiled eager run launched "
-                             f"{dict(_build.launches)}, the timed {launches}")
-    print(json.dumps(dict(profile=prof, profile_eager=prof_eager)),
-          flush=True)
+    with phase("4"):
+        run = lambda: multigila_layout(edges, n, cfg)
+        runs = cached_and_eager("main_path", run, n, edges,
+                                [r["name"] for r in rows])
+        launches, main_neld = runs["cold"]["launches"], runs["cold"]["neld"]
+        wall = runs["warm"]["wall_s"]
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+        stats = LayoutStats(levels=len(runs["cold"]["level_sizes"]),
+                            level_sizes=runs["cold"]["level_sizes"],
+                            level_modes=runs["cold"]["level_modes"])
+        print(json.dumps(dict(
+            main_path=f"delaunay({N_MAIN})", n=n, m=int(len(edges)),
+            level_sizes=stats.level_sizes, level_modes=stats.level_modes,
+            launches=launches, neld=main_neld)), flush=True)
+        # profiled: the warm cached run, then the eager run with its force
+        # calls' first arguments at each level kept
+        _build.launches.clear()
+        prof = profile_run(run)
+        if dict(_build.launches) != launches:
+            raise AssertionError(f"profiled run launched "
+                                 f"{dict(_build.launches)}, the timed run "
+                                 f"{launches}")
+        _build.launches.clear()
+        with EagerRefine(), PathInputs() as rec:
+            prof_eager = profile_run(run)
+        if dict(_build.launches) != launches:
+            raise AssertionError(f"profiled eager run launched "
+                                 f"{dict(_build.launches)}, the timed "
+                                 f"{launches}")
+        print(json.dumps(dict(profile=prof, profile_eager=prof_eager)),
+              flush=True)
     # 4f. the refine phase level by level; 4e. replayed iterations against
     # the eager loop at each mode's level
-    refine_breakdown(graphs, scheds, "gila")
-    replay_vs_eager(graphs, scheds, "gila")
+    with phase("4f"):
+        refine_breakdown(graphs, scheds, "gila")
+    with phase("4e"):
+        replay_vs_eager(graphs, scheds, "gila")
 
     # 3b. the force kernels on the path's own inputs, one row a shape with
     # that shape's launches
-    path_cases = rec.by_level(stats.level_sizes)
-    for name in _FORCE_KERNELS:
-        per_shape = sum(c[4] for c in path_cases if c[0] == name)
-        if per_shape != launches[name]:
-            raise AssertionError(f"{name}: {per_shape} calls recorded, "
-                                 f"{launches[name]} launched")
-    for name, args, consts, shape, calls in path_cases:
-        rows.append(time_force_case(name, args, consts, shape, "path",
-                                    launches=calls))
+    with phase("3b"):
+        path_cases = rec.by_level(stats.level_sizes)
+        for name in _FORCE_KERNELS:
+            per_shape = sum(c[4] for c in path_cases if c[0] == name)
+            if per_shape != launches[name]:
+                raise AssertionError(f"{name}: {per_shape} calls recorded, "
+                                     f"{launches[name]} launched")
+        for name, args, consts, shape, calls in path_cases:
+            rows.append(time_force_case(name, args, consts, shape, "path",
+                                        launches=calls))
     if others:
         compare_trees(others, random_cases + path_cases)
     del rec, path_cases, random_cases
@@ -3306,59 +3745,56 @@ def main(argv=None) -> int:
     # hierarchy card vs CPU, all on the main path's graph
     weights = np.random.default_rng(0).uniform(
         WEIGHT_LO, WEIGHT_HI, len(edges)).astype(np.float32)
-    stress = stress_path(edges, n, weights, (stats, launches), graphs,
-                         scheds)
+    with phase("4b"):
+        stress = stress_path(edges, n, weights, (stats, launches), graphs,
+                             scheds)
     for r in rows:              # a random row carries the kernel's totals
         if r["inputs"] == "random":
             r["stress_launches"] = stress["launches"][r["name"]]
     # 4g. every cached refine step under sync-debug "error"
-    t = time.perf_counter()
-    sync_free_refine(graphs, scheds)
-    print(json.dumps({"sync_free_refine_s": time.perf_counter() - t}),
-          flush=True)
+    with phase("4g"):
+        t = time.perf_counter()
+        sync_free_refine(graphs, scheds)
+        print(json.dumps({"sync_free_refine_s": time.perf_counter() - t}),
+              flush=True)
     del graphs
-    flat_path(edges, n, wall, main_neld)
-    weighted_hierarchy_card_vs_cpu(edges, n, weights)
-    torch.cuda.empty_cache()
+    with phase("4c"):
+        flat_path(edges, n, wall, main_neld)
 
-    # 5. small graph: card hierarchy == CPU hierarchy; layouts agree
+    # the CPU references of 4d, 5, 5b, 5d and 9c, in workers from here to
+    # phase 7, beside the card's phases 4d-6
     e5, n5 = generators.delaunay(5000, seed=3)
     cfg5 = LayoutConfig(exact_threshold=64, grid_threshold=512)
-    _assert_hierarchies_equal("delaunay(5000)",
-                              _hierarchy(e5, n5, cfg5, "cuda")[0],
-                              _hierarchy(e5, n5, cfg5, "cpu")[0])
-    p_card, s_card = multigila_layout(e5, n5, cfg5)
-    p_cpu, _ = multigila_layout(e5, n5, cfg5, device="cpu")
-    q = {k: (neld(p, e5), cre(p, e5)) for k, p in
-         (("cuda", p_card), ("cpu", p_cpu))}
-    if not np.isfinite(p_card).all():
-        raise AssertionError("small layout on the card: non-finite")
-    if (abs(q["cuda"][0] - q["cpu"][0]) > NELD_DELTA
-            or abs(q["cuda"][1] - q["cpu"][1]) > CRE_DELTA):
-        raise AssertionError(f"small layout quality differs: {q}")
-    print(json.dumps(dict(small=f"delaunay(5000) n={n5}",
-                          level_sizes=s_card.level_sizes,
-                          level_modes=s_card.level_modes,
-                          hierarchy_equal=True, neld_cre=q)), flush=True)
-    # 5b-5c. the stress engine and the other drivers, card vs CPU; the CLI
-    engines_card_vs_cpu(e5, n5, cfg5)
-    cli_on_card()
-    # 5d. the batched driver, card vs CPU
-    many_card_vs_cpu()
+    refs.start(cpu_ref_tasks(edges, n, weights, e5, n5, cfg5))
+    with phase("4d"):
+        hier_4d = weighted_hierarchy_card(edges, n, weights)
+    torch.cuda.empty_cache()
+
+    # 5. small graph: card hierarchy == CPU hierarchy; layouts agree (the
+    # checks after phase 6); 5b-5c. the stress engine and the other
+    # drivers; the CLI; 5d. the batched driver
+    with phase("5"):
+        small = small_card(e5, n5, cfg5)
+    with phase("5b"):
+        engines = engines_card(e5, n5, cfg5)
+    with phase("5c"):
+        cli_on_card()
+    with phase("5d"):
+        many5d = many_card()
 
     # 6. the LM serving path, one model after another
-    del p_card, p_cpu
     torch.cuda.empty_cache()
-    lm_secs = {}
     for arch in LM_ARCHS:
-        secs = lm_secs[arch] = {}
+        secs = {}
         t = time.perf_counter()
-        lm_rows = attention_checks(device, arch)
+        with phase(f"6a:{arch}"):
+            lm_rows = attention_checks(device, arch)
         secs["6a"] = time.perf_counter() - t
         t = time.perf_counter()
-        lm = lm_main_path(device, arch)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with phase(f"6b:{arch}"):
+            lm = lm_main_path(device, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
         secs["6b"] = time.perf_counter() - t
         for kind in ("prefill", "decode"):
             for r in lm_rows:
@@ -3367,17 +3803,39 @@ def main(argv=None) -> int:
         rows += lm_rows
         print(json.dumps(lm), flush=True)
         t = time.perf_counter()
-        print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device, arch))),
-              flush=True)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with phase(f"6c:{arch}"):
+            print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device, arch))),
+                  flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if arch in LM_DEPTH_SWEEP:
+                lm_depth_distance(device, arch, LM_DEPTH_SWEEP[arch])
+                gc.collect()
+                torch.cuda.empty_cache()
         secs["6c"] = time.perf_counter() - t
         print(json.dumps({"lm_seconds": {arch: secs}}), flush=True)
+
+    # every CPU reference done before phase 7's walls; then the checks of
+    # 4d, 5, 5b and 5d against theirs (9c's in phase 9)
+    with phase("cpu_refs_wait"):
+        refs.join()
+    with phase("4d"):
+        weighted_hierarchy_card_vs_cpu(n, hier_4d, refs.get("4d"))
+    with phase("5"):
+        small_card_vs_cpu(n5, small, refs.get("5"))
+    with phase("5b"):
+        engines_card_vs_cpu(n5, cfg5, engines, refs)
+    with phase("5d"):
+        many_card_vs_cpu(many5d, refs.get("5d"))
+    del hier_4d, small, engines, many5d
+    print(json.dumps({"cpu_refs": refs.seconds}), flush=True)
 
     # 7. the batched driver: suites A and B; 3d. the lane kernels on the
     # shapes it launched
     torch.cuda.empty_cache()
-    many, lane = many_phase()
+    with phase("7"):
+        many, lane = many_phase()
+    PHASE_SECONDS["7"] -= PHASE_SECONDS["3d"]
     rows += lane
     del many
     torch.cuda.empty_cache()
@@ -3389,7 +3847,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 9. the sharded driver over a one-rank NCCL group
-    near_rows, _ = dist_phase(edges, n, runs["warm"], scheds, e5, n5, cfg5)
+    near_rows, _ = dist_phase(edges, n, runs["warm"], scheds, e5, n5, cfg5,
+                              refs)
     rows += near_rows
     torch.cuda.empty_cache()
 
@@ -3397,6 +3856,8 @@ def main(argv=None) -> int:
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")
+    PHASE_SECONDS["total"] = time.perf_counter() - t_all
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

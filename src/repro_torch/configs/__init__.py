@@ -3,10 +3,10 @@
 ``get_config(name)`` returns the exact published config; ``get_smoke_config``
 returns the reduced same-family config used by CPU tests. Registered: the
 dense ``internlm2-1.8b``, ``starcoder2-7b``, ``starcoder2-15b`` and
-``gemma-2b``, and the mixture-of-experts ``granite-moe-3b-a800m`` and
-``deepseek-moe-16b``; the other families of the JAX package (SSM, hybrid,
-encoder-decoder, VLM) need modules the port does not have yet (ROADMAP.md
-queue 1).
+``gemma-2b``, the mixture-of-experts ``granite-moe-3b-a800m`` and
+``deepseek-moe-16b``, the SSM ``mamba2-1.3b`` and the hybrid
+``jamba-v0.1-52b``; the other families of the JAX package (encoder-decoder,
+VLM) need modules the port does not have yet (ROADMAP.md queue 1).
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
                                       ShapeCell, SHAPES, get_config,
@@ -15,4 +15,5 @@ from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
 # importing the modules populates the registry
 from repro_torch.configs import (deepseek_moe_16b, gemma_2b,
                                  granite_moe_3b_a800m, internlm2_1_8b,
-                                 starcoder2_7b, starcoder2_15b)
+                                 jamba_v0_1_52b, mamba2_1_3b, starcoder2_7b,
+                                 starcoder2_15b)

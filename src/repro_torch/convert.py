@@ -14,6 +14,7 @@ from repro_torch.core.solar_merger import LevelInfo, MergerState
 from repro_torch.graphs.graph import PaddedGraph
 from repro_torch.models.model import LM
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import SSM
 from repro_torch.utils.device import resolve_device
 
 
@@ -54,29 +55,39 @@ def neighbor_lists(nbr_idx, nbr_mask, *, device=None
 def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
     """An ``LM`` holding the JAX package's ``init_params`` weights.
 
-    ``params`` is that pytree with numpy leaves; its layer weights are
-    stacked ``[G, ...]`` under ``params["groups"][0]`` (one entry per
-    position of the layer pattern, which for the dense and MoE families is
-    one). DeepSeekMoE's dense layer 0 sits unstacked in
-    ``params["prefix"][0]``, and the stacked groups then map to layers
-    1, 2, …. An MoE layer's ``moe`` carries the router (kept float32), the
-    experts' weights and, with shared experts, ``moe["shared"]``. Matmul
-    weights are cast once to ``dtype``, as JAX casts them at use; norm
-    scales stay float32.
+    ``params`` is that pytree with numpy leaves. Its layer weights are
+    stacked ``[G, ...]`` under ``params["groups"]``, one dict a position of
+    the layer pattern: layer ``prefix + g·len(pattern) + i`` is entry ``g``
+    of ``params["groups"][i]``. DeepSeekMoE's dense layer 0 sits unstacked
+    in ``params["prefix"][0]``, and the stacked groups then start at layer
+    1. An MoE layer's ``moe`` carries the router (kept float32), the
+    experts' weights and, with shared experts, ``moe["shared"]``; an SSD
+    layer's ``ssm`` its 11 weights. Matmul weights are cast once to
+    ``dtype``, as JAX casts them at use; norm scales and the SSD's float32
+    weights stay float32.
     """
     model = LM(cfg, dtype=dtype, device=device)
     _put(model.embed, params["embed"])
     _put(model.final_norm, params["final_norm"])
     if model.lm_head is not None:
         _put(model.lm_head, params["lm_head"])
-    groups = params["groups"][0]
+    groups = params["groups"]
+    G = len(groups[0]["norm1"]["scale"])
     per_layer = list(params.get("prefix", [])) + [
-        _take(groups, i) for i in range(len(groups["norm1"]["scale"]))]
+        _take(groups[i], g) for g in range(G) for i in range(len(groups))]
     for layer, p in zip(model.layers, per_layer, strict=True):
-        for part in ("norm1", "attn", "norm2", "mlp", "moe"):
+        for part in ("norm1", "attn", "ssm", "norm2", "mlp", "moe"):
             if getattr(layer, part) is not None:
                 _put(getattr(layer, part), p[part])
     return model
+
+
+def ssm_params(p, cfg, *, device=None, dtype=torch.bfloat16) -> SSM:
+    """An ``SSM`` layer holding the JAX package's ``init_ssm`` weights
+    ``p`` (numpy leaves; the float32 ones stay float32)."""
+    layer = SSM(cfg, dtype, resolve_device(device))
+    _put(layer, p)
+    return layer
 
 
 def moe_params(p, m, d_model: int, *, device=None,

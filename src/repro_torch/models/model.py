@@ -1,26 +1,32 @@
 """The decoder-only LM: weights, forward, prefill and greedy decode.
 
-Ported from the JAX package's ``models/model.py`` for the dense and the
-mixture-of-experts families (every layer attention, then an MLP or an MoE
-layer, ``moe.py``): ``init_params``, ``forward``, ``prefill`` (chunked
-prefill included) and ``decode_step``. The weights live in
+Ported from the JAX package's ``models/model.py`` for the dense, the
+mixture-of-experts, the SSM and the hybrid families: each layer is an
+attention or an SSD layer (``ssm.py``), by its position in
+``cfg.layer_pattern()``, then an MLP or an MoE layer (``moe.py``) where the
+JAX package gives one (every attention layer, and the SSD layers of a
+family other than "ssm"): ``init_params``, ``forward``, ``prefill``
+(chunked prefill included) and ``decode_step``. The weights live in
 ``nn.Module``s, one ``DecoderLayer`` per layer, and the layers are looped
-over in Python where the JAX package scans over stacked weights (and keeps
-DeepSeekMoE's dense layer 0 as a prefix outside the scan: here it is layer
-0 with an MLP of width ``first_dense_ff``). Every weight keeps the JAX
-layout (``wq [D,H,hd]``, ``wo [H,hd,D]``, ``wup [D,F]``, the experts'
-``wup [E,D,F]`` …), so ``repro_torch.convert.lm_params`` is a copy without
-reshapes.
+over in Python where the JAX package scans over stacked weights (one
+stack a position of the pattern; DeepSeekMoE's dense layer 0 is a prefix
+outside the scan: here it is layer 0 with an MLP of width
+``first_dense_ff``). Every weight keeps the JAX layout (``wq [D,H,hd]``,
+``wo [H,hd,D]``, ``wup [D,F]``, the experts' ``wup [E,D,F]``, the SSD's
+``w_x [D,d_inner]`` …), so ``repro_torch.convert.lm_params`` is a copy
+without reshapes.
 
-The decode state is one (k, v) cache pair [B, cache_len, KV, hd] per layer,
-updated in place. ``decode_step`` takes ``pos`` as an int32 device scalar,
-as the JAX package's does: the cache row is written at it and attention
-masks the keys past it on the device. ``DecodeGraph``, built once per
+The decode state is one pair of tensors a layer, updated in place: the
+(k, v) caches [B, cache_len, KV, hd] of an attention layer, the (conv, h)
+state of an SSD layer (``ssm.init_ssm_state``). ``decode_step`` takes
+``pos`` as an int32 device scalar, as the JAX package's does: the cache row
+is written at it and attention masks the keys past it on the device. ``DecodeGraph``, built once per
 (model, batch, cache_len) by ``compile_decode``, is the counterpart of
 ``jax.jit(decode_step, donate_argnums=…)``: one greedy step over static
 token, position and cache buffers, captured as a CUDA graph on the card and
 replayed; it writes the greedy token back and advances the position on the
-device. ``prefill`` stays eager.
+device. ``prefill`` stays eager, and carries the SSD state from one chunk
+to the next.
 
 Families that need modules the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
@@ -33,16 +39,13 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
 
 def _check_supported(cfg: ArchConfig) -> None:
     """Raise for the families the port does not run yet."""
-    if cfg.ssm is not None or "ssm" in cfg.layer_pattern():
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers (ssm.py) wait for a later slice "
-            "(ROADMAP.md queue 1, item 13.4: SSM)")
     if cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family waits for a later slice "
@@ -76,7 +79,9 @@ def _norm(cfg: ArchConfig, dev) -> nn.ParameterDict:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm residual layer: attention, then the MLP or the MoE
+    """One pre-norm residual layer: attention or an SSD layer (``kind``,
+    the layer's position in ``cfg.layer_pattern()``), then, where the JAX
+    package gives one (``norm2`` is None elsewhere), the MLP or the MoE
     layer (``_use_moe``); DeepSeekMoE's layer 0 takes an MLP of width
     ``first_dense_ff``."""
 
@@ -84,11 +89,18 @@ class DecoderLayer(nn.Module):
         super().__init__()
         D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                            cfg.d_ff)
+        pat = cfg.layer_pattern()
+        self.kind = pat[layer % len(pat)]
         self.norm1 = _norm(cfg, dev)
-        self.attn = _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
-                             wv=(D, KV, hd), wo=(H, hd, D))
+        self.attn = self.ssm = self.norm2 = self.mlp = self.moe = None
+        if self.kind == "attn":
+            self.attn = _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
+                                 wv=(D, KV, hd), wo=(H, hd, D))
+        else:
+            self.ssm = SSM.SSM(cfg, dtype, dev)
+        if self.kind != "attn" and cfg.family == "ssm":
+            return
         self.norm2 = _norm(cfg, dev)
-        self.mlp = self.moe = None
         if _use_moe(cfg, layer):
             self.moe = MOE.MoE(D, cfg.moe, dtype, dev)
             return
@@ -123,24 +135,33 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 dtype=torch.bfloat16) -> LM:
     """A model with random weights of the JAX package's shapes and scales
     (normal with std D^-½ for wq/wk/wv/wup/wgate, the MoE router, the
-    embedding and the LM head, (H·hd)^-½ for wo, and F^-½ for a wdown of F
-    rows: the MLP's d_ff, an expert's d_expert, the shared experts'
-    n_shared·d_expert, the dense layer 0's first_dense_ff; norm scales 1,
-    biases 0), drawn in float32 by a ``torch.Generator`` on ``device`` from
-    ``seed``. The bits are not JAX's: ``convert.lm_params`` carries JAX's
-    weights across."""
+    embedding, the LM head and the SSD's input projections, (H·hd)^-½ for
+    wo, d_inner^-½ for the SSD's w_out, 0.5 for its conv_w, and F^-½ for a
+    wdown of F rows: the MLP's d_ff, an expert's d_expert, the shared
+    experts' n_shared·d_expert, the dense layer 0's first_dense_ff; norm
+    scales 1, biases 0; the SSD's dt_bias and conv_b 0, D 1 and A_log =
+    log(linspace(1, 16, H)), as ``init_ssm`` makes them), drawn in float32
+    by a ``torch.Generator`` on ``device`` from ``seed``. The bits are not
+    JAX's: ``convert.lm_params`` carries JAX's weights across."""
     model = LM(cfg, dtype=dtype, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Hhd = cfg.d_model, cfg.n_heads * cfg.hd
-    std = dict(wq=D ** -0.5, wk=D ** -0.5, wv=D ** -0.5, wo=Hhd ** -0.5,
-               wup=D ** -0.5, wgate=D ** -0.5, router=D ** -0.5,
-               tok=D ** -0.5, w=D ** -0.5)
+    std = dict(wq=D ** -0.5, wk=D ** -0.5, wv=D ** -0.5, wup=D ** -0.5,
+               wgate=D ** -0.5, router=D ** -0.5, tok=D ** -0.5,
+               w=D ** -0.5, w_z=D ** -0.5, w_x=D ** -0.5, w_B=D ** -0.5,
+               w_C=D ** -0.5, w_dt=D ** -0.5, conv_w=0.5)
+    if Hhd:
+        std["wo"] = Hhd ** -0.5
+    if cfg.ssm is not None:
+        std["w_out"] = SSM.dims(cfg)[0] ** -0.5
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
+        if leaf in ("scale", "D"):
             p.fill_(1.0)
-        elif leaf == "bias":
+        elif leaf in ("bias", "dt_bias", "conv_b"):
             p.zero_()
+        elif leaf == "A_log":
+            p.copy_(SSM.a_log_init(p.shape[0], model.device))
         else:
             x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                             device=model.device)
@@ -154,10 +175,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
                     cache=None, cache_pos=None):
     """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
-    ``cache`` (k, v) is written in place."""
+    ``cache``, the layer's state pair, is written in place. An SSD layer
+    with a state takes the decode step for one token and the prefill that
+    carries the state otherwise, as the JAX package's ``_apply_sublayer``
+    picks them."""
     h = L.apply_norm(layer.norm1, x, cfg.norm)
-    x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
-                              cache_pos=cache_pos)
+    if layer.attn is not None:
+        x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
+                                  cache_pos=cache_pos)
+    elif cache is not None and h.shape[1] == 1:
+        x = x + SSM.apply_ssm_decode(layer.ssm, h, cfg, cache)
+    elif cache is not None:
+        y, (conv, hs) = SSM.apply_ssm(layer.ssm, h, cfg, return_state=True,
+                                      initial_state=cache)
+        cache[0].copy_(conv)
+        cache[1].copy_(hs)
+        x = x + y
+    else:
+        x = x + SSM.apply_ssm(layer.ssm, h, cfg)
     aux = None
     if layer.moe is not None or layer.mlp is not None:
         h = L.apply_norm(layer.norm2, x, cfg.norm)
@@ -194,18 +229,22 @@ def forward(model: LM, batch: dict):
 # -- serving --------------------------------------------------------------------
 
 def init_decode_state(model: LM, batch: int, cache_len: int) -> list:
-    """One zeroed (k, v) cache pair [batch, cache_len, KV, hd] per layer, in
-    the model's activation dtype."""
+    """One zeroed state pair a layer, in the model's activation dtype: the
+    (k, v) caches [batch, cache_len, KV, hd] of an attention layer, the
+    (conv, h) state of an SSD layer."""
     cfg = model.cfg
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
     return [tuple(torch.zeros(shape, dtype=model.dtype, device=model.device)
-                  for _ in range(2)) for _ in range(cfg.n_layers)]
+                  for _ in range(2)) if layer.kind == "attn"
+            else SSM.init_ssm_state(cfg, batch, model.dtype, model.device)
+            for layer in model.layers]
 
 
 def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     """Run the prompt, return (last-token logits [B, 1, vocab_padded],
     decode state, next_pos). ``chunks > 1`` runs the prompt in sequential
-    super-chunks against the growing KV caches (chunked prefill)."""
+    super-chunks against the growing KV caches and the SSD state carried
+    from chunk to chunk (chunked prefill)."""
     cfg = model.cfg
     tokens = batch["tokens"].to(model.device)
     B, S = tokens.shape
@@ -226,7 +265,7 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
 def decode_step(model: LM, token, state: list, pos):
     """One decode step. token int [B, 1] at position ``pos`` (an int32 0-d
     tensor on the model's device; an int is moved there) → (logits
-    [B, 1, vocab_padded], state); the caches are written in place."""
+    [B, 1, vocab_padded], state); the state is written in place."""
     cfg = model.cfg
     pos = torch.as_tensor(pos, dtype=torch.int32).to(model.device)
     x = L.apply_embedding(model.embed, token.to(model.device))
@@ -240,9 +279,10 @@ def decode_step(model: LM, token, state: list, pos):
 class DecodeGraph:
     """Greedy decoding for one (model, batch, cache_len): each ``step()``
     runs ``decode_step`` on static buffers — ``token`` int64 [B, 1],
-    ``pos`` int32 0-d, ``state`` (the caches) — then writes the greedy
-    token into ``token`` and adds one to ``pos``, all on the device. On the
-    card the first step runs eagerly and captures the step as a CUDA graph
+    ``pos`` int32 0-d, ``state`` (the layers' state pairs, each written in
+    place by ``copy_``) — then writes the greedy token into ``token`` and
+    adds one to ``pos``, all on the device. On the card the first step runs
+    eagerly and captures the step as a CUDA graph
     (``utils.cuda_graph.StepGraph``); later steps replay it. On the CPU each
     step runs eagerly on the same buffers. ``logits`` is the static buffer
     of the last step's logits [B, 1, vocab_padded]."""
@@ -266,9 +306,9 @@ class DecodeGraph:
     def start(self, state: list, token, pos) -> None:
         """Load a prefill's state, the token to feed next and its position
         (an int or an int32 device scalar) into the static buffers."""
-        for (ck, cv), (sk, sv) in zip(self.state, state):
-            ck.copy_(sk)
-            cv.copy_(sv)
+        for mine, given in zip(self.state, state, strict=True):
+            for a, b in zip(mine, given, strict=True):
+                a.copy_(b)
         self.token.copy_(token)
         self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32))
 

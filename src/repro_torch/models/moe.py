@@ -119,7 +119,7 @@ def apply_moe(p: MoE, x, m, activation: str = "swiglu"):
     # the experts: a grouped product over E
     up = torch.bmm(buf, p.wup)
     gate = torch.bmm(buf, p.wgate)
-    h = (F.silu(gate) if activation == "swiglu"
+    h = (L.silu(gate) if activation == "swiglu"
          else F.gelu(gate, approximate="tanh")) * up
     out = torch.bmm(h, p.wdown).reshape(E, B, C, D).transpose(0, 1)
     flat_out = x.new_zeros((B, E * C + 1, D))

@@ -834,6 +834,56 @@ def test_captured_decode_of_gemma_and_the_moe_models(cuda, arch, hd):
     assert _build.launches["flash_attention"] == cfg.n_layers * 32
 
 
+@pytest.mark.parametrize("arch,hd", [("mamba2-1.3b", 0),
+                                     ("jamba-v0.1-52b", 64)])
+def test_captured_decode_of_the_ssm_models(cuda, arch, hd):
+    """The smoke configs of mamba2-1.3b (SSD layers only) and the hybrid
+    jamba-v0.1-52b (its attention layers' head dim raised to one the flash
+    kernel takes), bf16: 32 replayed steps of the captured ``DecodeGraph``
+    pick the eager ``decode_step``'s tokens, and after k = 8 replays every
+    layer's state — an SSD layer's conv window and h, written in place by
+    ``copy_`` inside the graph — equals k eager steps' from the same
+    prefill within the LM tests' bf16 tolerance (rtol 0.02, atol 0.1)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config(arch)
+    if hd:
+        cfg = dataclasses.replace(cfg, head_dim=hd)
+    model = M.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 40))).to(cuda)
+    logits, state, pos = M.prefill(model, {"tokens": tokens}, 80)
+    first = logits[:, -1].argmax(-1, keepdim=True)
+    dec = M.compile_decode(model, 3, 80)
+    dec.start(state, first, pos)
+    eager_state = [tuple(t.clone() for t in pair) for pair in state]
+    tok, eager, k = first, [], 8
+    for i in range(32):
+        lg, eager_state = M.decode_step(model, tok, eager_state, pos + i)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        eager.append(tok)
+        if i == k - 1:
+            after_k = [tuple(t.clone() for t in pair) for pair in eager_state]
+    graph = []
+    _build.launches.clear()
+    for i in range(32):
+        dec.step()
+        graph.append(dec.token.clone())
+        if i == k - 1:
+            torch.cuda.synchronize()
+            for got, want in zip(dec.state, after_k, strict=True):
+                for a, b in zip(got, want, strict=True):
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               rtol=0.02, atol=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
+    n_attn = sum(layer.kind == "attn" for layer in model.layers)
+    assert _build.launches["flash_attention"] == n_attn * 32
+    assert any(layer.kind == "ssm" for layer in model.layers)
+
+
 # -- the lane axis: the batched driver's [B, n_pad] groups ------------------------
 
 def _lane_case(name, B, n, dev):
