@@ -125,46 +125,66 @@ of them passed):
      dense layer 0 of width 10944, then 64 experts top-6 and 2 shared
      experts), mamba2-1.3b (48 SSD layers, d_model 2048, 64 heads of P
      64 over N 128, chunk 256, no attention, a tied head over 50288
-     tokens) and jamba-v0.1-52b (d_model 4096; a period of 8 layers: SSD
+     tokens), jamba-v0.1-52b (d_model 4096; a period of 8 layers: SSD
      layers of 128 heads over N 16, attention at position 4 with 32 heads
-     over 8, MoE of 16 experts top-2 on odd layers), deepseek and jamba at
-     named depth cuts in 6b (LM_DEPTH, at full width: deepseek's dense
-     layer 0 and 7 of its 27 MoE layers, so that the script keeps inside
-     its time limit on a slow host; jamba's first period, 8 of its 32
-     layers, since its ~103 GB of bf16 weights do not fit the card);
+     over 8, MoE of 16 experts top-2 on odd layers), seamless-m4t-medium
+     (12 encoder and 12 decoder layers, d_model 1024, 16 heads over 16 at
+     hd 64, LayerNorm, GELU, an untied head over 256208 tokens; its 2048
+     positions are 1024 audio-frame embeddings for the encoder and a
+     1024-token decoder prompt, LM_FRAMES) and internvl2-76b (d_model
+     8192, 64 heads over 8 at hd 128: group 8; SwiGLU of 28672, vocab
+     128256; its prompt's first 256 positions patch embeddings),
+     deepseek, jamba and internvl2 at named depth cuts in 6b (LM_DEPTH, at
+     full width: deepseek's dense layer 0 and 7 of its 27 MoE layers, so
+     that the script keeps inside its time limit on a slow host; jamba's
+     first period, 8 of its 32 layers, and internvl2's first 16 of 80,
+     since their ~103 and ~141 GB of bf16 weights do not fit the card);
      a. the flash-attention kernel against its plain version at the path's
-        two shapes, on its layout — prefill (B 4, Sq = Sk = 2048, the
-        model's hd, causal; k/v = cache[:, :2048] of a 2088-row cache:
-        the wgmma route) and decode (Sq 1 against the whole 2088-row cache with
-        ``kv_len`` an int32 on the device, as ``decode_step`` calls it,
-        checked at kv_len 2049, 2065 and 2080 and timed at 2080, rotating
-        over caches of DECODE_KV_BYTES together, twice the L2: the
-        split-KV route) — timed as device time per call (CUDA-graph
-        replay) and eagerly (host work included), beside
-        ``scaled_dot_product_attention`` timed the same ways as a
+        shapes, on its layout — prefill (B 4, Sq = Sk = the decoder prompt,
+        2048 or seamless's 1024, the model's hd, causal; k/v = cache[:,
+        :prompt] of a prompt + 40-row cache: the wgmma route) and decode
+        (Sq 1 against the whole cache with ``kv_len`` an int32 on the
+        device, as ``decode_step`` calls it, checked at kv_len prompt + 1,
+        + 17 and + 32 and timed at the last, rotating over caches of
+        DECODE_KV_BYTES together, twice the L2: the split-KV route); for
+        seamless also the non-causal calls: Sq = Sk = 1024 (the encoder's
+        self-attention and the cross prefill; wgmma) and cross decode (Sq
+        1 against 1024 frames, no ``kv_len``: split-KV), and, checked with
+        no row, Sq 512 against 1024 frames (a chunk's cross-attention) and
+        Sq 300 against 1000 (a ragged frame count) — timed as device time
+        per call (CUDA-graph replay) and eagerly (host work included),
+        beside ``scaled_dot_product_attention`` timed the same ways as a
         yardstick, with the bound max(bytes / 3.35 TB/s, flops / 989
-        TFLOP/s bf16); a model without attention (mamba2-1.3b) prints
-        that its path makes no flash call;
-     b. ``repro_torch.models.prefill`` of a 4 × 2048-token prompt, then 32
-        greedy steps of the captured decode (``models.compile_decode``: one
-        CUDA graph of a step, ``pos`` and ``kv_len`` on the device; a cold
+        TFLOP/s bf16), each row's launches those of its shape (B, Sq, Sk,
+        causal) in 6b's prefill or captured decode; a model without
+        attention (mamba2-1.3b) prints that its path makes no flash call;
+     b. ``repro_torch.models.prefill`` of a 4 × 2048-position prompt, then
+        32 greedy steps of the captured decode (``models.compile_decode``:
+        one CUDA graph of a step, ``pos`` and ``kv_len`` on the device, and
+        for seamless the encoder output in a static buffer; a cold
         sequence that captures, then a warm one that is timed) beside 32
-        eager ``decode_step``s: the same greedy tokens, prefill seconds,
-        decode ms a step and tokens/s of both, flash launches (its
-        attention layers' count per prefill and per step, replays
-        included), every logit finite, peak GB; then prefill and each
-        decode under torch.profiler (device busy share, device ms by
-        kernel, kernels a step; the weight floor a step, the weights' bytes
-        over 3.35 TB/s, beside); for a model with SSD layers, the prompt
-        prefilled in two chunks as well (``chunks=2``: the SSD state and
-        the caches carried from one chunk to the next) against the
-        single-shot prefill, last-token logits within LOGIT_TOL, its MoE
-        layers' capacity lifted to the chunk's length for both prefills
-        (an expert's capacity is per chunk, so capacity drops differ
-        between one chunk and two by design);
-     c. a 2-layer model at full width, the same weights on the card and on
-        the CPU (plain attention there): prefill's last-token logits and the
-        first decode step's agree within LOGIT_TOL; for an MoE model (2
+        eager ``decode_step``s: the same greedy tokens, prefill seconds
+        (seamless: its encoder alone too), decode ms a step and tokens/s of
+        both, flash launches (its attention layers' count per prefill and
+        per step, replays included, one more a cross-attention layer and,
+        per prefill, an encoder layer), every logit finite, peak GB; then
+        prefill and each decode under torch.profiler (device busy share,
+        device ms by kernel, kernels a step; the weight floor a step, the
+        weights' bytes over 3.35 TB/s, beside; seamless: the device time of
+        the cross-attention's keys and values that each step computes
+        again, ``cross_kv_ms``); for a model with SSD layers, an encoder or
+        patches, the prompt prefilled in two chunks as well (``chunks=2``:
+        the SSD state and the caches carried from one chunk to the next,
+        the frames encoded once, the patches in the first chunk) against
+        the single-shot prefill, last-token logits within LOGIT_TOL, its
+        MoE layers' capacity lifted to the chunk's length for both
+        prefills (an expert's capacity is per chunk, so capacity drops
+        differ between one chunk and two by design);
+     c. a 2-layer model at full width (seamless: 2 encoder and 2 decoder
+        layers, 128 frames; internvl2: LM_CHECK_PATCHES patches), the same
+        weights on the card and on the CPU (plain attention there):
+        prefill's last-token logits and the first decode step's agree
+        within LOGIT_TOL; for an MoE model (2
         layers: granite's two MoE layers, deepseek's dense layer 0 and one
         MoE layer, jamba's SSD layer with an MLP and one with an MoE) each
         MoE layer's expert choices, card against CPU, are
@@ -348,19 +368,25 @@ CPU_WORKERS, CPU_THREADS = 3, 2
 # granite-moe-3b-a800m (24 over 8 at hd 64: group 3), deepseek-moe-16b
 # (16 over 16: group 1), mamba2-1.3b (48 SSD layers, no attention) and
 # jamba-v0.1-52b (SSD layers with attention at position 4 of each period
-# of 8, 32 over 8: group 4), each at its published width and depth
+# of 8, 32 over 8: group 4), seamless-m4t-medium (12 encoder and 12
+# decoder layers with cross-attention, 16 over 16 at hd 64: non-causal
+# flash on both routes) and internvl2-76b (64 over 8: group 8, a prefix of
+# patch embeddings), each at its published width and depth
 LM_ARCH = "internlm2-1.8b"
 LM_ARCHS = (LM_ARCH, "starcoder2-7b", "starcoder2-15b", "gemma-2b",
             "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
-            "jamba-v0.1-52b")
+            "jamba-v0.1-52b", "seamless-m4t-medium", "internvl2-76b")
 # phase 6b's depth cuts, each at full width: deepseek-moe-16b runs its
 # dense layer 0 and 7 MoE layers (of 27): a whole run of the script at full
 # depth took 1199 s of its 1200 on a slow host of an NVIDIA H100 80GB HBM3
 # (700 W), most of it in the layout phases' host work (5d's CPU side 148 s,
 # 8c 68 s). jamba-v0.1-52b runs one period of its pattern (8 of 32 layers:
 # 7 SSD layers, 1 attention layer, 4 MoE layers of 16 experts; ~26.5 GB):
-# its 51.5 B parameters (~103 GB in bf16) do not fit one 80 GB card
-LM_DEPTH = {"deepseek-moe-16b": 8, "jamba-v0.1-52b": 8}
+# its 51.5 B parameters (~103 GB in bf16) do not fit one 80 GB card.
+# internvl2-76b runs its first 16 of 80 layers (~15.8 B parameters with the
+# embedding and the head, ~31.6 GB in bf16; 6b prints the exact count):
+# its ~70.5 B parameters (~141 GB) do not fit one card either
+LM_DEPTH = {"deepseek-moe-16b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 16}
 # phase 6c holds 2 layers of each model at full width, card against CPU.
 # For jamba it also measures, and does not hold, its first 5 layers (four
 # SSD layers, two with MoE, then its attention layer; ~14.3 GB a side):
@@ -370,22 +396,35 @@ LM_DEPTH = {"deepseek-moe-16b": 8, "jamba-v0.1-52b": 8}
 LM_DEPTH_SWEEP = {"jamba-v0.1-52b": 5}
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_CACHE = LM_PROMPT + LM_NEW + 8     # decode reads a strided cache slice
+# an encoder-decoder model's LM_PROMPT positions split as the JAX package's
+# input specs split a shape cell's seq_len (``models/model.py:_dec_len``):
+# LM_FRAMES audio-frame embeddings [4, 1024, d_model] for the encoder
+# (normal × 0.05 in bf16 from a seed, as its tests draw frames) and a
+# 1024-token decoder prompt, so its cache is 1024 + LM_NEW + 8 rows
+LM_FRAMES = LM_PROMPT // 2
+# a VLM's prompt carries ``models.model.VLM_PATCHES`` patch embeddings
+# [4, 256, d_model] (normal × 0.05 in bf16 from a seed) in its first
+# positions; phase 6c's 2 × 130-token prompt carries this many
+LM_CHECK_PATCHES = 64
 # decode rotates over as many caches as give this many bytes of k and v
 # together, twice the 50 MB L2: 3 for internlm2 (34 MB a cache), 6 for
 # starcoder2 and granite (17 MB: KV 4 at hd 128, KV 8 at hd 64), 12 for
 # gemma (8.6 MB: KV 1 at hd 256), 2 for deepseek (68 MB: KV 16)
 DECODE_KV_BYTES = 100e6
-# decode's device kv_len at phase 6a's checks: the path's first and last
-# (2049 reads one key of the last split chunk) and one between; it is timed
-# at the last
-DECODE_KV_LENS = (LM_PROMPT + 1, LM_PROMPT + 17, LM_PROMPT + LM_NEW)
+# decode's device kv_len at phase 6a's checks, after the decoder prompt:
+# the path's first and last (2049 reads one key of the last split chunk)
+# and one between; it is timed at the last
+DECODE_KV_STEPS = (1, 17, LM_NEW)
 # attention kernel vs plain, bf16: both round the output to bf16 (one ulp is
 # 2^-8 relative) and round p to bf16 at different points. The atol follows
 # each shape's output size: a prefill row near the diagonal averages few
 # values of v (|out| up to ~4), a decode row averages 2080 of them, so its
-# outputs are ~0.04 and an atol of 1e-2 there would hide a wrong key.
+# outputs are ~0.04 and an atol of 1e-2 there would hide a wrong key. A
+# non-causal row (the encoder-decoder's) averages every one of ~1000 frames.
 ATTN_TOL = dict(flash_attention_prefill=dict(rtol=1e-2, atol=1e-2),
-                flash_attention_decode=dict(rtol=1e-2, atol=2e-3))
+                flash_attention_decode=dict(rtol=1e-2, atol=2e-3),
+                flash_attention_noncausal_prefill=dict(rtol=1e-2, atol=2e-3),
+                flash_attention_noncausal_decode=dict(rtol=1e-2, atol=2e-3))
 # card vs CPU logits of the 2-layer full-width model, both bf16: the same
 # function with sums in another order (cuBLAS vs the CPU's GEMMs), the
 # kernel's p rounding, and bf16 activations between layers; a logit near 4
@@ -928,18 +967,66 @@ def _attn_row_name(kind: str, arch: str) -> str:
     return name if arch == LM_ARCH else f"{name}_{arch}"
 
 
+def _lm_shapes(cfg) -> tuple:
+    """(decoder prompt length, cache rows, encoder frames) of phase 6's
+    prompt for ``cfg``: LM_PROMPT tokens and an LM_CACHE-row cache; an
+    encoder-decoder model's LM_PROMPT positions split into LM_FRAMES
+    frames and the rest as its decoder prompt, its cache that prompt +
+    LM_NEW + 8 rows."""
+    frames = LM_FRAMES if cfg.enc_layers else 0
+    prompt = LM_PROMPT - frames
+    return prompt, prompt + LM_CACHE - LM_PROMPT, frames
+
+
+def _lm_batch(cfg, b: int, s: int, frames: int, patches: int, seed: int,
+              device) -> dict:
+    """Phase 6's prompt: tokens [b, s] from ``seed``; then, drawn from the
+    same generator, normal × 0.05 in bf16, an encoder-decoder model's
+    ``frames`` [b, frames, d_model] and a VLM's ``patches`` [b, patches,
+    d_model], the stub frontends' embeddings."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s))).to(device)}
+
+    def embeds(n):
+        x = rng.standard_normal((b, n, cfg.d_model), dtype=np.float32) * 0.05
+        return torch.from_numpy(x).to(device, torch.bfloat16)
+    if cfg.enc_layers:
+        batch["frames"] = embeds(frames)
+    if cfg.modality == "vlm":
+        batch["patches"] = embeds(patches)
+    return batch
+
+
+def _enc_out(model, batch):
+    """The encoder output of the batch's frames, or None for a model
+    without an encoder."""
+    from repro_torch.models import model as M
+    return M._encode(model, batch["frames"]) if model.cfg.enc_layers else None
+
+
 def attention_checks(device, arch: str = LM_ARCH) -> list:
     """Phase 6a: the flash-attention kernel against its plain version at
     ``arch``'s prefill and decode shapes, on the path's own layout and
-    calls: prefill reads slices ``cache[:, :2048]`` of LM_CACHE-row caches;
-    decode reads the whole cache with ``kv_len`` on the device (checked at
-    each of DECODE_KV_LENS against the plain version on ``cache[:, :kv_len]``,
-    timed at the last) and rotates over caches of DECODE_KV_BYTES together
-    (twice the 50 MB L2), as the layers each read their own. SDPA is timed
-    on the keys the kernel reads as a yardstick.
+    calls (``_lm_shapes``): prefill reads slices ``cache[:, :prompt]`` of
+    the path's caches; decode reads the whole cache with ``kv_len`` on the
+    device (checked at the prompt + each of DECODE_KV_STEPS against the
+    plain version on ``cache[:, :kv_len]``, timed at the last) and rotates
+    over caches of DECODE_KV_BYTES together (twice the 50 MB L2), as the
+    layers each read their own. An encoder-decoder model adds its
+    non-causal calls: the encoder's self-attention and the cross prefill
+    (Sq = Sk = LM_FRAMES, contiguous k/v) and cross decode (Sq 1 against
+    the LM_FRAMES frames, no kv_len, rotating over as many frames' k/v as
+    give DECODE_KV_BYTES), and checks, with no row, a chunk of the decoder
+    against every frame (Sq 512) and a ragged frame count (Sk 1000) on the
+    wgmma route. SDPA is timed on the keys the kernel reads as a yardstick.
     ``ms`` and ``library_ms`` are device time per call (CUDA-graph replay);
     ``eager_ms`` and ``library_eager_ms`` time the same calls made back to
-    back from Python, host work included."""
+    back from Python, host work included. Each row carries ``count_key``,
+    its (phase, (B, Sq, Sk, causal)) in the wrappers' counts by shape,
+    which ``lm_main_path``'s run fills in as its launches."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -955,26 +1042,37 @@ def attention_checks(device, arch: str = LM_ARCH) -> list:
                                      "no flash call")), flush=True)
         return []
     B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    n_caches = -(-int(DECODE_KV_BYTES) // (2 * B * LM_CACHE * KV * hd * 2))
+    prompt, cache, frames = _lm_shapes(cfg)
     rng = np.random.default_rng(7)
 
     def draw(*shape):
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
         return x.to(device, torch.bfloat16)
 
-    def caches(n):
-        return [(draw(B, LM_CACHE, KV, hd), draw(B, LM_CACHE, KV, hd))
+    def caches(rows, n=None):
+        n = n or -(-int(DECODE_KV_BYTES) // (2 * B * rows * KV * hd * 2))
+        return [(draw(B, rows, KV, hd), draw(B, rows, KV, hd))
                 for _ in range(n)]
 
-    kv_len = LM_PROMPT + LM_NEW
+    kv_len = prompt + LM_NEW
+    decode_caches = caches(cache)
     cases = [
         # name, q, caches, keys read, kv_lens checked (None: the cache is
         # sliced on the host), causal, (query, key) pairs, calls per graph
-        ("prefill", draw(B, LM_PROMPT, H, hd), caches(1),
-         LM_PROMPT, None, True, LM_PROMPT * (LM_PROMPT + 1) // 2, 10),
-        ("decode", draw(B, 1, H, hd), caches(n_caches),
-         kv_len, DECODE_KV_LENS, True, kv_len, 3 * n_caches),
+        ("prefill", draw(B, prompt, H, hd), caches(cache, 1),
+         prompt, None, True, prompt * (prompt + 1) // 2, 10),
+        ("decode", draw(B, 1, H, hd), decode_caches, kv_len,
+         tuple(prompt + n for n in DECODE_KV_STEPS), True, kv_len,
+         3 * len(decode_caches)),
     ]
+    if frames:
+        cross = caches(frames)
+        cases += [
+            ("noncausal_prefill", draw(B, frames, H, hd),
+             caches(frames, 1), frames, None, False, frames * frames, 10),
+            ("noncausal_decode", draw(B, 1, H, hd), cross, frames, None,
+             False, frames, 3 * len(cross)),
+        ]
     rows = []
     for kind, q, cs, Sk, checked, causal, pairs, calls in cases:
         name, tol = _attn_row_name(kind, arch), ATTN_TOL[
@@ -1031,6 +1129,7 @@ def attention_checks(device, arch: str = LM_ARCH) -> list:
         plain_ms = _per_call_ms(
             lambda: flash_attention_ref(q, k, v, causal=causal, **extra), 3,
             batches=3)
+        handed = k.shape[1]                   # Sk as the wrapper counts it
         k, v = k[:, :Sk], v[:, :Sk]           # the keys this call reads
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * B * H * hd * pairs
@@ -1050,57 +1149,109 @@ def attention_checks(device, arch: str = LM_ARCH) -> list:
             kv_lens_checked=list(checked or (Sk,))),
             eager_ms=eager_ms, library_eager_ms=library_eager_ms,
             library_max_abs_err=lib_err, tol=tol)), flush=True)
-        rows.append(row)
+        phase_of = "decode" if Sq == 1 else "prefill"
+        rows.append(dict(row, count_key=(phase_of, (B, Sq, handed,
+                                                   int(causal)))))
+    if frames:
+        # no row: a chunk of the decoder (chunked prefill) against every
+        # frame, and a ragged frame count, on the wgmma route
+        for Sq, Sk in ((prompt // 2, frames), (300, 1000)):
+            q = draw(B, Sq, H, hd)
+            k, v = draw(B, Sk, KV, hd), draw(B, Sk, KV, hd)
+            out = flash_attention(q, k, v, causal=False)
+            ref = flash_attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL["flash_attention_noncausal_prefill"]
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
+            print(json.dumps(dict(
+                attention_check=f"flash_attention_noncausal_{Sq}x{Sk}",
+                lm=arch, shape=dict(B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd,
+                                    causal=False),
+                flash_route=flash_ops.route(Sq, H, KV),
+                max_abs_err=float((out.float() - ref.float()).abs().max()),
+                tol=tol)), flush=True)
     return rows
+
+
+def _shape_key(shape) -> str:
+    """"B Sq Sk causal" of a flash call's shape."""
+    return " ".join(map(str, shape))
+
+
+def _flash_shapes() -> dict:
+    """The flash wrapper's launches by shape since the counts were last
+    cleared: {"B Sq Sk causal": count}."""
+    from repro_torch.kernels import _build
+    return {_shape_key(k[1:]): c for k, c in _build.shape_launches.items()
+            if k[0] == "flash_attention"}
 
 
 def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     """Phase 6b: ``arch`` at full width and depth (or LM_DEPTH's cut of
-    it), bf16: prefill of a
-    LM_BATCH × LM_PROMPT prompt, then LM_NEW greedy steps of the captured
-    decode (``compile_decode``) beside LM_NEW eager ``decode_step``s, with
-    the flash launches of each counted from 0 (one a layer with attention
-    a call; none for mamba2-1.3b). The captured decode runs twice: the
-    first sequence captures the step (its first step runs eagerly), the
-    second is timed; all three give the same tokens. A model with SSD
-    layers also prefills in two chunks (``chunked_prefill_check``)."""
-    import numpy as np
+    it), bf16: prefill of a LM_BATCH × LM_PROMPT prompt (an
+    encoder-decoder model's split into LM_FRAMES frames and its decoder
+    prompt; a VLM's first VLM_PATCHES positions patch embeddings;
+    ``_lm_batch``), then LM_NEW greedy steps of the captured decode
+    (``compile_decode``; an encoder-decoder model's graph takes the
+    prompt's ``_encode`` output in its static buffer) beside LM_NEW eager
+    ``decode_step``s, with the flash launches of each counted from 0, in
+    all and by shape (one a layer with attention a call, one more a
+    cross-attention, and one an encoder layer a prefill; none for
+    mamba2-1.3b). The captured decode runs twice: the first sequence
+    captures the step (its first step runs eagerly), the second is timed;
+    all three give the same tokens. An encoder-decoder model's encoder is
+    timed alone as well (``encode_s``), and the cross-attention's keys and
+    values that every step computes again from the encoder output
+    (``cross_kv_ms``: their products' device time a step). A model with
+    SSD layers, an encoder or patches also prefills in two chunks
+    (``chunked_prefill_check``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
 
     import dataclasses
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH.get(arch, cfg.n_layers))
+    prompt, cache, frames = _lm_shapes(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    batch = _lm_batch(cfg, LM_BATCH, prompt, frames, M.VLM_PATCHES, 0, device)
     # warm-up (cuBLAS handles and kernels' first launches), not counted
-    M.decode_step(model, tokens[:, :1],
-                  M.prefill(model, {"tokens": tokens[:, :64]}, 128)[1], 64)
+    warm = {k: t[:, :64] for k, t in batch.items()}
+    M.decode_step(model, warm["tokens"][:, :1],
+                  M.prefill(model, warm, 128)[1], 64,
+                  enc_out=_enc_out(model, warm))
     torch.cuda.synchronize()
 
     _build.launches.clear()
+    _build.shape_launches.clear()
     t0 = time.perf_counter()
-    logits, state, pos = M.prefill(model, {"tokens": tokens}, LM_CACHE)
+    logits, state, pos = M.prefill(model, batch, cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_launches = dict(_build.launches)
+    prefill_shapes = _flash_shapes()
     finite = torch.isfinite(logits).all()
     first = logits[:, -1].argmax(-1, keepdim=True)
+    encode_s = enc_out = None
+    if cfg.enc_layers:
+        t0 = time.perf_counter()
+        enc_out = _enc_out(model, batch)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
 
     # the eager step, LM_NEW times
     tok, out = first, [first]
     _build.launches.clear()
     t0 = time.perf_counter()
     for i in range(LM_NEW):
-        logits, state = M.decode_step(model, tok, state, pos + i)
+        logits, state = M.decode_step(model, tok, state, pos + i,
+                                      enc_out=enc_out)
         finite &= torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out.append(tok)
@@ -1113,15 +1264,16 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
     del state
 
     # the captured step: a cold sequence (capture), then a warm one (timed)
-    dec = M.compile_decode(model, LM_BATCH, LM_CACHE)
+    dec = M.compile_decode(model, LM_BATCH, cache, frames)
     seqs, secs, launches = [], [], []
     for _ in range(2):
-        _, state, pos = M.prefill(model, {"tokens": tokens}, LM_CACHE)
-        dec.start(state, first, pos)
+        _, state, pos = M.prefill(model, batch, cache)
+        dec.start(state, first, pos, enc_out=enc_out)
         del state
         out = [first]
         torch.cuda.synchronize()
         _build.launches.clear()
+        _build.shape_launches.clear()
         t0 = time.perf_counter()
         for i in range(LM_NEW):
             finite &= torch.isfinite(dec.step()).all()
@@ -1130,6 +1282,7 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         secs.append(time.perf_counter() - t0)
         launches.append(dict(_build.launches))
         seqs.append(torch.cat(out, dim=1).cpu())
+    decode_shapes = _flash_shapes()
     graph_s = secs[1]
 
     if not bool(finite):
@@ -1139,27 +1292,29 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
             raise AssertionError(f"captured decode tokens {s[:, :12]}, "
                                  f"eager {eager_seq[:, :12]}")
     n_attn = sum(layer.kind == "attn" for layer in model.layers)
-    want = {"flash_attention": n_attn} if n_attn else {}
+    n_cross = sum(layer.cross is not None for layer in model.layers)
+    n_flash = n_attn + n_cross + cfg.enc_layers
+    want = {"flash_attention": n_flash} if n_flash else {}
     if prefill_launches != want:
         raise AssertionError(f"prefill launches {prefill_launches}, "
                              f"expected {want}")
-    want = {"flash_attention": n_attn * LM_NEW} if n_attn else {}
+    want = ({"flash_attention": (n_attn + n_cross) * LM_NEW} if n_attn
+            else {})
     for got in (eager_launches, *launches):
         if got != want:
             raise AssertionError(f"decode launches {got}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
-    chunked = (chunked_prefill_check(model, tokens)
+    chunked = (chunked_prefill_check(model, batch, cache)
                if any(layer.kind == "ssm" for layer in model.layers)
-               else None)
+               or cfg.enc_layers or "patches" in batch else None)
 
-    prof_prefill = profile_run(
-        lambda: M.prefill(model, {"tokens": tokens}, LM_CACHE))
-    st = M.prefill(model, {"tokens": tokens}, LM_CACHE)[1]
+    prof_prefill = profile_run(lambda: M.prefill(model, batch, cache))
+    st = M.prefill(model, batch, cache)[1]
     t = eager_seq[:, :1].to(device)
 
     def decode8():
         for i in range(8):
-            M.decode_step(model, t, st, LM_PROMPT + i)
+            M.decode_step(model, t, st, prompt + i, enc_out=enc_out)
 
     def graph8():
         for _ in range(8):
@@ -1174,9 +1329,9 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         weight_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
         kernels_per_step=prof_graph["kernels"] / 8,
         eager_kernels_per_step=prof_decode["kernels"] / 8,
-        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
-        cache_len=LM_CACHE, init_s=init_s, prefill_s=prefill_s,
-        prefill_tok_per_s=LM_BATCH * LM_PROMPT / prefill_s,
+        batch=LM_BATCH, prompt=prompt, new_tokens=LM_NEW,
+        cache_len=cache, init_s=init_s, prefill_s=prefill_s,
+        prefill_tok_per_s=LM_BATCH * prompt / prefill_s,
         decode_s=graph_s, decode_tok_per_s=LM_BATCH * LM_NEW / graph_s,
         decode_ms_per_step=graph_s / LM_NEW * 1e3,
         decode_capture_sequence_s=secs[0],
@@ -1187,26 +1342,55 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         launches=dict(prefill=prefill_launches.get("flash_attention", 0),
                       decode=launches[1].get("flash_attention", 0),
                       eager_decode=eager_launches.get("flash_attention", 0)),
+        launches_by_shape=dict(prefill=prefill_shapes, decode=decode_shapes),
         chunked_prefill=chunked,
         logits_finite=True, sample=eager_seq[0, :12].tolist(),
         peak_mem_gb=peak / 1e9,
         profile_prefill=prof_prefill, profile_decode_8_steps=prof_decode,
         profile_graph_decode_8_steps=prof_graph)
+    if "patches" in batch:
+        res["patches"] = list(batch["patches"].shape)
+    if cfg.enc_layers:
+        # the decoder's step reads neither the encoder's weights nor its
+        # norm; the cross products redo 2 · n_cross [B·S_enc, D] × [D,
+        # KV·hd] matmuls a step (bf16 bytes: enc_out read by each, the
+        # weights, k and v written)
+        step_bytes = sum(p.numel() * p.element_size()
+                         for name, p in model.named_parameters()
+                         if not name.startswith(("encoder.", "enc_norm.")))
+
+        def cross_kvs():
+            for layer in model.layers:
+                if layer.cross is not None:
+                    L.cross_kv(layer.cross, enc_out)
+        flops = (2 * n_cross * 2 * LM_BATCH * frames * cfg.d_model
+                 * cfg.n_kv_heads * cfg.hd)
+        cross_ms = _graph_ms(cross_kvs, 1)
+        res.update(frames=frames, encode_s=encode_s,
+                   step_weight_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                   cross_kv_ms=cross_ms, cross_kv_gflop=flops / 1e9,
+                   cross_kv_bound_ms=_bound_ms(
+                       4 * n_cross * (LM_BATCH * frames * cfg.d_model
+                                      + (cfg.d_model + LM_BATCH * frames)
+                                      * cfg.n_kv_heads * cfg.hd),
+                       flops, BF16_FLOPS_PER_S)[0],
+                   cross_kv_share=cross_ms / (graph_s / LM_NEW * 1e3))
     # the captured decode holds the model: break the cycle, so that the
     # weights (~32 GB for starcoder2-15b) leave the card when this returns
     model.__dict__.pop("_decode_graphs", None)
     return res
 
 
-def chunked_prefill_check(model, tokens) -> dict:
-    """Phase 6b, a model with SSD layers: the prompt prefilled in two
-    chunks (``chunks=2``: the SSD state and the KV caches carried from the
-    first chunk to the second) against one prefill of it, last-token
-    logits within LOGIT_TOL, each prefill's seconds printed. An MoE
-    layer's capacity is per chunk (⌈cf · S · k / E⌉ slots an expert), so
-    one chunk and two drop different tokens by design: both prefills run
-    with the capacity factor at E / k, where an expert takes every token
-    of its chunk and none is dropped."""
+def chunked_prefill_check(model, batch, cache: int) -> dict:
+    """Phase 6b, a model with SSD layers, an encoder or patches: the
+    prompt prefilled in two chunks (``chunks=2``: the SSD state and the KV
+    caches carried from the first chunk to the second; the frames encoded
+    once for both chunks; the patches in the first chunk) against one
+    prefill of it, last-token logits within LOGIT_TOL, each prefill's
+    seconds printed. An MoE layer's capacity is per chunk (⌈cf · S · k /
+    E⌉ slots an expert), so one chunk and two drop different tokens by
+    design: both prefills run with the capacity factor at E / k, where an
+    expert takes every token of its chunk and none is dropped."""
     import dataclasses
 
     import torch
@@ -1221,7 +1405,7 @@ def chunked_prefill_check(model, tokens) -> dict:
         for chunks in (1, 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out[chunks] = M.prefill(model, {"tokens": tokens}, LM_CACHE,
+            out[chunks] = M.prefill(model, batch, cache,
                                     chunks=chunks)[0].float()
             torch.cuda.synchronize()
             secs[chunks] = time.perf_counter() - t0
@@ -1309,49 +1493,54 @@ def _route_flips(card_calls, cpu_calls, k: int, positions, first) -> list:
 
 def _card_and_cpu_lm(device, arch: str, n_layers: int) -> tuple:
     """(the card's model, the CPU's with the same bf16 weights, the 2 × 130
-    prompt) of ``arch``'s first ``n_layers`` layers at full width."""
+    prompt on the CPU: an encoder-decoder model's with 128 frames, a VLM's
+    with LM_CHECK_PATCHES patches) of ``arch``'s first ``n_layers`` layers
+    at full width (and as many encoder layers)."""
     import dataclasses
 
-    import numpy as np
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                              enc_layers=min(cfg.enc_layers, n_layers))
     card = M.init_params(cfg, seed=1, device=device)
     cpu = M.LM(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    rng = np.random.default_rng(1)
-    return card, cpu, torch.from_numpy(rng.integers(0, cfg.vocab, (2, 130)))
+    return card, cpu, _lm_batch(cfg, 2, 130, 128, LM_CHECK_PATCHES, 1, "cpu")
 
 
 def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
-    """Phase 6c: a 2-layer ``arch`` at full width, the same bf16 weights on
-    the card and on the CPU: prefill's last-token logits and the first
-    decode step's logits agree within LOGIT_TOL (2 × 130 tokens; the CPU
-    side's seconds printed). For an MoE model each MoE layer's expert
+    """Phase 6c: a 2-layer ``arch`` at full width (an encoder-decoder
+    model's 2 encoder and 2 decoder layers), the same bf16 weights on the
+    card and on the CPU: prefill's last-token logits and the first decode
+    step's logits agree within LOGIT_TOL (2 × 130 tokens, with 128 frames
+    or LM_CHECK_PATCHES patches; the decode step takes each side's own
+    encoder output; the CPU side's seconds printed). For an MoE model each MoE layer's expert
     choices agree (``_route_flips``); a sequence whose own last token
     flipped (at prefill's last position or at the decode step) is left out
     of the LOGIT_TOL check, at most one of the two."""
     import torch
     from repro_torch.models import model as M
 
-    card, cpu, tokens = _card_and_cpu_lm(device, arch, 2)
+    card, cpu, batch = _card_and_cpu_lm(device, arch, 2)
+    on_card = {k: t.to(device) for k, t in batch.items()}
     cfg = card.cfg
-    S = tokens.shape[1]
+    S = batch["tokens"].shape[1]
     res = {}
     with RouteRecorder() as r_card:
-        lg_card, st_card, pos = M.prefill(card, {"tokens": tokens.to(device)},
-                                          144)
+        lg_card, st_card, pos = M.prefill(card, on_card, 144)
     t0 = time.perf_counter()
     with RouteRecorder() as r_cpu:
-        lg_cpu, st_cpu, _ = M.prefill(cpu, {"tokens": tokens}, 144)
+        lg_cpu, st_cpu, _ = M.prefill(cpu, batch, 144)
     cpu_prefill_s = time.perf_counter() - t0
     tok = lg_cpu[:, -1].argmax(-1, keepdim=True)
     with RouteRecorder() as d_r_card:
-        d_card, _ = M.decode_step(card, tok.to(device), st_card, pos)
+        d_card, _ = M.decode_step(card, tok.to(device), st_card, pos,
+                                  enc_out=_enc_out(card, on_card))
     with RouteRecorder() as d_r_cpu:
-        d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos)
+        d_cpu, _ = M.decode_step(cpu, tok, st_cpu, pos,
+                                 enc_out=_enc_out(cpu, batch))
     left_out, flips = set(), []
     if cfg.moe is not None:
         k, first = cfg.moe.top_k, {0: S + 1, 1: S + 1}
@@ -1388,9 +1577,12 @@ def lm_card_vs_cpu(device, arch: str = LM_ARCH) -> dict:
         print(json.dumps({f"card_vs_cpu_{name}": res[name], "lm": arch}),
               flush=True)
         torch.testing.assert_close(a[keep], b[keep], **LOGIT_TOL)
-    return dict(res, lm=arch, layers=cfg.n_layers, d_model=cfg.d_model,
-                tokens=list(tokens.shape), cpu_prefill_s=cpu_prefill_s,
-                tol=LOGIT_TOL)
+    return dict(res, lm=arch, layers=cfg.n_layers,
+                enc_layers=cfg.enc_layers, d_model=cfg.d_model,
+                tokens=list(batch["tokens"].shape),
+                **{k: list(t.shape) for k, t in batch.items()
+                   if k != "tokens"},
+                cpu_prefill_s=cpu_prefill_s, tol=LOGIT_TOL)
 
 
 def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
@@ -1404,11 +1596,12 @@ def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
     |Δ| over LOGIT_TOL's bound (atol + rtol·|CPU logit|)."""
     from repro_torch.models import model as M
 
-    card, cpu, tokens = _card_and_cpu_lm(device, arch, n_layers)
+    card, cpu, batch = _card_and_cpu_lm(device, arch, n_layers)
     real = M._apply_sublayer
     logits, routes = {}, None
-    for side, model, toks in (("cpu", cpu, tokens),
-                              ("card", card, tokens.to(device))):
+    for side, model, on in (("cpu", cpu, batch),
+                            ("card", card, {k: t.to(device)
+                                            for k, t in batch.items()})):
         lasts = []
 
         def sublayer(layer, x, *args, **kw):
@@ -1418,7 +1611,7 @@ def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
         M._apply_sublayer = sublayer
         try:
             with RouteRecorder(routes) as rec:
-                M.prefill(model, {"tokens": toks}, 144)
+                M.prefill(model, on, 144)
         finally:
             M._apply_sublayer = real
         routes = rec.routes
@@ -1435,6 +1628,48 @@ def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
                follows_cpu_routes=True, by_depth=rows, tol=LOGIT_TOL)
     print(json.dumps({"card_vs_cpu_by_depth": res}), flush=True)
     return res
+
+
+def lm_phase(device, arch: str) -> list:
+    """Phase 6 for ``arch``: 6a, 6b (its model freed after), each flash
+    row's launches those of its shape in 6b's run, then 6c (and the depth
+    sweep where LM_DEPTH_SWEEP names one), with the three sub-phases'
+    seconds printed → the model's flash rows."""
+    import torch
+    secs = {}
+    t = time.perf_counter()
+    with phase(f"6a:{arch}"):
+        lm_rows = attention_checks(device, arch)
+    secs["6a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with phase(f"6b:{arch}"):
+        lm = lm_main_path(device, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["6b"] = time.perf_counter() - t
+    for r in lm_rows:
+        # the row's shape's launches in 6b's prefill or warm captured
+        # decode, as the flash wrapper counted them by shape
+        kind, shape = r.pop("count_key")
+        r["launches"] = lm["launches_by_shape"][kind].get(_shape_key(shape),
+                                                          0)
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}: no launch at {shape} in "
+                                 f"6b's {kind}")
+    print(json.dumps(lm), flush=True)
+    t = time.perf_counter()
+    with phase(f"6c:{arch}"):
+        print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device, arch))),
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in LM_DEPTH_SWEEP:
+            lm_depth_distance(device, arch, LM_DEPTH_SWEEP[arch])
+            gc.collect()
+            torch.cuda.empty_cache()
+    secs["6c"] = time.perf_counter() - t
+    print(json.dumps({"lm_seconds": {arch: secs}}), flush=True)
+    return lm_rows
 
 
 def stress_constant_checks(cases) -> list:
@@ -3785,35 +4020,7 @@ def _phases(torch, others, refs) -> int:
     # 6. the LM serving path, one model after another
     torch.cuda.empty_cache()
     for arch in LM_ARCHS:
-        secs = {}
-        t = time.perf_counter()
-        with phase(f"6a:{arch}"):
-            lm_rows = attention_checks(device, arch)
-        secs["6a"] = time.perf_counter() - t
-        t = time.perf_counter()
-        with phase(f"6b:{arch}"):
-            lm = lm_main_path(device, arch)
-            gc.collect()
-            torch.cuda.empty_cache()
-        secs["6b"] = time.perf_counter() - t
-        for kind in ("prefill", "decode"):
-            for r in lm_rows:
-                if r["name"] == _attn_row_name(kind, arch):
-                    r["launches"] = lm["launches"][kind]
-        rows += lm_rows
-        print(json.dumps(lm), flush=True)
-        t = time.perf_counter()
-        with phase(f"6c:{arch}"):
-            print(json.dumps(dict(card_vs_cpu=lm_card_vs_cpu(device, arch))),
-                  flush=True)
-            gc.collect()
-            torch.cuda.empty_cache()
-            if arch in LM_DEPTH_SWEEP:
-                lm_depth_distance(device, arch, LM_DEPTH_SWEEP[arch])
-                gc.collect()
-                torch.cuda.empty_cache()
-        secs["6c"] = time.perf_counter() - t
-        print(json.dumps({"lm_seconds": {arch: secs}}), flush=True)
+        rows += lm_phase(device, arch)
 
     # every CPU reference done before phase 7's walls; then the checks of
     # 4d, 5, 5b and 5d against theirs (9c's in phase 9)

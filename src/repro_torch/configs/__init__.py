@@ -4,9 +4,9 @@
 returns the reduced same-family config used by CPU tests. Registered: the
 dense ``internlm2-1.8b``, ``starcoder2-7b``, ``starcoder2-15b`` and
 ``gemma-2b``, the mixture-of-experts ``granite-moe-3b-a800m`` and
-``deepseek-moe-16b``, the SSM ``mamba2-1.3b`` and the hybrid
-``jamba-v0.1-52b``; the other families of the JAX package (encoder-decoder,
-VLM) need modules the port does not have yet (ROADMAP.md queue 1).
+``deepseek-moe-16b``, the SSM ``mamba2-1.3b``, the hybrid
+``jamba-v0.1-52b``, the encoder-decoder ``seamless-m4t-medium`` and the VLM
+``internvl2-76b``: every model the JAX package registers.
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
                                       ShapeCell, SHAPES, get_config,
@@ -15,5 +15,6 @@ from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
 # importing the modules populates the registry
 from repro_torch.configs import (deepseek_moe_16b, gemma_2b,
                                  granite_moe_3b_a800m, internlm2_1_8b,
-                                 jamba_v0_1_52b, mamba2_1_3b, starcoder2_7b,
+                                 internvl2_76b, jamba_v0_1_52b, mamba2_1_3b,
+                                 seamless_m4t_medium, starcoder2_7b,
                                  starcoder2_15b)

@@ -62,9 +62,13 @@ def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
     in ``params["prefix"][0]``, and the stacked groups then start at layer
     1. An MoE layer's ``moe`` carries the router (kept float32), the
     experts' weights and, with shared experts, ``moe["shared"]``; an SSD
-    layer's ``ssm`` its 11 weights. Matmul weights are cast once to
-    ``dtype``, as JAX casts them at use; norm scales and the SSD's float32
-    weights stay float32.
+    layer's ``ssm`` its 11 weights; an encoder-decoder model's attention
+    layer its ``norm_x`` and ``cross``. An encoder-decoder model's encoder
+    layers are stacked ``[enc_layers, ...]`` under ``params["encoder"]``
+    (encoder layer e is entry e), its final encoder norm is
+    ``params["enc_norm"]``. Matmul weights are cast once to ``dtype``, as
+    JAX casts them at use; norm scales and the SSD's float32 weights stay
+    float32.
     """
     model = LM(cfg, dtype=dtype, device=device)
     _put(model.embed, params["embed"])
@@ -76,9 +80,14 @@ def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
     per_layer = list(params.get("prefix", [])) + [
         _take(groups[i], g) for g in range(G) for i in range(len(groups))]
     for layer, p in zip(model.layers, per_layer, strict=True):
-        for part in ("norm1", "attn", "ssm", "norm2", "mlp", "moe"):
+        for part in ("norm1", "attn", "ssm", "norm_x", "cross", "norm2",
+                     "mlp", "moe"):
             if getattr(layer, part) is not None:
                 _put(getattr(layer, part), p[part])
+    if model.encoder is not None:
+        for e, layer in enumerate(model.encoder):
+            _put(layer, _take(params["encoder"], e))
+        _put(model.enc_norm, params["enc_norm"])
     return model
 
 

@@ -21,7 +21,7 @@ k/v) and take the batch strides of k and v, so a caller may hand them
 splits from it and masks the keys at or past ``kv_len`` on the device, so
 one captured decode step serves every position. One wrapper call counts one
 launch of ``flash_attention``, whichever route and however many device
-kernels it runs.
+kernels it runs, by shape as (B, Sq, Sk, causal).
 """
 from __future__ import annotations
 
@@ -135,6 +135,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
             part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), stream)
     else:
         err = lib.flash_attention_wgmma_launch(*args, stream)
-    _build.count("flash_attention", B, Sq, Sk)
+    _build.count("flash_attention", B, Sq, Sk, int(causal))
     _build.check(err, "flash_attention")
     return out

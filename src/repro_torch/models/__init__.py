@@ -1,4 +1,5 @@
-"""The LM serving path of the port: the dense decoder family."""
+"""The LM serving path of the port: every family the JAX package registers."""
 from repro_torch.models.model import (LM, DecodeGraph, DecoderLayer,
-                                      compile_decode, decode_step, forward,
+                                      EncoderLayer, compile_decode,
+                                      decode_step, forward,
                                       init_decode_state, init_params, prefill)

@@ -6,8 +6,9 @@ the model's dtype (bf16 by default) with float32 softmax, norm and RoPE
 internals, and SiLU rounded at JAX's steps (``silu``). Matmul weights are stored once in the activation dtype: the JAX
 package stores float32 and casts at every use, which gives the same bits.
 Norm scales stay float32. The JAX package's sharding constraints have no
-counterpart here (the sharded path is a later slice), and neither has its
-cross-attention (the encoder-decoder family).
+counterpart here (the sharded path is a later slice). Cross-attention
+(the encoder-decoder family) is ``apply_attention(cross_kv=...)`` with the
+keys and values from ``cross_kv``: no RoPE on either side, no mask.
 """
 from __future__ import annotations
 
@@ -80,11 +81,15 @@ def _qkv(p, x, rope):
     return apply_rope(q, *rope), apply_rope(k, *rope), v
 
 
-def apply_attention(p, x, rope, *, cache=None, cache_pos=None):
-    """Causal attention block. ``cache`` = (k, v) [B, Smax, KV, hd] for
-    prefill/decode, written in place at ``cache_pos``; the JAX package
-    updates it functionally and returns it. The JAX package's ``_sdpa``
-    becomes the flash-attention kernel:
+def apply_attention(p, x, rope, *, causal=True, cache=None, cache_pos=None,
+                    cross_kv=None):
+    """Attention block (``causal=False``: the encoder's self-attention).
+    ``cache`` = (k, v) [B, Smax, KV, hd] for prefill/decode, written in
+    place at ``cache_pos``; the JAX package updates it functionally and
+    returns it. ``cross_kv`` = (k, v) [B, S_enc, KV, hd] from ``cross_kv``:
+    cross-attention, q = x·wq with no RoPE (``rope`` is not read) against
+    every frame, with no mask, no cache and no ``kv_len``. The JAX
+    package's ``_sdpa`` becomes the flash-attention kernel:
 
     * ``cache_pos`` an int (prefill): the new rows are written by a slice
       and attention reads ``cache[:, :kv_len]`` with the causal mask
@@ -93,7 +98,9 @@ def apply_attention(p, x, rope, *, cache=None, cache_pos=None):
       row): the row is written by ``index_copy_`` at it and attention reads
       the whole cache with ``kv_len = cache_pos + 1`` on the device, so no
       host value changes from step to step."""
-    if cache is not None:
+    if cross_kv is not None:
+        out = flash_attention(_proj(x, p["wq"]), *cross_kv, causal=False)
+    elif cache is not None:
         q, k_new, v_new = _qkv(p, x, rope)
         ck, cv = cache
         if isinstance(cache_pos, torch.Tensor):
@@ -110,9 +117,16 @@ def apply_attention(p, x, rope, *, cache=None, cache_pos=None):
                                   causal=True)
     else:
         q, k, v = _qkv(p, x, rope)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=causal)
     wo = p["wo"]                                    # [H, hd, D]
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def cross_kv(p, enc_out):
+    """The cross-attention's keys and values [B, S_enc, KV, hd] of the
+    encoder output ``enc_out`` [B, S_enc, D]: enc_out·wk and enc_out·wv,
+    with no RoPE."""
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
 
 
 # -- MLP -------------------------------------------------------------------------

@@ -1,13 +1,21 @@
-"""The decoder-only LM: weights, forward, prefill and greedy decode.
+"""The LM: weights, forward, prefill and greedy decode.
 
-Ported from the JAX package's ``models/model.py`` for the dense, the
-mixture-of-experts, the SSM and the hybrid families: each layer is an
-attention or an SSD layer (``ssm.py``), by its position in
-``cfg.layer_pattern()``, then an MLP or an MoE layer (``moe.py``) where the
-JAX package gives one (every attention layer, and the SSD layers of a
-family other than "ssm"): ``init_params``, ``forward``, ``prefill``
-(chunked prefill included) and ``decode_step``. The weights live in
-``nn.Module``s, one ``DecoderLayer`` per layer, and the layers are looped
+Ported from the JAX package's ``models/model.py`` for every family it
+registers: dense, mixture-of-experts, SSM, hybrid, encoder-decoder and
+VLM. Each decoder layer is an attention or an SSD layer (``ssm.py``), by
+its position in ``cfg.layer_pattern()``, then, in an encoder-decoder
+model's attention layers, cross-attention over the encoder output, then
+an MLP or an MoE layer (``moe.py``) where the JAX package gives one (every
+attention layer, and the SSD layers of a family other than "ssm"):
+``init_params``, ``forward``, ``prefill`` (chunked prefill included) and
+``decode_step``. An encoder-decoder model (``cfg.enc_layers``) runs its
+``EncoderLayer``s over ``batch["frames"]`` (precomputed audio-frame
+embeddings [B, S_enc, D], the JAX package's stub frontend) in ``_encode``,
+non-causal with RoPE; a VLM (``cfg.modality == "vlm"``) takes
+``batch["patches"]`` [B, n, D] (``VLM_PATCHES`` in the JAX package's input
+specs, its stub frontend) in place of the first n embedded tokens. The
+weights live in ``nn.Module``s, one ``DecoderLayer`` per layer (and one
+``EncoderLayer`` an encoder layer), and the layers are looped
 over in Python where the JAX package scans over stacked weights (one
 stack a position of the pattern; DeepSeekMoE's dense layer 0 is a prefix
 outside the scan: here it is layer 0 with an MLP of width
@@ -20,16 +28,15 @@ The decode state is one pair of tensors a layer, updated in place: the
 (k, v) caches [B, cache_len, KV, hd] of an attention layer, the (conv, h)
 state of an SSD layer (``ssm.init_ssm_state``). ``decode_step`` takes
 ``pos`` as an int32 device scalar, as the JAX package's does: the cache row
-is written at it and attention masks the keys past it on the device. ``DecodeGraph``, built once per
-(model, batch, cache_len) by ``compile_decode``, is the counterpart of
+is written at it and attention masks the keys past it on the device.
+``DecodeGraph``, built once per (model, batch, cache_len, encoder output
+length) by ``compile_decode``, is the counterpart of
 ``jax.jit(decode_step, donate_argnums=…)``: one greedy step over static
 token, position and cache buffers, captured as a CUDA graph on the card and
 replayed; it writes the greedy token back and advances the position on the
-device. ``prefill`` stays eager, and carries the SSD state from one chunk
-to the next.
-
-Families that need modules the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+device (an encoder-decoder model's graph also holds the encoder output in
+a static buffer). ``prefill`` stays eager, encodes the frames once for
+every chunk, and carries the SSD state from one chunk to the next.
 """
 from __future__ import annotations
 
@@ -43,17 +50,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
-
-def _check_supported(cfg: ArchConfig) -> None:
-    """Raise for the families the port does not run yet."""
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family waits for a later slice "
-            "(ROADMAP.md queue 1, item 13.5: encoder-decoder)")
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: modality {cfg.modality!r} waits for a later slice "
-            "(ROADMAP.md queue 1, item 13.6: VLM)")
+VLM_PATCHES = 256        # stub frontend: patch embeddings prefix length
 
 
 def _use_moe(cfg: ArchConfig, layer: int) -> bool:
@@ -78,26 +75,46 @@ def _norm(cfg: ArchConfig, dev) -> nn.ParameterDict:
     return _weights(torch.float32, dev, **shapes)
 
 
+def _attention(cfg: ArchConfig, dtype, dev) -> nn.ParameterDict:
+    """wq [D, H, hd], wk/wv [D, KV, hd], wo [H, hd, D]: self-attention's,
+    and cross-attention's (the JAX package's ``init_cross_attention`` is
+    ``init_attention``)."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
+                    wv=(D, KV, hd), wo=(H, hd, D))
+
+
+def _mlp(cfg: ArchConfig, width: int, dtype, dev) -> nn.ParameterDict:
+    D = cfg.d_model
+    shapes = dict(wup=(D, width), wdown=(width, D))
+    if cfg.activation in ("swiglu", "geglu"):
+        shapes["wgate"] = (D, width)
+    return _weights(dtype, dev, **shapes)
+
+
 class DecoderLayer(nn.Module):
     """One pre-norm residual layer: attention or an SSD layer (``kind``,
-    the layer's position in ``cfg.layer_pattern()``), then, where the JAX
-    package gives one (``norm2`` is None elsewhere), the MLP or the MoE
-    layer (``_use_moe``); DeepSeekMoE's layer 0 takes an MLP of width
-    ``first_dense_ff``."""
+    the layer's position in ``cfg.layer_pattern()``), then, in an
+    encoder-decoder model's attention layers, cross-attention (``norm_x``
+    and ``cross``, None elsewhere), then, where the JAX package gives one
+    (``norm2`` is None elsewhere), the MLP or the MoE layer (``_use_moe``);
+    DeepSeekMoE's layer 0 takes an MLP of width ``first_dense_ff``."""
 
     def __init__(self, cfg: ArchConfig, layer: int, dtype, dev):
         super().__init__()
-        D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           cfg.d_ff)
+        D, F = cfg.d_model, cfg.d_ff
         pat = cfg.layer_pattern()
         self.kind = pat[layer % len(pat)]
         self.norm1 = _norm(cfg, dev)
         self.attn = self.ssm = self.norm2 = self.mlp = self.moe = None
+        self.norm_x = self.cross = None
         if self.kind == "attn":
-            self.attn = _weights(dtype, dev, wq=(D, H, hd), wk=(D, KV, hd),
-                                 wv=(D, KV, hd), wo=(H, hd, D))
+            self.attn = _attention(cfg, dtype, dev)
         else:
             self.ssm = SSM.SSM(cfg, dtype, dev)
+        if cfg.enc_layers and self.kind == "attn":
+            self.norm_x = _norm(cfg, dev)
+            self.cross = _attention(cfg, dtype, dev)
         if self.kind != "attn" and cfg.family == "ssm":
             return
         self.norm2 = _norm(cfg, dev)
@@ -106,20 +123,31 @@ class DecoderLayer(nn.Module):
             return
         if layer == 0 and cfg.moe is not None and cfg.moe.first_dense_ff:
             F = cfg.moe.first_dense_ff
-        mlp = dict(wup=(D, F), wdown=(F, D))
-        if cfg.activation in ("swiglu", "geglu"):
-            mlp["wgate"] = (D, F)
-        self.mlp = _weights(dtype, dev, **mlp) if F else None
+        self.mlp = _mlp(cfg, F, dtype, dev) if F else None
+
+
+class EncoderLayer(nn.Module):
+    """One pre-norm residual layer of an encoder-decoder model's encoder:
+    non-causal self-attention, then an MLP of width ``d_ff``; no
+    cross-attention."""
+
+    def __init__(self, cfg: ArchConfig, dtype, dev):
+        super().__init__()
+        self.norm1 = _norm(cfg, dev)
+        self.attn = _attention(cfg, dtype, dev)
+        self.norm2 = _norm(cfg, dev)
+        self.mlp = _mlp(cfg, cfg.d_ff, dtype, dev)
 
 
 class LM(nn.Module):
-    """Embedding, ``n_layers`` decoder layers, final norm and LM head. The
-    activation dtype (bf16 by default; the JAX package's
-    ``REPRO_ACT_DTYPE``) is the dtype of every matmul weight."""
+    """Embedding, ``n_layers`` decoder layers, final norm and LM head; an
+    encoder-decoder model also holds ``encoder``, its ``enc_layers``
+    encoder layers, and ``enc_norm`` (None elsewhere). The activation dtype
+    (bf16 by default; the JAX package's ``REPRO_ACT_DTYPE``) is the dtype
+    of every matmul weight."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.bfloat16, device=None):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         self.cfg, self.dtype, self.device = cfg, dtype, dev
         D, V = cfg.d_model, cfg.vocab_padded
@@ -129,6 +157,11 @@ class LM(nn.Module):
                         else _weights(dtype, dev, w=(D, V)))
         self.layers = nn.ModuleList(DecoderLayer(cfg, i, dtype, dev)
                                     for i in range(cfg.n_layers))
+        self.encoder = self.enc_norm = None
+        if cfg.enc_layers:
+            self.encoder = nn.ModuleList(EncoderLayer(cfg, dtype, dev)
+                                         for _ in range(cfg.enc_layers))
+            self.enc_norm = _norm(cfg, dev)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None,
@@ -142,7 +175,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     scales 1, biases 0; the SSD's dt_bias and conv_b 0, D 1 and A_log =
     log(linspace(1, 16, H)), as ``init_ssm`` makes them), drawn in float32
     by a ``torch.Generator`` on ``device`` from ``seed``. The bits are not
-    JAX's: ``convert.lm_params`` carries JAX's weights across."""
+    JAX's: ``convert.lm_params`` carries JAX's weights across.
+
+    Cross-attention and the encoder's attention take the attention
+    scales, the encoder's MLP the MLP scales. As in the JAX package, which
+    draws encoder layer e's attention from ``keys[n_layers + e % 4]``,
+    only 4 sets of encoder attention weights are drawn: layer e holds a
+    copy of set ``e % 4``, so layers e and e + 4 have equal attention
+    weights (their MLPs differ). The JAX package is the reference, so the
+    port keeps the tie."""
     model = LM(cfg, dtype=dtype, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     D, Hhd = cfg.d_model, cfg.n_heads * cfg.hd
@@ -156,6 +197,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
         std["w_out"] = SSM.dims(cfg)[0] ** -0.5
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if _tied_encoder_attention(name):
+            continue
         if leaf in ("scale", "D"):
             p.fill_(1.0)
         elif leaf in ("bias", "dt_bias", "conv_b"):
@@ -167,22 +210,39 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                             device=model.device)
             p.copy_(x.mul_(p.shape[-2] ** -0.5 if leaf == "wdown"
                            else std[leaf]))
+    for e in range(4, cfg.enc_layers):
+        model.encoder[e].attn.load_state_dict(
+            model.encoder[e % 4].attn.state_dict())
     return model
+
+
+def _tied_encoder_attention(name: str) -> bool:
+    """Whether the parameter ``name`` is an attention weight of encoder
+    layer 4 or later, which ``init_params`` copies from layer ``e % 4``."""
+    parts = name.split(".")
+    return parts[0] == "encoder" and int(parts[1]) >= 4 and parts[2] == "attn"
 
 
 # -- forward --------------------------------------------------------------------
 
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
-                    cache=None, cache_pos=None):
+                    cache=None, cache_pos=None, enc_out=None):
     """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
     ``cache``, the layer's state pair, is written in place. An SSD layer
     with a state takes the decode step for one token and the prefill that
     carries the state otherwise, as the JAX package's ``_apply_sublayer``
-    picks them."""
+    picks them. With ``enc_out`` [B, S_enc, D], a layer with ``cross``
+    attends over it after its self-attention, its keys and values
+    computed from it in every call, as the JAX package computes them."""
     h = L.apply_norm(layer.norm1, x, cfg.norm)
     if layer.attn is not None:
         x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
                                   cache_pos=cache_pos)
+        if enc_out is not None and layer.cross is not None:
+            hx = L.apply_norm(layer.norm_x, x, cfg.norm)
+            x = x + L.apply_attention(
+                layer.cross, hx, None,
+                cross_kv=L.cross_kv(layer.cross, enc_out))
     elif cache is not None and h.shape[1] == 1:
         x = x + SSM.apply_ssm_decode(layer.ssm, h, cfg, cache)
     elif cache is not None:
@@ -210,17 +270,50 @@ def _head(model: LM, x):
                            model.cfg.tie_embeddings)
 
 
+def _encode(model: LM, frames):
+    """The encoder stack of an encoder-decoder model → enc_out [B, S_enc,
+    D]: the frames [B, S_enc, D] cast to the activation dtype, each
+    encoder layer's non-causal self-attention (RoPE at positions 0 …
+    S_enc − 1) and MLP, then ``enc_norm``. The JAX package's KV chunking
+    above 4096 frames has no counterpart: the flash kernel streams any
+    length."""
+    cfg = model.cfg
+    x = frames.to(model.device, model.dtype)
+    rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
+    for layer in model.encoder:
+        h = L.apply_norm(layer.norm1, x, cfg.norm)
+        x = x + L.apply_attention(layer.attn, h, rope, causal=False)
+        h = L.apply_norm(layer.norm2, x, cfg.norm)
+        x = x + L.apply_mlp(layer.mlp, h, cfg.activation)
+    return L.apply_norm(model.enc_norm, x, cfg.norm)
+
+
+def _embed(model: LM, batch: dict):
+    """(The embedded tokens [B, S, D] — a VLM's first n positions replaced
+    by ``batch["patches"]`` [B, n, D] in the activation dtype, where the
+    batch has them — and the encoder output, or None for a model without
+    an encoder.)"""
+    cfg = model.cfg
+    x = L.apply_embedding(model.embed, batch["tokens"].to(model.device))
+    if cfg.modality == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(model.device, model.dtype)
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    enc_out = _encode(model, batch["frames"]) if cfg.enc_layers else None
+    return x, enc_out
+
+
 def forward(model: LM, batch: dict):
     """Training/prefill forward → (logits [B, S, vocab_padded], aux loss:
     the float32 sum of the MoE layers' load-balancing losses, 0 for a dense
-    model). batch: tokens int [B, S]."""
+    model). batch: tokens int [B, S]; a VLM's patches [B, n, D] (optional);
+    an encoder-decoder model's frames [B, S_enc, D] (the tokens are then
+    the decoder's)."""
     cfg = model.cfg
-    tokens = batch["tokens"].to(model.device)
-    x = L.apply_embedding(model.embed, tokens)
-    rope = L.rope_for(torch.arange(tokens.shape[1], device=model.device), cfg)
+    x, enc_out = _embed(model, batch)
+    rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
     aux_total = torch.zeros((), device=model.device)
     for layer in model.layers:
-        x, aux = _apply_sublayer(layer, x, cfg, rope)
+        x, aux = _apply_sublayer(layer, x, cfg, rope, enc_out=enc_out)
         if aux is not None:
             aux_total = aux_total + aux
     return _head(model, x), aux_total
@@ -244,71 +337,91 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     """Run the prompt, return (last-token logits [B, 1, vocab_padded],
     decode state, next_pos). ``chunks > 1`` runs the prompt in sequential
     super-chunks against the growing KV caches and the SSD state carried
-    from chunk to chunk (chunked prefill)."""
+    from chunk to chunk (chunked prefill). A VLM's patches replace the
+    first positions of the whole prompt before it is cut into chunks; an
+    encoder-decoder model encodes its frames once and every chunk attends
+    over that output."""
     cfg = model.cfg
-    tokens = batch["tokens"].to(model.device)
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
     assert S % chunks == 0
     Sc = S // chunks
     state = init_decode_state(model, B, cache_len)
-    x_full = L.apply_embedding(model.embed, tokens)
+    x_full, enc_out = _embed(model, batch)
     for c in range(chunks):
         x = x_full[:, c * Sc:(c + 1) * Sc]
         rope = L.rope_for(torch.arange(c * Sc, (c + 1) * Sc,
                                        device=model.device), cfg)
         for layer, cache in zip(model.layers, state):
             x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
-                                   cache_pos=c * Sc)
+                                   cache_pos=c * Sc, enc_out=enc_out)
     return _head(model, x[:, -1:]), state, S
 
 
-def decode_step(model: LM, token, state: list, pos):
+def decode_step(model: LM, token, state: list, pos, *, enc_out=None):
     """One decode step. token int [B, 1] at position ``pos`` (an int32 0-d
     tensor on the model's device; an int is moved there) → (logits
-    [B, 1, vocab_padded], state); the state is written in place."""
+    [B, 1, vocab_padded], state); the state is written in place. An
+    encoder-decoder model takes ``enc_out``, its prompt's ``_encode``
+    output, as the JAX package's ``decode_step`` does."""
     cfg = model.cfg
     pos = torch.as_tensor(pos, dtype=torch.int32).to(model.device)
     x = L.apply_embedding(model.embed, token.to(model.device))
     rope = L.rope_for(pos.reshape(1), cfg)
     for layer, cache in zip(model.layers, state):
         x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
-                               cache_pos=pos)
+                               cache_pos=pos, enc_out=enc_out)
     return _head(model, x), state
 
 
 class DecodeGraph:
-    """Greedy decoding for one (model, batch, cache_len): each ``step()``
-    runs ``decode_step`` on static buffers — ``token`` int64 [B, 1],
-    ``pos`` int32 0-d, ``state`` (the layers' state pairs, each written in
-    place by ``copy_``) — then writes the greedy token into ``token`` and
-    adds one to ``pos``, all on the device. On the card the first step runs
-    eagerly and captures the step as a CUDA graph
+    """Greedy decoding for one (model, batch, cache_len, enc_len): each
+    ``step()`` runs ``decode_step`` on static buffers — ``token`` int64
+    [B, 1], ``pos`` int32 0-d, ``state`` (the layers' state pairs, each
+    written in place by ``copy_``) and, for an encoder-decoder model,
+    ``enc_out`` [B, enc_len, D] (None otherwise), from which every step
+    computes the cross-attention's keys and values — then writes the greedy
+    token into ``token`` and adds one to ``pos``, all on the device. On the
+    card the first step runs eagerly and captures the step as a CUDA graph
     (``utils.cuda_graph.StepGraph``); later steps replay it. On the CPU each
     step runs eagerly on the same buffers. ``logits`` is the static buffer
     of the last step's logits [B, 1, vocab_padded]."""
 
-    def __init__(self, model: LM, batch: int, cache_len: int):
-        dev = model.device
+    def __init__(self, model: LM, batch: int, cache_len: int,
+                 enc_len: int = 0):
+        dev, cfg = model.device, model.cfg
+        if bool(cfg.enc_layers) != bool(enc_len):
+            raise ValueError(f"{cfg.name}: enc_len {enc_len} for a model "
+                             f"with {cfg.enc_layers} encoder layers")
         self.model = model
         self.token = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int32, device=dev)
         self.state = init_decode_state(model, batch, cache_len)
-        self.logits = torch.empty((batch, 1, model.cfg.vocab_padded),
+        self.enc_out = (torch.zeros((batch, enc_len, cfg.d_model),
+                                    dtype=model.dtype, device=dev)
+                        if enc_len else None)
+        self.logits = torch.empty((batch, 1, cfg.vocab_padded),
                                   dtype=model.dtype, device=dev)
         self._step = StepGraph(self._greedy, dev)
 
     def _greedy(self) -> None:
-        logits, _ = decode_step(self.model, self.token, self.state, self.pos)
+        logits, _ = decode_step(self.model, self.token, self.state, self.pos,
+                                enc_out=self.enc_out)
         self.logits.copy_(logits)
         self.token.copy_(logits[:, -1].argmax(-1, keepdim=True))
         self.pos.add_(1)
 
-    def start(self, state: list, token, pos) -> None:
-        """Load a prefill's state, the token to feed next and its position
-        (an int or an int32 device scalar) into the static buffers."""
+    def start(self, state: list, token, pos, enc_out=None) -> None:
+        """Load a prefill's state, the token to feed next, its position (an
+        int or an int32 device scalar) and, for an encoder-decoder model,
+        the prompt's encoder output into the static buffers."""
+        if (enc_out is None) != (self.enc_out is None):
+            raise ValueError("DecodeGraph.start: enc_out is given exactly "
+                             "when the model has an encoder")
         for mine, given in zip(self.state, state, strict=True):
             for a, b in zip(mine, given, strict=True):
                 a.copy_(b)
+        if enc_out is not None:
+            self.enc_out.copy_(enc_out)
         self.token.copy_(token)
         self.pos.copy_(torch.as_tensor(pos, dtype=torch.int32))
 
@@ -318,11 +431,13 @@ class DecodeGraph:
         return self.logits
 
 
-def compile_decode(model: LM, batch: int, cache_len: int) -> DecodeGraph:
-    """The model's ``DecodeGraph`` for (batch, cache_len), built on first
-    use and kept on the model."""
+def compile_decode(model: LM, batch: int, cache_len: int,
+                   enc_len: int = 0) -> DecodeGraph:
+    """The model's ``DecodeGraph`` for (batch, cache_len, enc_len — the
+    encoder output's length, 0 for a model without an encoder), built on
+    first use and kept on the model."""
     graphs = model.__dict__.setdefault("_decode_graphs", {})
-    key = (batch, cache_len)
+    key = (batch, cache_len, enc_len)
     if key not in graphs:
-        graphs[key] = DecodeGraph(model, batch, cache_len)
+        graphs[key] = DecodeGraph(model, batch, cache_len, enc_len)
     return graphs[key]

@@ -634,6 +634,36 @@ def test_flash_kernel_decode_shape_spreads_over_the_card(cuda):
     _flash_case(cuda, 4, 1, 2080, 16, 8, 128, True, cache_len=2088)
 
 
+# the encoder-decoder's non-causal calls (seamless-m4t-medium: 16 heads over
+# 16 at hd 64): the encoder's self-attention and the single-shot cross
+# prefill (Sq = Sk = 1024), a chunk of the decoder against every frame (Sq
+# 512, Sk 1024), cross decode (Sq 1: the split-KV route, no kv_len), and a
+# ragged frame count on both routes. Each output row averages ≥ 1000
+# values of v (|out| ~0.05), so atol is phase 6a's decode one
+@pytest.mark.parametrize("B,Sq,Sk,route", [
+    (4, 1024, 1024, "wgmma"),
+    (4, 512, 1024, "wgmma"),
+    (2, 300, 1000, "wgmma"),
+    (2, 1, 1000, "split_kv"),
+    (4, 1, 1024, "split_kv"),
+])
+def test_flash_kernel_not_causal_on_the_encoder_decoder_shapes(cuda, B, Sq,
+                                                                Sk, route):
+    """``causal=False`` against the plain version within rtol 1e-2, atol
+    2e-3; a second call on the same inputs gives the same bits."""
+    H = KV = 16
+    assert flash_ops.route(Sq, H, KV) == route
+    q, k, v = _attn_inputs(B, Sq, Sk, H, KV, 64, Sq + Sk, cuda)
+    out = _launched("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=False))
+    again = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=2e-3)
+    assert torch.equal(out, again)
+
+
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _attn_inputs(1, 16, 16, 4, 2, 64, 0, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -882,6 +912,55 @@ def test_captured_decode_of_the_ssm_models(cuda, arch, hd):
     n_attn = sum(layer.kind == "attn" for layer in model.layers)
     assert _build.launches["flash_attention"] == n_attn * 32
     assert any(layer.kind == "ssm" for layer in model.layers)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-76b"])
+def test_captured_decode_of_the_encoder_decoder_and_the_vlm(cuda, arch):
+    """The smoke configs of seamless-m4t-medium (2 encoder and 2 decoder
+    layers, cross-attention over 48 frames) and internvl2-76b (16 patches
+    in front of the prompt), head dim raised to 64, bf16: 32 replayed steps
+    of the captured ``DecodeGraph`` pick the eager ``decode_step``'s
+    tokens, one flash launch a layer a step and one more for each
+    cross-attention. The encoder-decoder's graph then starts again on
+    another prompt's frames: its static ``enc_out``, copied in by
+    ``start``, is what the replayed cross-attention reads."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_smoke_config(arch), head_dim=64)
+    model = M.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(4)
+
+    def prompt():
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (3, 40))).to(cuda)}
+        key, n = ("frames", 48) if cfg.enc_layers else ("patches", 16)
+        batch[key] = torch.from_numpy(rng.normal(
+            size=(3, n, cfg.d_model)) * 0.05).to(cuda, torch.bfloat16)
+        logits, state, pos = M.prefill(model, batch, 80)
+        enc_out = M._encode(model, batch["frames"]) if cfg.enc_layers else None
+        return logits[:, -1].argmax(-1, keepdim=True), state, pos, enc_out
+
+    dec = M.compile_decode(model, 3, 80, 48 if cfg.enc_layers else 0)
+    per_step = cfg.n_layers * (2 if cfg.enc_layers else 1)
+    for steps in (32, 8) if cfg.enc_layers else (32,):
+        first, state, pos, enc_out = prompt()
+        dec.start(state, first, pos, enc_out=enc_out)
+        tok, eager = first, []
+        for i in range(steps):
+            lg, state = M.decode_step(model, tok, state, pos + i,
+                                      enc_out=enc_out)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            eager.append(tok)
+        graph = []
+        _build.launches.clear()
+        for _ in range(steps):
+            dec.step()
+            graph.append(dec.token.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(graph, 1), torch.cat(eager, 1))
+        assert _build.launches["flash_attention"] == per_step * steps
 
 
 # -- the lane axis: the batched driver's [B, n_pad] groups ------------------------

@@ -5,16 +5,21 @@ and -15b (LayerNorm with its bias, the tanh GELU MLP), gemma-2b (MQA, GeGLU,
 tied head), the mixture-of-experts granite-moe-3b-a800m (5 experts top-2
 in its smoke config) and deepseek-moe-16b (a dense layer 0 of width
 first_dense_ff, then 8 experts top-2 and a shared expert), the SSM
-mamba2-1.3b (two SSD layers, no MLP) and the hybrid jamba-v0.1-52b (its
-smoke pattern ("ssm", "attn") twice, an MoE layer on the odd layers) — the
-JAX package's ``init_params`` weights for its smoke config (2 to 4 layers,
-d_model 64 or 72) are carried across with ``repro_torch.convert.lm_params``;
-then
+mamba2-1.3b (two SSD layers, no MLP), the hybrid jamba-v0.1-52b (its
+smoke pattern ("ssm", "attn") twice, an MoE layer on the odd layers), the
+encoder-decoder seamless-m4t-medium (2 encoder and 2 decoder layers with
+cross-attention, LayerNorm, GELU) and the VLM internvl2-76b (GQA 4 over 2,
+16 patch embeddings in front of the tokens) — the JAX package's
+``init_params`` weights for its smoke config (2 to 4 layers, d_model 64 or
+72) are carried across with ``repro_torch.convert.lm_params``; then
 ``forward`` (logits and the MoE aux loss), ``prefill`` (one chunk and two),
 and four greedy ``decode_step``s of both packages run on the same
-numpy-seeded tokens, and each layer's decode state (k and v caches, an SSD
-layer's conv window and h) is compared. Attention goes through the
-flash-attention wrapper, which on the CPU runs its plain version.
+numpy-seeded tokens (and frames or patches, drawn as the JAX package's
+``tests/test_models.py`` draws them; greedy decode takes each side's
+``_encode`` of the frames), and each layer's decode state (k and v
+caches, an SSD layer's conv window and h) is compared. Attention goes
+through the flash-attention wrapper, which on the CPU runs its plain
+version.
 
 Tolerances:
 - float32 (the JAX side switched to float32 by patching its two activation
@@ -67,7 +72,7 @@ from repro_torch.models import moe as port_moe
 ARCH = "internlm2-1.8b"
 ARCHS = ("internlm2-1.8b", "starcoder2-7b", "starcoder2-15b", "gemma-2b",
          "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "seamless-m4t-medium", "internvl2-76b")
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=0.02, atol=0.1)}
 ROUTE_MARGIN = {"float32": 0.0, "bfloat16": 0.02}
@@ -160,9 +165,27 @@ def _np(x):
                       np.float32)
 
 
-def _batch(tokens):
-    return ({"tokens": jnp.asarray(tokens)},
-            {"tokens": torch.from_numpy(tokens).long()})
+N_PATCHES = 16          # tests/test_models.py:_batch's VLM prefix
+
+
+def _batch(tokens, cfg, seed=0):
+    """(JAX's batch, the port's) of ``tokens``: an encoder-decoder model's
+    frames [B, S, D] and a VLM's patches [B, N_PATCHES, D] too, normal ×
+    0.05 in bf16 as the JAX package's ``tests/test_models.py`` draws them,
+    the port's the same bf16 values."""
+    jb = {"tokens": jnp.asarray(tokens)}
+    tb = {"tokens": torch.from_numpy(tokens).long()}
+    rng = np.random.default_rng(100 + seed)
+    b, s = tokens.shape
+    for key, n, used in (("frames", s, cfg.enc_layers),
+                         ("patches", N_PATCHES, cfg.modality == "vlm")):
+        if used:
+            a = jnp.asarray(rng.normal(size=(b, n, cfg.d_model)) * 0.05,
+                            jnp.bfloat16)
+            jb[key] = a
+            tb[key] = torch.from_numpy(np.array(a, np.float32)).to(
+                torch.bfloat16)
+    return jb, tb
 
 
 def _layer_states(jax_state):
@@ -204,9 +227,9 @@ def test_configs_match_jax():
 
 @pytest.mark.parametrize("arch", jax_list_archs())
 def test_param_count_matches_jax_every_family(arch):
-    """``param_count`` of every family against the JAX package's configs
-    (the encoder branch, which no registered arch of the port reaches
-    yet, included)."""
+    """``param_count`` of every family against the JAX package's configs,
+    the encoder branch included, each config rebuilt field by field from
+    JAX's."""
     d = dataclasses.asdict(jax_get_config(arch))
     d["moe"] = d["moe"] and MoEConfig(**d["moe"])
     d["ssm"] = d["ssm"] and SSMConfig(**d["ssm"])
@@ -221,7 +244,7 @@ def _unflipped(first):
 def test_forward_matches_jax(pair, routing):
     cfg, params, model, tol = pair
     margin = tol.pop("margin")
-    jb, tb = _batch(_tokens())
+    jb, tb = _batch(_tokens(), cfg)
     lj, aux_j = jax_model.forward(params, cfg, jb)
     lp, aux = M.forward(model, tb)
     assert lp.shape == (B, S, cfg.vocab_padded) and aux.dtype == torch.float32
@@ -238,7 +261,7 @@ def test_forward_matches_jax(pair, routing):
 def test_prefill_matches_jax(pair, routing):
     cfg, params, model, tol = pair
     margin = tol.pop("margin")
-    jb, tb = _batch(_tokens(1))
+    jb, tb = _batch(_tokens(1), cfg, 1)
     lj, sj, pj = jax_model.prefill(params, cfg, jb, cache_len=CACHE)
     lp, sp, pp = M.prefill(model, tb, cache_len=CACHE)
     assert pp == pj == S and lp.shape == (B, 1, cfg.vocab_padded)
@@ -252,7 +275,7 @@ def test_prefill_matches_jax(pair, routing):
 def test_chunked_prefill_matches_jax_and_single_shot(pair, routing):
     cfg, params, model, tol = pair
     margin = tol.pop("margin")
-    jb, tb = _batch(_tokens(2))
+    jb, tb = _batch(_tokens(2), cfg, 2)
     lj, sj, _ = jax_model.prefill(params, cfg, jb, cache_len=CACHE, chunks=2)
     lp, sp, _ = M.prefill(model, tb, cache_len=CACHE, chunks=2)
     jax_rec, port_rec = routing
@@ -279,17 +302,22 @@ def test_chunked_prefill_matches_jax_and_single_shot(pair, routing):
 def test_greedy_decode_matches_jax(pair, routing):
     cfg, params, model, tol = pair
     margin = tol.pop("margin")
-    jb, tb = _batch(_tokens(3))
+    jb, tb = _batch(_tokens(3), cfg, 3)
     lj, sj, pos = jax_model.prefill(params, cfg, jb, cache_len=CACHE)
     lp, sp, _ = M.prefill(model, tb, cache_len=CACHE)
+    enc_j = enc_p = None
+    if cfg.enc_layers:
+        enc_j = jax_model._encode(params, cfg, jb["frames"])
+        enc_p = M._encode(model, tb["frames"])
     first = _first_flips(cfg, *routing, [0] * len(routing[0]), margin)
     for i in range(4):
         done = len(routing[0])
         tok = np.asarray(jnp.argmax(lj[:, -1], -1), np.int32)[:, None]
         lj, sj = jax_model.decode_step(params, cfg, jnp.asarray(tok), sj,
-                                       jnp.asarray(pos + i, jnp.int32))
+                                       jnp.asarray(pos + i, jnp.int32),
+                                       enc_out=enc_j)
         lp, sp = M.decode_step(model, torch.tensor(tok).long(), sp,
-                               pos + i)
+                               pos + i, enc_out=enc_p)
         first = _first_flips(cfg, routing[0][done:], routing[1][done:],
                              [pos + i] * (len(routing[0]) - done), margin,
                              first)
@@ -310,11 +338,14 @@ def test_prefill_decode_matches_forward(arch):
     S−1 → decode 1) equals the next-token from the full forward, in bf16,
     at that test's tolerance (rtol 0.1, atol 0.25)."""
     model = _port_bf16_model(arch, 1)
-    tokens = torch.from_numpy(_tokens(3)).long()
-    logits_full, _ = M.forward(model, {"tokens": tokens})
-    lg, state, pos = M.prefill(model, {"tokens": tokens[:, :S - 1]},
+    _, batch = _batch(_tokens(3), model.cfg, 3)
+    tokens = batch["tokens"]
+    logits_full, _ = M.forward(model, batch)
+    lg, state, pos = M.prefill(model, dict(batch, tokens=tokens[:, :S - 1]),
                                cache_len=S + 4)
-    lg2, _ = M.decode_step(model, tokens[:, S - 1:S], state, pos)
+    enc_out = M._encode(model, batch["frames"]) if "frames" in batch else None
+    lg2, _ = M.decode_step(model, tokens[:, S - 1:S], state, pos,
+                           enc_out=enc_out)
     a, b = _np(logits_full[:, -1]), _np(lg2[:, 0])
     assert (a.argmax(-1) == b.argmax(-1)).all()
     np.testing.assert_allclose(a, b, rtol=0.1, atol=0.25)
@@ -325,7 +356,7 @@ def test_chunked_prefill_matches_single_shot(arch):
     """Counterpart of the JAX package's
     ``test_chunked_prefill_matches_single_shot``, at its tolerance."""
     model = _port_bf16_model(arch, 0)
-    batch = {"tokens": torch.from_numpy(_tokens(0)).long()}
+    _, batch = _batch(_tokens(0), model.cfg)
     l1, _, _ = M.prefill(model, batch, cache_len=80, chunks=1)
     l2, _, _ = M.prefill(model, batch, cache_len=80, chunks=2)
     a, b = _np(l1), _np(l2)
@@ -387,18 +418,6 @@ def test_lm_params_maps_pattern_groups_layer_by_layer():
     assert kinds == ["ssm", "attn", "ssm", "attn"]
 
 
-# ids as they were beside the MoE case (change0) and the SSM and hybrid
-# cases (change1, change2), which went with their refusals
-@pytest.mark.parametrize("change", [
-    dict(family="encdec", enc_layers=2),
-    dict(modality="vlm"),
-], ids=["change3", "change4"])
-def test_unsupported_families_raise(change):
-    cfg: ArchConfig = dataclasses.replace(get_smoke_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.LM(cfg, device="cpu")
-
-
 def _draw(rng, *shape):
     return rng.normal(size=shape).astype(np.float32)
 
@@ -456,9 +475,11 @@ def test_rope_and_tied_head_match_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_with_drawn_norms_matches_jax(arch, monkeypatch):
     """Every norm's scale (and LayerNorm's bias) drawn away from JAX's 1 and
-    0 before ``convert.lm_params`` carries the weights across: the port's
-    float32 forward still equals JAX's within the float32 tolerance, so
-    each scale and bias reaches the layer that reads it."""
+    0 before ``convert.lm_params`` carries the weights across — the
+    cross-attention's ``norm_x``, the encoder layers' norms and
+    ``enc_norm`` included: the port's float32 forward still equals JAX's
+    within the float32 tolerance, so each scale and bias reaches the layer
+    that reads it."""
     monkeypatch.setattr(jax_layers, "ACT_DTYPE", jnp.float32)
     monkeypatch.setattr(jax_model, "ACT", jnp.float32)
     cfg = jax_get_smoke_config(arch)
@@ -466,8 +487,11 @@ def test_forward_with_drawn_norms_matches_jax(arch, monkeypatch):
         cfg, jax.random.PRNGKey(1)))
     rng = np.random.default_rng(14)
     norms = [params["final_norm"]] + [layer[k] for layer in (
-        *params["groups"], *params.get("prefix", ()))
-        for k in ("norm1", "norm2") if k in layer]
+        *params["groups"], *params.get("prefix", ()),
+        *([params["encoder"]] if "encoder" in params else ()))
+        for k in ("norm1", "norm2", "norm_x") if k in layer]
+    if "enc_norm" in params:
+        norms.append(params["enc_norm"])
     for norm in norms:
         for name, a in norm.items():
             base = 1.0 if name == "scale" else 0.0
@@ -476,7 +500,7 @@ def test_forward_with_drawn_norms_matches_jax(arch, monkeypatch):
     assert ("bias" in norms[0]) == (cfg.norm == "layernorm")
     model = convert.lm_params(params, get_smoke_config(arch), device="cpu",
                               dtype=torch.float32)
-    jb, tb = _batch(_tokens(4))
+    jb, tb = _batch(_tokens(4), cfg, 4)
     lj, _ = jax_model.forward(jax.tree.map(jnp.asarray, params), cfg, jb)
     lp, _ = M.forward(model, tb)
     np.testing.assert_allclose(_np(lp), _np(lj), **TOL["float32"])
