@@ -253,7 +253,38 @@ of them passed):
         included, NELD and CRE within phase 5's deltas;
      d. the layout CLI with ``--driver multigila_dist --mesh 1x1`` in
         process on the card;
-  10. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
+  10. LM training (after the CPU workers are joined, so its CPU sides run
+     in the main process alone):
+     a. every registered model's smoke config (LM_ARCHS), one training
+        step on the card and on the CPU from the same bf16 weights (drawn
+        on the CPU, copied) and the training driver's batch 0
+        (``batch_at`` and ``extra_inputs``, B 2 × S 64): loss and grad
+        norm within
+        LOGIT_TOL, every gradient leaf within GRAD_TOL of the leaf's
+        largest |value|, the card's AdamW on the CPU's gradients from the
+        same state giving the CPU's masters, mu and nu within 1e-6 of each
+        leaf's largest |value|, the card's own masters within 0.02 × the
+        step's lr where both sides' gradients agree in sign and lie past
+        AdamW's eps (within 2 × lr elsewhere), MoE choices as 6c holds them at SMOKE_ROUTE_MARGIN
+        (the card follows the CPU's, ``RouteRecorder``); on the card,
+        remat "full" and "dots"
+        give "none"'s loss bit for bit and its gradients within GRAD_TOL
+        (``train_step_card_vs_cpu``);
+     b. internlm2-1.8b, mamba2-1.3b and seamless-m4t-medium (TRAIN_WIDE)
+        at full width, 2 layers, B 2 × S 128 (seamless: 64 frames + 64
+        tokens): the same checks, the CPU's seconds printed;
+     c. internlm2-1.8b at full width and depth through
+        ``repro_torch.launch.train.main`` (TRAIN_FULL: --batch 4 --seq
+        1024, 30 steps at --remat none, then 7 at full and 7 at dots):
+        step ms (median from the third step, the last left out), tokens/s,
+        peak GB, 6·N·tokens over the step time; every loss finite and the
+        last 5 losses' mean below step 0's; each mode's last step
+        profiled, its attention kernels named (SDPA's backend);
+     d. a resume on the card at internlm2-1.8b's smoke config: 40 steps
+        straight against 40 checkpointed every 20, step_40 deleted and
+        resumed with --resume auto from step 20: final losses within
+        LOGIT_TOL;
+  11. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
      worker), ``{"phase_seconds": {...}}`` (the wall seconds of every phase
      and sub-phase: a phase whose check waits for a CPU reference counts
      its card side and its check; ``cpu_refs_wait`` is the wait for the
@@ -921,7 +952,11 @@ def profile_run(fn) -> dict:
     for the batched phase's runs takes longer than the runs. The profiler
     still slows the host, so the wall here is longer than the unprofiled
     run's."""
-    wall, events = _device_events(fn)
+    return _profile_summary(*_device_events(fn))
+
+
+def _profile_summary(wall: float, events: list) -> dict:
+    """``profile_run``'s summary of ``_device_events``' output."""
     spans, by_name = [(s, t) for _, s, t in events], _ms_by_name(events)
     if not spans:
         raise AssertionError("profiler recorded no device activity")
@@ -1430,29 +1465,30 @@ def chunked_prefill_check(model, batch, cache: int) -> dict:
 
 class RouteRecorder:
     """Within ``with``: every MoE layer call's router output (probs and
-    expert indices, copied to the CPU) appended to ``calls``, and the whole
-    output to ``routes``, by wrapping ``repro_torch.models.moe.route``,
-    which ``apply_moe`` calls. Given ``follow`` (another recorder's
-    ``routes``), each call records its own router output and returns the
-    one of ``follow`` at its place instead: the layer then dispatches as
-    the other run did."""
+    expert indices, copied to the CPU) appended to ``calls``, by wrapping
+    ``repro_torch.models.moe.route``, which ``apply_moe`` calls. Given
+    ``follow`` (another recorder's ``calls``), each call records its own
+    router output and dispatches to the expert indices of ``follow`` at
+    its place instead, the gates gathered from its own probabilities and
+    renormalised as ``route`` does (so the router keeps its gradient): the
+    layer then dispatches as the other run did."""
 
     def __init__(self, follow=None):
         self.follow = follow
 
     def __enter__(self):
         from repro_torch.models import moe as MOE
-        self.calls, self.routes = [], []
+        self.calls = []
         self._moe, self._route = MOE, MOE.route
 
         def route(p, x, m):
-            out = self._route(p, x, m)
-            self.calls.append((out[0].float().cpu(), out[2].cpu()))
-            self.routes.append(tuple(t.cpu() for t in out))
-            if self.follow is not None:
-                return tuple(t.to(x.device)
-                             for t in self.follow[len(self.routes) - 1])
-            return out
+            probs, gates, idx = self._route(p, x, m)
+            self.calls.append((probs.detach().float().cpu(), idx.cpu()))
+            if self.follow is None:
+                return probs, gates, idx
+            idx = self.follow[len(self.calls) - 1][1].to(x.device)
+            g = probs.gather(-1, idx)
+            return probs, g / g.sum(-1, keepdim=True).clamp_min(1e-9), idx
         MOE.route = route
         return self
 
@@ -1614,7 +1650,7 @@ def lm_depth_distance(device, arch: str, n_layers: int) -> dict:
                 M.prefill(model, on, 144)
         finally:
             M._apply_sublayer = real
-        routes = rec.routes
+        routes = rec.calls
         logits[side] = [M._head(model, x).float().cpu() for x in lasts]
     rows = []
     for layer, a, b in zip(card.layers, logits["card"], logits["cpu"]):
@@ -3828,6 +3864,500 @@ def compare_trees(srcs, cases) -> None:
                 sys.path.remove(str(tree))
 
 
+# -- phase 10: LM training -----------------------------------------------------
+
+# phase 10b's full-width models, 2 layers each: attention's backward through
+# SDPA (internlm2), the SSD's backward (mamba2), the encoder and
+# cross-attention (seamless), at TRAIN_WIDE_SEQ positions of batch 2 (an
+# encoder-decoder model's split as the driver splits --seq: frames + tokens)
+TRAIN_WIDE = ("internlm2-1.8b", "mamba2-1.3b", "seamless-m4t-medium")
+TRAIN_WIDE_SEQ = 128
+# phase 10c: internlm2-1.8b at full width and depth through the training
+# driver, --batch 4 --seq 1024: 30 steps at --remat none, then 7 each at
+# full and dots; the step time is the median over the steps from the third
+# to the last but one (the last is profiled): 4 steps at full and dots
+TRAIN_FULL = dict(batch=4, seq=1024, steps=30, remat_steps=7)
+# phase 10a/10b: the optimizer's schedule (the driver's for 30 steps)
+TRAIN_OPTIM = dict(lr=3e-4, warmup_steps=5, total_steps=30)
+# card vs CPU gradients, both bf16: each leaf within rtol·|CPU| + atol ×
+# the leaf's largest |CPU value| (LOGIT_TOL taken relative to the leaf). A
+# leaf outside it whose bf16 CPU gradient is itself further than that from
+# the CPU's float32 gradient of the same weights, batch and routes (a sum
+# over every position, where bf16 rounding cancels: the CPU tests met one,
+# jamba's per-head ssm.A_log) is held to lie no further from the float32
+# gradient than twice the CPU's bf16 one
+GRAD_TOL = LOGIT_TOL
+# the card's AdamW on the CPU's gradients from the same state: its masters,
+# mu and nu within OPTIM_TOL × the CPU leaf's largest |value| (float32
+# elementwise arithmetic in one order on both; the grad norm's sum order
+# moves the clip scale by ~5e-7 and nu by twice that, and the device's pow
+# and cos differ by ulps)
+OPTIM_TOL = 1e-5
+# the card's own step: where both sides' gradients agree in sign and
+# |g| × the clip scale is at least AGREE_EPS × AdamW's eps, step 1 moves an
+# element by lr × (1 ± 1%) on both sides, so the masters agree within
+# MASTER_AGREE × lr (an element inside the bf16 noise may move by +lr on
+# one side and −lr on the other: 2 × lr there)
+AGREE_EPS = 100
+MASTER_AGREE = 0.02
+# phase 10a's MoE smoke configs route among 5-8 experts of d_model 64-72 at
+# probabilities ~0.2, where bf16 noise of ~2^-8 in a router logit of O(1)
+# moves a probability by ~1e-3: ROUTE_MARGIN (set for the published
+# widths' 40-64 experts at ~1/E) would count noise as a fault there, so
+# these take the CPU tests' bf16 margin against the JAX package
+SMOKE_ROUTE_MARGIN = 0.02
+
+
+class GradRecorder:
+    """Within ``with``: the gradients each training step hands to AdamW
+    (``train_step.apply_updates`` wrapped), the last step's kept in
+    ``grads``."""
+
+    def __enter__(self):
+        from repro_torch.train import train_step
+        self._mod, self._apply = train_step, train_step.apply_updates
+
+        def apply_updates(cfg, params, grads, st):
+            self.grads = {k: g.detach().clone() for k, g in grads.items()}
+            return self._apply(cfg, params, grads, st)
+        train_step.apply_updates = apply_updates
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.apply_updates = self._apply
+
+
+def _train_batch(cfg, b: int, s: int, device) -> dict:
+    """The training driver's batch 0 at b × s: ``batch_at`` tokens and
+    labels (an encoder-decoder model's cut to s // 2 with s // 2 frames)
+    and ``extra_inputs``, on ``device``."""
+    from repro_torch.train import DataConfig, batch_at, extra_inputs
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b), 0)
+    if cfg.enc_layers:
+        batch = {k: v[:, :s // 2] for k, v in batch.items()}
+    batch.update(extra_inputs(cfg, b, s // 2 if cfg.enc_layers else s))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _grads_against(label: str, got: dict, ref: dict, truth) -> dict:
+    """Every gradient leaf of ``got`` against ``ref``'s (GRAD_TOL relative
+    to the leaf's largest |value|; ``truth()`` gives the float32 gradients
+    for a leaf outside it) → the largest |Δ| over a leaf's max, and the
+    leaves held to the float32 gradient. Compared on ``got``'s device."""
+    import torch
+    worst, via_f32 = 0.0, []
+    for name, b in ref.items():
+        a = got[name].float()
+        b = b.to(a.device).float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} gradient {name}: not finite")
+        scale = float(b.abs().max())
+        if scale == 0:
+            if float(a.abs().max()):
+                raise AssertionError(f"{label} gradient {name}: zero in "
+                                     "the reference only")
+            continue
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()) / scale)
+        if bool((d <= GRAD_TOL["rtol"] * b.abs()
+                 + GRAD_TOL["atol"] * scale).all()):
+            continue
+        t = truth()[name].to(a.device).float()
+        bt = (b - t).abs()
+        if bool((bt <= GRAD_TOL["rtol"] * t.abs()
+                 + GRAD_TOL["atol"] * float(t.abs().max())).all()):
+            raise AssertionError(f"{label} gradient {name}: largest |Δ| "
+                                 f"{float(d.max())} of a max {scale}")
+        if float((a - t).abs().max()) > 2 * float(bt.max()):
+            raise AssertionError(f"{label} gradient {name}: further from "
+                                 "the float32 gradient than twice the "
+                                 "reference's")
+        via_f32.append(name)
+    return dict(max_err_over_leaf_max=worst, held_to_float32=via_f32)
+
+
+def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
+                           margin: float = ROUTE_MARGIN):
+    """One training step of ``cfg`` on the card and on the CPU from the
+    same bf16 weights (drawn on the CPU from seed 1 and copied) and the
+    training driver's batch 0: the loss (and ce, aux) within LOGIT_TOL,
+    the grad norm within LOGIT_TOL, every gradient leaf
+    (``_grads_against``), the card's ``apply_updates`` on the CPU's
+    gradients from the same initial state giving the CPU's masters, mu and
+    nu (OPTIM_TOL), the card's own masters after its step within
+    MASTER_AGREE × lr where both sides' gradients agree in sign past
+    AGREE_EPS × eps (2 × lr elsewhere), and the weights equal to the cast
+    masters. MoE models: the card follows the CPU's
+    expert choices (``RouteRecorder``), and its own must equal them on
+    every token whose CPU margin is at least ``margin`` (flips below it
+    are counted). ``remat_modes``: before the step, on the card, each
+    mode's loss equal to "none"'s bit for bit and its gradients within
+    GRAD_TOL of them. → the numbers, the CPU's seconds included."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import (AdamWConfig, TrainConfig, apply_updates,
+                                   init_opt_state, init_train_state,
+                                   make_train_step)
+    from repro_torch.utils.device import synchronize
+
+    t0 = time.perf_counter()
+    cpu = M.init_params(cfg, seed=1, device="cpu")
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    card = M.LM(cfg, device=device)
+    card.load_state_dict(init)
+    tcfg = TrainConfig(optim=AdamWConfig(**TRAIN_OPTIM))
+    step = make_train_step(tcfg)
+    batch = _train_batch(cfg, b, s, "cpu")
+    on_card = {k: v.to(device) for k, v in batch.items()}
+    res = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               tokens=list(batch["tokens"].shape),
+               init_s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    opt_c, _ = init_train_state(cpu, tcfg)
+    with RouteRecorder() as r_cpu, GradRecorder() as g_cpu:
+        _, opt_c, _, m_cpu = step(cpu, opt_c, None, batch)
+    res["cpu_step_s"] = time.perf_counter() - t0
+    follow = r_cpu.calls or None
+
+    t0 = time.perf_counter()
+    opt_k, _ = init_train_state(card, tcfg)
+    if remat_modes:
+        params = list(card.parameters())
+        ref = None
+        for remat in ("none", *remat_modes):     # the card's own routes:
+            loss, _ = M.loss_fn(card, on_card, remat=remat)   # a replay
+            grads = torch.autograd.grad(loss, params)   # recomputes them
+            grads = dict(zip(dict(card.named_parameters()), grads))
+            if ref is None:
+                ref = (loss.detach(), grads)
+                continue
+            if not torch.equal(loss.detach(), ref[0]):
+                raise AssertionError(f"remat {remat}: loss {float(loss)} "
+                                     f"against none's {float(ref[0])}")
+            res[f"remat_{remat}"] = _grads_against(
+                f"remat {remat} vs none", grads, ref[1], lambda: ref[1])
+        del ref, grads
+    with RouteRecorder(follow) as r_card, GradRecorder() as g_card:
+        _, opt_k, _, m_card = step(card, opt_k, None, on_card)
+    synchronize(device)
+    res["card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        a, c = float(m_card[key]), float(m_cpu[key])
+        res[key] = dict(card=a, cpu=c)
+        if not abs(a - c) <= LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * abs(c):
+            raise AssertionError(f"card vs CPU {key}: {a} against {c}")
+
+    f32 = {}
+
+    def truth():
+        if not f32:
+            cpu32 = M.LM(cfg, dtype=torch.float32, device="cpu")
+            cpu32.load_state_dict(init)
+            cpu32.requires_grad_(True)
+            p32 = dict(cpu32.named_parameters())
+            with RouteRecorder(follow):
+                loss32, _ = M.loss_fn(cpu32, batch)
+            f32.update(zip(p32, torch.autograd.grad(
+                loss32, list(p32.values()))))
+        return f32
+    res["grads"] = _grads_against("card vs CPU", g_card.grads, g_cpu.grads,
+                                  truth)
+
+    # the card's AdamW on the CPU's gradients, from the same state
+    names = [name for name, _ in card.named_parameters()]
+    params = {name: init[name].to(device) for name in names}
+    replay = init_opt_state(tcfg.optim, params)
+    _, replay, _ = apply_updates(
+        tcfg.optim, params,
+        {name: g.to(device) for name, g in g_cpu.grads.items()}, replay)
+    worst = 0.0
+    for key in ("master", "mu", "nu"):
+        for name in names:
+            a = getattr(replay, key)[name]
+            c = getattr(opt_c, key)[name].to(device)
+            scale = float(c.abs().max())
+            d = float((a - c).abs().max())
+            worst = max(worst, d / scale if scale else d)
+            if d > OPTIM_TOL * scale:
+                raise AssertionError(f"card AdamW on the CPU's gradients: "
+                                     f"{key} {name} |Δ| {d} of a max "
+                                     f"{scale}")
+    res["adamw_replay_max_err_over_leaf_max"] = worst
+    del params, replay
+
+    opt = tcfg.optim
+    lr1 = float(m_cpu["lr"])
+    clip = [min(1.0, opt.clip_norm / max(float(m["grad_norm"]), 1e-12))
+            for m in (m_card, m_cpu)]
+    worst, agree, n_el = 0.0, 0, 0
+    for name, p in card.named_parameters():
+        mk, mc = opt_k.master[name], opt_c.master[name].to(device)
+        gk = g_card.grads[name].float()
+        gc = g_cpu.grads[name].to(device).float()
+        ok = ((gk.sign() == gc.sign())
+              & (gk.abs() * clip[0] >= AGREE_EPS * opt.eps)
+              & (gc.abs() * clip[1] >= AGREE_EPS * opt.eps))
+        d = (mk - mc).abs()
+        slack = 1e-6 * float(mc.abs().max())
+        if bool((d[ok] > MASTER_AGREE * lr1 + slack).any()):
+            raise AssertionError(f"master {name}: |Δ| {float(d[ok].max())} "
+                                 f"where the gradients agree, past "
+                                 f"{MASTER_AGREE}·lr {lr1}")
+        if float(d.max()) > 2 * lr1 + slack:
+            raise AssertionError(f"master {name}: |Δ| {float(d.max())} "
+                                 f"past 2·lr {lr1}")
+        if bool(ok.any()):
+            worst = max(worst, float(d[ok].max()))
+        agree += int(ok.sum())
+        n_el += ok.numel()
+        if not torch.equal(p.detach(), mk.to(p.dtype)):
+            raise AssertionError(f"{name}: weight is not the cast master")
+    res["master_agree_max_abs_over_lr"] = worst / lr1
+    res["master_agree_share"] = agree / n_el
+    if cfg.moe is not None:
+        k, flips = cfg.moe.top_k, 0
+        for (p_cpu, e_cpu), (_, e_card) in zip(r_cpu.calls, r_card.calls):
+            srt = p_cpu.sort(dim=-1, descending=True).values
+            gap = srt[..., k - 1] - srt[..., k]
+            differ = (e_card.sort(-1).values
+                      != e_cpu.sort(-1).values).any(-1)
+            bad = differ & (gap >= margin)
+            if bool(bad.any()):
+                raise AssertionError(f"card vs CPU: an expert choice "
+                                     f"differs at CPU margins "
+                                     f"{gap[bad].tolist()} ≥ {margin}")
+            flips += int(differ.sum())
+        res["routing"] = dict(moe_calls=len(r_cpu.calls), flips=flips,
+                              margin=margin)
+    res["compare_s"] = time.perf_counter() - t0
+    return res
+
+
+def train_smoke_phase(device) -> dict:
+    """Phase 10a: every registered model's smoke config, one step card
+    against CPU at B 2 × S 64, remat full and dots checked on the card."""
+    from repro_torch.configs import get_smoke_config
+    out = {}
+    for arch in LM_ARCHS:
+        r = train_step_card_vs_cpu(device, get_smoke_config(arch), 2, 64,
+                                   remat_modes=("full", "dots"),
+                                   margin=SMOKE_ROUTE_MARGIN)
+        print(json.dumps({"train_card_vs_cpu": r, "lm": arch,
+                          "config": "smoke"}), flush=True)
+        out[arch] = r
+    return out
+
+
+def train_wide_phase(device) -> dict:
+    """Phase 10b: TRAIN_WIDE at full width, 2 layers (and 2 encoder
+    layers), one step card against CPU at B 2 × S TRAIN_WIDE_SEQ
+    (``train_step_card_vs_cpu``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in TRAIN_WIDE:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=2,
+                                  enc_layers=min(cfg.enc_layers, 2))
+        r = train_step_card_vs_cpu(device, cfg, 2, TRAIN_WIDE_SEQ)
+        print(json.dumps({"train_card_vs_cpu": r, "lm": arch,
+                          "config": "full width, 2 layers"}), flush=True)
+        out[arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+_ATTN_WORDS = ("flash", "fmha", "attention", "cudnn", "efficient", "sdpa",
+               "attn")
+
+
+class StepTimes:
+    """Within ``with``: the training driver's steps
+    (``launch.train.make_train_step`` wrapped), each followed by a
+    synchronize: its wall seconds and loss in ``seconds`` and ``losses``;
+    the step at index ``profile_at`` runs under torch.profiler instead (its
+    time left out of ``seconds``: None there): ``profile`` holds its
+    ``_profile_summary`` and, as ``attention``, [name, ms, launches] of
+    every kernel whose name says attention (SDPA's backend). The optimizer
+    (``train_step.apply_updates``) is timed by CUDA events around its
+    launches, from the end of the backward's on: ``optim_ms``."""
+
+    def __init__(self, profile_at=None):
+        self.profile_at = profile_at
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import train as T
+        from repro_torch.train import train_step as TS
+        self._mod, self._make = T, T.make_train_step
+        self._ts, self._apply = TS, TS.apply_updates
+        self.seconds, self.losses, self.profile = [], [], None
+        self.optim_ms, marks = [], []
+
+        def apply_updates(*args):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            out = self._apply(*args)
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return out
+        TS.apply_updates = apply_updates
+
+        def make_train_step(tcfg):
+            real = self._make(tcfg)
+
+            def step(*args):
+                if len(self.losses) == self.profile_at:
+                    out = []
+                    wall, events = _device_events(
+                        lambda: out.append(real(*args)))
+                    self.profile = _profile_summary(wall, events)
+                    self.profile["attention"] = [
+                        [name, ms, cnt] for name, (ms, cnt)
+                        in _ms_by_name(events).items()
+                        if any(w in name.lower() for w in _ATTN_WORDS)]
+                    self.seconds.append(None)
+                    out = out[0]
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = real(*args)
+                    torch.cuda.synchronize()
+                    self.seconds.append(time.perf_counter() - t0)
+                self.losses.append(float(out[3]["loss"]))
+                a, b = marks[-2:]
+                self.optim_ms.append(a.elapsed_time(b))
+                return out
+            return step
+        T.make_train_step = make_train_step
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_train_step = self._make
+        self._ts.apply_updates = self._apply
+
+
+def train_full_phase() -> dict:
+    """Phase 10c: internlm2-1.8b at full width and depth through
+    ``repro_torch.launch.train.main`` (TRAIN_FULL): --remat none for
+    ``steps`` steps, then ``remat_steps`` each at full and dots, the last
+    step of each profiled (SDPA's kernels named). For each mode: the
+    median step ms over the steps from the third (the profiled one left
+    out), the optimizer's device ms, tokens/s, the allocator's peak GB,
+    and 6·N·tokens over the step time. Every loss finite; the 30-step
+    run's mean over its last 5 losses below its step 0's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+
+    cfg = get_config(LM_ARCH)
+    n_params = cfg.param_count()
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    out = {}
+    for remat, steps in (("none", TRAIN_FULL["steps"]),
+                         ("full", TRAIN_FULL["remat_steps"]),
+                         ("dots", TRAIN_FULL["remat_steps"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StepTimes(profile_at=steps - 1) as rec:
+            final = T.main(["--arch", LM_ARCH, "--batch",
+                            str(TRAIN_FULL["batch"]), "--seq",
+                            str(TRAIN_FULL["seq"]), "--steps", str(steps),
+                            "--remat", remat, "--log-every", "10"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        timed = [i for i, t in enumerate(rec.seconds)
+                 if i >= 2 and t is not None]
+        step_s = float(np.median([rec.seconds[i] for i in timed]))
+        r = dict(remat=remat, steps=steps, step_ms=step_s * 1e3,
+                 optim_ms=float(np.median([rec.optim_ms[i] for i in timed])),
+                 step_ms_all=[None if t is None else t * 1e3
+                              for t in rec.seconds],
+                 tokens_per_s=tokens / step_s, peak_gb=peak,
+                 model_flops_per_s=6 * n_params * tokens / step_s,
+                 model_flops_share=6 * n_params * tokens / step_s
+                 / BF16_FLOPS_PER_S, losses=rec.losses, final_loss=final,
+                 wall_s=wall, params=n_params, tokens_per_step=tokens)
+        if not all(np.isfinite(rec.losses)):
+            raise AssertionError(f"10c {remat}: a loss is not finite: "
+                                 f"{rec.losses}")
+        if remat == "none":
+            if not np.mean(rec.losses[-5:]) < rec.losses[0]:
+                raise AssertionError(f"10c: the last 5 losses' mean "
+                                     f"{np.mean(rec.losses[-5:])} is not "
+                                     f"below step 0's {rec.losses[0]}")
+        r["profile"] = rec.profile
+        print(json.dumps({"train_full": r, "lm": LM_ARCH}), flush=True)
+        out[remat] = r
+    return out
+
+
+def train_resume_phase() -> dict:
+    """Phase 10d: internlm2-1.8b's smoke config through the driver on the
+    card (B 4 × S 128): run A, 40 steps without checkpoints; run B, 40
+    steps checkpointed every 20, its step_40 deleted, then resumed with
+    --resume auto: B restores step 20 and its final loss lies within
+    LOGIT_TOL of A's."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import latest_step
+    from repro_torch.launch import train as T
+
+    args = ["--arch", LM_ARCH, "--smoke", "--steps", "40", "--seq", "128",
+            "--batch", "4", "--log-every", "100"]
+    loss_a = T.main(args)
+    with tempfile.TemporaryDirectory() as d:
+        loss_b_first = T.main([*args, "--ckpt", d, "--ckpt-every", "20"])
+        shutil.rmtree(os.path.join(d, "step_40"))
+        if latest_step(d) != 20:
+            raise AssertionError(f"10d: latest step {latest_step(d)}")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            loss_b = T.main([*args, "--ckpt", d, "--resume", "auto"])
+        print(log.getvalue(), end="", flush=True)
+        if "[resume] restored step 20" not in log.getvalue():
+            raise AssertionError("10d: the resumed run did not restore "
+                                 "step 20")
+        if latest_step(d) != 40:
+            raise AssertionError("10d: no step_40 after the resume")
+    res = dict(loss_uninterrupted=loss_a, loss_checkpointed=loss_b_first,
+               loss_resumed=loss_b, tol=LOGIT_TOL)
+    if not abs(loss_b - loss_a) <= (LOGIT_TOL["atol"]
+                                    + LOGIT_TOL["rtol"] * abs(loss_a)):
+        raise AssertionError(f"10d: resumed loss {loss_b} against {loss_a}")
+    print(json.dumps({"train_resume": res, "lm": LM_ARCH}), flush=True)
+    return res
+
+
+def train_phase(device) -> None:
+    """Phase 10, each sub-phase in PHASE_SECONDS."""
+    import torch
+    with phase("10a"):
+        train_smoke_phase(device)
+    with phase("10b"):
+        train_wide_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("10c"):
+        train_full_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("10d"):
+        train_resume_phase()
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3856,7 +4386,7 @@ def main(argv=None) -> int:
 
 
 def _phases(torch, others, refs) -> int:
-    """Phases 1-10 (the module docstring), the CPU references in ``refs``'
+    """Phases 1-11 (the module docstring), the CPU references in ``refs``'
     workers."""
     t_all = time.perf_counter()
     import numpy as np
@@ -4059,7 +4589,12 @@ def _phases(torch, others, refs) -> int:
     rows += near_rows
     torch.cuda.empty_cache()
 
-    # 10. summary
+    # 10. LM training: every smoke config and three full-width models card
+    # vs CPU, internlm2-1.8b at full size through the driver, a resume
+    train_phase(device)
+    torch.cuda.empty_cache()
+
+    # 11. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

@@ -1,1 +1,4 @@
-from repro_torch.ckpt.checkpoint import array_digest, load_npz, save_npz
+from repro_torch.ckpt.checkpoint import (CheckpointManager, array_digest,
+                                         latest_step, load_npz,
+                                         restore_checkpoint, save_checkpoint,
+                                         save_npz)

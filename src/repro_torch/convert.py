@@ -1,9 +1,10 @@
 """Carry the JAX package's state across to the port.
 
 The layout system's carried state is the graph and the hierarchy; the LM's
-is its weights. Each function takes the JAX package's arrays as numpy arrays
-(the caller converts with ``np.asarray``) and returns the port's structure
-on ``device`` — so both packages can be fed identical inputs.
+is its weights and its optimizer state. Each function takes the JAX
+package's arrays as numpy arrays (the caller converts with ``np.asarray``)
+and returns the port's structure on ``device`` — so both packages can be
+fed identical inputs.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.graphs.graph import PaddedGraph
 from repro_torch.models.model import LM
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
+from repro_torch.train.optim import OptState
 from repro_torch.utils.device import resolve_device
 
 
@@ -68,27 +70,54 @@ def lm_params(params, cfg, *, device=None, dtype=torch.bfloat16) -> LM:
     (encoder layer e is entry e), its final encoder norm is
     ``params["enc_norm"]``. Matmul weights are cast once to ``dtype``, as
     JAX casts them at use; norm scales and the SSD's float32 weights stay
-    float32.
+    float32 (``lm_leaves`` gives the mapping).
     """
     model = LM(cfg, dtype=dtype, device=device)
-    _put(model.embed, params["embed"])
-    _put(model.final_norm, params["final_norm"])
-    if model.lm_head is not None:
-        _put(model.lm_head, params["lm_head"])
-    groups = params["groups"]
-    G = len(groups[0]["norm1"]["scale"])
-    per_layer = list(params.get("prefix", [])) + [
-        _take(groups[i], g) for g in range(G) for i in range(len(groups))]
-    for layer, p in zip(model.layers, per_layer, strict=True):
-        for part in ("norm1", "attn", "ssm", "norm_x", "cross", "norm2",
-                     "mlp", "moe"):
-            if getattr(layer, part) is not None:
-                _put(getattr(layer, part), p[part])
-    if model.encoder is not None:
-        for e, layer in enumerate(model.encoder):
-            _put(layer, _take(params["encoder"], e))
-        _put(model.enc_norm, params["enc_norm"])
+    leaves = lm_leaves(params, model)
+    for name, p in model.named_parameters():
+        p.copy_(torch.from_numpy(np.array(leaves[name], np.float32)))
     return model
+
+
+def lm_leaves(tree, model: LM) -> dict:
+    """{the name of each of ``model``'s parameters: the leaf of ``tree`` at
+    its place}, for any pytree shaped like the JAX package's params — the
+    params themselves, their gradients, or an optimizer state's mu, nu or
+    master (``lm_params`` has the layout)."""
+    groups = tree["groups"]
+    G = len(groups[0]["norm1"]["scale"])
+    per_layer = list(tree.get("prefix", [])) + [
+        _take(groups[i], g) for g in range(G) for i in range(len(groups))]
+    if len(per_layer) != len(model.layers):
+        raise ValueError(f"{len(per_layer)} layers for a model of "
+                         f"{len(model.layers)}")
+    nested = dict(tree, layers=dict(enumerate(per_layer)))
+    if model.encoder is not None:
+        nested["encoder"] = {e: _take(tree["encoder"], e)
+                             for e in range(len(model.encoder))}
+    out = {}
+    for name, _ in model.named_parameters():
+        node = nested
+        for part in name.split("."):
+            node = node[int(part) if part.isdigit() else part]
+        out[name] = node
+    return out
+
+
+def opt_state(st, model: LM, *, device=None) -> OptState:
+    """The port's ``OptState`` of the JAX package's (numpy leaves: ``step``,
+    ``mu``, ``nu`` and ``master`` or None, each shaped like the params),
+    float32 on ``device``: both packages then step from the same float32
+    masters, where the port's own ``init_opt_state`` would start from its
+    bf16 weights."""
+    dev = resolve_device(device)
+
+    def tree(t):
+        return {k: _t(a, np.float32, dev)
+                for k, a in lm_leaves(t, model).items()}
+    return OptState(step=_t(st.step, np.int32, dev), mu=tree(st.mu),
+                    nu=tree(st.nu),
+                    master=None if st.master is None else tree(st.master))
 
 
 def ssm_params(p, cfg, *, device=None, dtype=torch.bfloat16) -> SSM:

@@ -86,11 +86,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
     the function: GQA, float32 softmax, bottom-right causal mask). With
     ``kv_len`` (an int32 0-d tensor on q's device, ≤ Sk) the keys at or
     past it are masked and the causal mask is aligned at it, as if k/v were
-    ``[:, :kv_len]``; only the split-KV route takes it."""
+    ``[:, :kv_len]``; only the split-KV route takes it. On a CUDA tensor
+    it raises when grad mode is on and an input requires grad: its output
+    has no ``grad_fn``. The plain version on the CPU differentiates."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward and would drop "
+            "the gradients of q, k and v; train through "
+            "models.layers.train_attention (forward(train=True))")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:

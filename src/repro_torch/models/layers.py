@@ -9,6 +9,9 @@ Norm scales stay float32. The JAX package's sharding constraints have no
 counterpart here (the sharded path is a later slice). Cross-attention
 (the encoder-decoder family) is ``apply_attention(cross_kv=...)`` with the
 keys and values from ``cross_kv``: no RoPE on either side, no mask.
+Training attends through ``train_attention`` (``apply_attention(train=
+True)``): the flash kernel has no backward, as the JAX package's Pallas
+kernel has none; the JAX model trains through XLA's ``_sdpa``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
 # -- norms ---------------------------------------------------------------------
@@ -81,8 +85,33 @@ def _qkv(p, x, rope):
     return apply_rope(q, *rope), apply_rope(k, *rope), v
 
 
+def sdpa_attention(q, k, v, *, causal: bool):
+    """q [B, S, H, hd], k/v [B, Sk, KV, hd] → [B, S, H, hd] through
+    ``F.scaled_dot_product_attention`` on [B, heads, S, hd] views: query
+    head h reads KV head ``h // (H // KV)`` (``enable_gqa``), scale
+    hd^-½, and a causal mask only where Sq == Sk, where SDPA's top-left
+    mask is the plain version's bottom-right one."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"sdpa_attention: causal with Sq {q.shape[1]} != "
+                         f"Sk {k.shape[1]}")
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=q.shape[2] != k.shape[2])
+    return out.transpose(1, 2)
+
+
+def train_attention(q, k, v, *, causal: bool):
+    """The training route, differentiable on both devices: on the card
+    ``sdpa_attention`` (the counterpart of the JAX package's ``_sdpa``,
+    which its training differentiates), on the CPU the plain
+    ``flash_attention_ref`` through autograd."""
+    if q.device.type == "cuda":
+        return sdpa_attention(q, k, v, causal=causal)
+    return flash_attention_ref(q, k, v, causal=causal)
+
+
 def apply_attention(p, x, rope, *, causal=True, cache=None, cache_pos=None,
-                    cross_kv=None):
+                    cross_kv=None, train=False):
     """Attention block (``causal=False``: the encoder's self-attention).
     ``cache`` = (k, v) [B, Smax, KV, hd] for prefill/decode, written in
     place at ``cache_pos``; the JAX package updates it functionally and
@@ -97,9 +126,12 @@ def apply_attention(p, x, rope, *, causal=True, cache=None, cache_pos=None,
     * ``cache_pos`` an int32 0-d tensor on the device (decode, one new
       row): the row is written by ``index_copy_`` at it and attention reads
       the whole cache with ``kv_len = cache_pos + 1`` on the device, so no
-      host value changes from step to step."""
+      host value changes from step to step.
+
+    ``train`` (no cache) attends through ``train_attention`` instead."""
+    attend = train_attention if train else flash_attention
     if cross_kv is not None:
-        out = flash_attention(_proj(x, p["wq"]), *cross_kv, causal=False)
+        out = attend(_proj(x, p["wq"]), *cross_kv, causal=False)
     elif cache is not None:
         q, k_new, v_new = _qkv(p, x, rope)
         ck, cv = cache
@@ -117,7 +149,7 @@ def apply_attention(p, x, rope, *, causal=True, cache=None, cache_pos=None,
                                   causal=True)
     else:
         q, k, v = _qkv(p, x, rope)
-        out = flash_attention(q, k, v, causal=causal)
+        out = attend(q, k, v, causal=causal)
     wo = p["wo"]                                    # [H, hd, D]
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 

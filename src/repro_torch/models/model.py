@@ -37,11 +37,23 @@ replayed; it writes the greedy token back and advances the position on the
 device (an encoder-decoder model's graph also holds the encoder output in
 a static buffer). ``prefill`` stays eager, encodes the frames once for
 every chunk, and carries the SSD state from one chunk to the next.
+
+Training: ``loss_fn`` (cross-entropy plus the weighted MoE aux loss) runs
+``forward(..., train=True, remat=...)``. The weights are built with
+``requires_grad=False``, so serving builds no autograd graph; the trainer
+(``train.train_step.init_train_state``) turns gradients on, and
+``prefill``, ``decode_step`` and the ``DecodeGraph`` step run under
+``torch.no_grad()`` whatever the weights say.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -226,23 +238,24 @@ def _tied_encoder_attention(name: str) -> bool:
 # -- forward --------------------------------------------------------------------
 
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
-                    cache=None, cache_pos=None, enc_out=None):
+                    cache=None, cache_pos=None, enc_out=None, train=False):
     """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
     ``cache``, the layer's state pair, is written in place. An SSD layer
     with a state takes the decode step for one token and the prefill that
     carries the state otherwise, as the JAX package's ``_apply_sublayer``
     picks them. With ``enc_out`` [B, S_enc, D], a layer with ``cross``
     attends over it after its self-attention, its keys and values
-    computed from it in every call, as the JAX package computes them."""
+    computed from it in every call, as the JAX package computes them.
+    ``train`` sends attention through ``layers.train_attention``."""
     h = L.apply_norm(layer.norm1, x, cfg.norm)
     if layer.attn is not None:
         x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
-                                  cache_pos=cache_pos)
+                                  cache_pos=cache_pos, train=train)
         if enc_out is not None and layer.cross is not None:
             hx = L.apply_norm(layer.norm_x, x, cfg.norm)
             x = x + L.apply_attention(
                 layer.cross, hx, None,
-                cross_kv=L.cross_kv(layer.cross, enc_out))
+                cross_kv=L.cross_kv(layer.cross, enc_out), train=train)
     elif cache is not None and h.shape[1] == 1:
         x = x + SSM.apply_ssm_decode(layer.ssm, h, cfg, cache)
     elif cache is not None:
@@ -270,25 +283,27 @@ def _head(model: LM, x):
                            model.cfg.tie_embeddings)
 
 
-def _encode(model: LM, frames):
+def _encode(model: LM, frames, train: bool = False):
     """The encoder stack of an encoder-decoder model → enc_out [B, S_enc,
     D]: the frames [B, S_enc, D] cast to the activation dtype, each
     encoder layer's non-causal self-attention (RoPE at positions 0 …
     S_enc − 1) and MLP, then ``enc_norm``. The JAX package's KV chunking
     above 4096 frames has no counterpart: the flash kernel streams any
-    length."""
+    length. ``train`` sends attention through ``layers.train_attention``;
+    the encoder is never rematerialised, as in the JAX package."""
     cfg = model.cfg
     x = frames.to(model.device, model.dtype)
     rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
     for layer in model.encoder:
         h = L.apply_norm(layer.norm1, x, cfg.norm)
-        x = x + L.apply_attention(layer.attn, h, rope, causal=False)
+        x = x + L.apply_attention(layer.attn, h, rope, causal=False,
+                                  train=train)
         h = L.apply_norm(layer.norm2, x, cfg.norm)
         x = x + L.apply_mlp(layer.mlp, h, cfg.activation)
     return L.apply_norm(model.enc_norm, x, cfg.norm)
 
 
-def _embed(model: LM, batch: dict):
+def _embed(model: LM, batch: dict, train: bool = False):
     """(The embedded tokens [B, S, D] — a VLM's first n positions replaced
     by ``batch["patches"]`` [B, n, D] in the activation dtype, where the
     batch has them — and the encoder output, or None for a model without
@@ -298,25 +313,101 @@ def _embed(model: LM, batch: dict):
     if cfg.modality == "vlm" and "patches" in batch:
         patches = batch["patches"].to(model.device, model.dtype)
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
-    enc_out = _encode(model, batch["frames"]) if cfg.enc_layers else None
+    enc_out = (_encode(model, batch["frames"], train) if cfg.enc_layers
+               else None)
     return x, enc_out
 
 
-def forward(model: LM, batch: dict):
+REMAT = ("none", "full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the weight products (``x @ W`` dispatches
+    as ``aten.mm``, or ``addmm``), recompute everything else, batched
+    products (``bmm``: attention's, the MoE experts') included — the JAX
+    package's ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_groups(model: LM) -> tuple:
+    """(the prefix layers, the groups): DeepSeekMoE's dense layer 0 stands
+    alone, as in the JAX package, then one group a period of
+    ``cfg.layer_pattern()`` — the unit its scan body rematerialises."""
+    cfg, layers = model.cfg, list(model.layers)
+    n_pre = 1 if cfg.moe is not None and cfg.moe.first_dense_ff else 0
+    per = len(cfg.layer_pattern())
+    return layers[:n_pre], [layers[g:g + per]
+                            for g in range(n_pre, len(layers), per)]
+
+
+def forward(model: LM, batch: dict, *, remat: str = "none",
+            train: bool = False):
     """Training/prefill forward → (logits [B, S, vocab_padded], aux loss:
     the float32 sum of the MoE layers' load-balancing losses, 0 for a dense
-    model). batch: tokens int [B, S]; a VLM's patches [B, n, D] (optional);
-    an encoder-decoder model's frames [B, S_enc, D] (the tokens are then
-    the decoder's)."""
+    model, summed group by group as the JAX package's scan sums it).
+    batch: tokens int [B, S]; a VLM's patches [B, n, D] (optional); an
+    encoder-decoder model's frames [B, S_enc, D] (the tokens are then the
+    decoder's).
+
+    ``train`` sends attention through ``layers.train_attention`` (SDPA on
+    the card, the plain version on the CPU; both differentiate), where the
+    serving flash kernel, which has no backward, refuses inputs that need
+    a gradient. ``remat`` rematerialises each group of ``_remat_groups``
+    in the backward pass: ``"none"``; ``"full"`` saves only the group's
+    input (``torch.utils.checkpoint``); ``"dots"`` saves the weight
+    products as well (``_save_dots``). The forward's values are the same
+    in all three."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}, expected one of {REMAT}")
     cfg = model.cfg
-    x, enc_out = _embed(model, batch)
+    x, enc_out = _embed(model, batch, train)
     rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
-    aux_total = torch.zeros((), device=model.device)
-    for layer in model.layers:
-        x, aux = _apply_sublayer(layer, x, cfg, rope, enc_out=enc_out)
-        if aux is not None:
-            aux_total = aux_total + aux
+
+    def run(layers, x):
+        aux_g = torch.zeros((), device=model.device)
+        for layer in layers:
+            x, aux = _apply_sublayer(layer, x, cfg, rope, enc_out=enc_out,
+                                     train=train)
+            if aux is not None:
+                aux_g = aux_g + aux
+        return x, aux_g
+
+    prefix, groups = _remat_groups(model)
+    x, aux_total = run(prefix, x)
+    for group in groups:
+        if remat == "none":
+            x, aux_g = run(group, x)
+        else:
+            ctx = (functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots)
+                   if remat == "dots" else noop_context_fn)
+            x, aux_g = checkpoint(run, group, x, use_reentrant=False,
+                                  context_fn=ctx)
+        aux_total = aux_total + aux_g
     return _head(model, x), aux_total
+
+
+def loss_fn(model: LM, batch: dict, *, remat: str = "none",
+            aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over the labels ≥ 0 (batch["labels"]
+    int [B, S]; a negative label is masked), plus ``aux_weight`` × the MoE
+    aux loss → (loss, {"ce", "aux"}), float32 0-d tensors. The forward
+    takes the training route (``forward(train=True)``). As in the JAX
+    package: the logits cast to float32, a logsumexp over the padded
+    vocabulary, the gold logit subtracted; here the gold logit is a
+    ``gather`` at ``labels.clamp_min(0)``, which equals JAX's sum against
+    a float32 one-hot (one nonzero term) without building the [B, S, V]
+    one-hot."""
+    logits, aux = forward(model, batch, remat=remat, train=True)
+    labels = batch["labels"].to(model.device).long()
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # -- serving --------------------------------------------------------------------
@@ -333,6 +424,7 @@ def init_decode_state(model: LM, batch: int, cache_len: int) -> list:
             for layer in model.layers]
 
 
+@torch.no_grad()
 def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     """Run the prompt, return (last-token logits [B, 1, vocab_padded],
     decode state, next_pos). ``chunks > 1`` runs the prompt in sequential
@@ -357,6 +449,7 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     return _head(model, x[:, -1:]), state, S
 
 
+@torch.no_grad()
 def decode_step(model: LM, token, state: list, pos, *, enc_out=None):
     """One decode step. token int [B, 1] at position ``pos`` (an int32 0-d
     tensor on the model's device; an int is moved there) → (logits
@@ -403,6 +496,7 @@ class DecodeGraph:
                                   dtype=model.dtype, device=dev)
         self._step = StepGraph(self._greedy, dev)
 
+    @torch.no_grad()
     def _greedy(self) -> None:
         logits, _ = decode_step(self.model, self.token, self.state, self.pos,
                                 enc_out=self.enc_out)

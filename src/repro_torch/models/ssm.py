@@ -160,12 +160,16 @@ def apply_ssm(p: SSM, x, cfg, *, return_state: bool = False,
     a = dtc * A                            # log-decay a step [B, nC, Q, H]
     cum = torch.cumsum(a, dim=2)           # within the chunk
     # intra-chunk: y_i += Σ_{j≤i} (C_i·B_j) exp(cum_i − cum_j) dt_j x_j; the
-    # float32 kernel [B, nC, i, j, H] is made in place, one buffer
+    # float32 kernel [B, nC, i, j, H]: exp and the product out of place
+    # (autograd reads exp's output). The exponent is masked before the exp
+    # (exp(−inf) = 0), where the JAX package masks exp's output: the same
+    # values, but past j > i the exponent overflows to inf, and its masked
+    # gradient, 0 · inf, would be NaN
     Sij = torch.einsum("bcin,bcjn->bcij", Cc, Bc).float()
-    M = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    M = M.exp_().masked_fill_(~causal[None, None, :, :, None], 0.0)
-    M = M.mul_(Sij[..., None]).to(dt_)
+    future = ~torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    M = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill_(
+        future[None, None, :, :, None], float("-inf")).exp()
+    M = (M * Sij[..., None]).to(dt_)
     del Sij
     xdt = xh * dtc[..., None].to(dt_)      # dt_j x_j
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xdt)

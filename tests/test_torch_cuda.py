@@ -1175,3 +1175,86 @@ def test_layout_and_queries_from_two_threads(cuda):
                                                     sb.level_modes)
         assert np.isfinite(pb).all()
         assert abs(neld(pa, e) - neld(pb, e)) <= 0.05
+
+
+# -- training ---------------------------------------------------------------------
+
+def test_flash_kernel_refuses_inputs_that_need_a_gradient(cuda):
+    """The kernel has no backward: on inputs that require grad it raises
+    instead of returning an output without a ``grad_fn``; under no_grad,
+    or on inputs that need none, it runs."""
+    q = torch.randn(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 128, 2, 64, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(q, k, v, causal=True)
+        with torch.no_grad():
+            flash_attention(q, k, v, causal=True)
+        t.requires_grad_(False)
+    assert flash_attention(q, k, v, causal=True).grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "seamless-m4t-medium"])
+def test_train_route_gradients_match_the_cpu(cuda, arch):
+    """``loss_fn`` on the card (attention through SDPA) against the CPU
+    (the plain attention) from the same bf16 weights of the smoke config
+    and the training driver's batch: the loss within rtol 0.02 / atol 0.1 and every
+    gradient leaf within rtol 0.02, atol 0.1 × the leaf's largest |CPU
+    value|, none of them zero where the CPU's is not."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import DataConfig, batch_at, extra_inputs
+
+    cfg = get_smoke_config(arch)
+    cpu = M.init_params(cfg, seed=3, device="cpu")
+    card = M.LM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                global_batch=2), 1)
+    batch.update(extra_inputs(cfg, 2, 64))
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        loss, _ = M.loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out.append((float(loss.detach()), dict(zip(params, grads))))
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    assert abs(l_card - l_cpu) <= 0.1 + 0.02 * abs(l_cpu)
+    for name, b in g_cpu.items():
+        a, b = g_card[name].float().cpu(), b.float()
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0.02, atol=0.1 * scale,
+                                   msg=name)
+        assert scale == 0 or float(a.abs().max()) > 0, name
+
+
+def test_a_model_in_training_serves_through_the_kernel(cuda):
+    """After a training step (gradients on), prefill and decode run under
+    no_grad through the flash kernel (launches counted), with no autograd
+    graph on their logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import (DataConfig, TrainConfig, batch_at,
+                                   init_train_state, make_train_step)
+
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"),
+                              d_model=256)            # hd 64
+    model = M.init_params(cfg, seed=0, device=cuda)
+    tcfg = TrainConfig()
+    opt, err = init_train_state(model, tcfg)
+    batch = {k: v.to(cuda) for k, v in batch_at(
+        DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0).items()}
+    make_train_step(tcfg)(model, opt, err, batch)
+    assert all(p.requires_grad for p in model.parameters())
+    _build.launches.clear()
+    logits, state, pos = M.prefill(model, {"tokens": batch["tokens"]}, 72)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    step_logits, _ = M.decode_step(model, tok, state, pos)
+    assert _build.launches["flash_attention"] == 2 * cfg.n_layers
+    for t in (logits, step_logits):
+        assert t.grad_fn is None and torch.isfinite(t.float()).all()
