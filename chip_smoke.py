@@ -84,12 +84,14 @@ of them passed):
         mode; each SYNC_ITERS iterations (replays and a schedule chunk
         reload), then EAGER_STEPS eager calls of the step function, its
         launches equal to its iterations, positions finite;
-  The CPU sides of phases 4d, 5, 5b, 5d and 9c (hierarchies and layouts
-  on the CPU, the references of card-against-CPU checks) run in
-  CPU_WORKERS worker processes (``CpuRefs``) from the end of phase 4c
-  until phase 7, beside the card's phases 4d to 6; each card side runs in
-  its place, and its check against the CPU reference is made once the
-  workers are done, before phase 7 (9c's in phase 9c);
+  The CPU sides of phases 4d, 5, 5b, 5d, 9c and 10b (hierarchies and
+  layouts on the CPU, 10b's training steps: the references of
+  card-against-CPU checks) run in CPU_WORKERS worker processes
+  (``CpuRefs``) from the end of phase 4c until phase 7, beside the card's
+  phases 4d to 6; each card side runs in its place, and its check against
+  the CPU reference is made once the workers are done, before phase 7
+  (9c's in phase 9c, 10b's in phase 10b). Phase 10e(d)'s CPU side, 8 gloo
+  ranks under torchrun (``ElasticCpuRun``), runs from the script's start;
   5. a ~5,000-vertex delaunay with exact_threshold=64, grid_threshold=512
      (all three modes): the hierarchy built on the card equals the one built
      on the CPU, and the card's layout scores within the stated deltas of the
@@ -253,8 +255,8 @@ of them passed):
         included, NELD and CRE within phase 5's deltas;
      d. the layout CLI with ``--driver multigila_dist --mesh 1x1`` in
         process on the card;
-  10. LM training (after the CPU workers are joined, so its CPU sides run
-     in the main process alone):
+  10. LM training (after the CPU workers are joined; 10a's CPU sides run
+     in the main process, 10b's came from the workers):
      a. every registered model's smoke config (LM_ARCHS), one training
         step on the card and on the CPU from the same bf16 weights (drawn
         on the CPU, copied) and the training driver's batch 0
@@ -272,7 +274,9 @@ of them passed):
         (``train_step_card_vs_cpu``);
      b. internlm2-1.8b, mamba2-1.3b and seamless-m4t-medium (TRAIN_WIDE)
         at full width, 2 layers, B 2 × S 128 (seamless: 64 frames + 64
-        tokens): the same checks, the CPU's seconds printed;
+        tokens): the same checks, the CPU's weights, loss and gradients
+        computed in the workers (``train_cpu_side``, handed over in npz
+        files), its AdamW step here, the CPU's seconds printed;
      c. internlm2-1.8b at full width and depth through
         ``repro_torch.launch.train.main`` (TRAIN_FULL: --batch 4 --seq
         1024, 30 steps at --remat none, then 7 at full and 7 at dots):
@@ -284,6 +288,25 @@ of them passed):
         straight against 40 checkpointed every 20, step_40 deleted and
         resumed with --resume auto from step 20: final losses within
         LOGIT_TOL;
+     e. the sharded trainer and ``parallel/`` over a one-rank NCCL mesh
+        (``train_parallel_phase``, after 10c's model is freed; prints
+        ``{"parallel": {...}}``): (a) internlm2-1.8b at full width and
+        depth, B 4 × S 1024, SHARDED_STEPS steps of the training step under
+        ``make_rules(make_mesh((1, 1)), cfg)``: each loss within LOGIT_TOL
+        of 10c's at the same step (whether bit-equal printed), step ms
+        beside 10c's, peak GB; (b) granite-moe-3b-a800m's MoE layer at full
+        width (MOE_FORMS): ``apply_moe_shardmap`` equal to ``apply_moe`` bit
+        for bit, ``apply_moe_a2a`` within LOGIT_TOL at a capacity where
+        neither drops, ms of each; (c) ring attention at internlm2's width
+        (RING_ATTN, causal, bf16) against SDPA within LOGIT_TOL, the ring
+        collective matmul (RING_MATMUL) equal to ``torch.matmul``, the
+        pipeline (PIPE) on a (1, 1, 1) pod/data/model mesh within LOGIT_TOL
+        of ``forward``, ms beside each plain version's; (d) the CPU ranks'
+        run (ELASTIC_ARGS, ``--model-parallel 2``: mesh 4 × 2, checkpoints
+        at steps 10 and 12) joined, its step_10 resumed on the card on one
+        rank through the driver: the parameters after the restore equal
+        the checkpoint's bit for bit, steps 10 and 11 within LOGIT_TOL of
+        the CPU run's;
   11. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
      worker), ``{"phase_seconds": {...}}`` (the wall seconds of every phase
      and sub-phase: a phase whose check waits for a CPU reference counts
@@ -513,10 +536,13 @@ class CpuRefs:
     main process drives the card. ``start`` submits the tasks {name: (kind,
     args)}, longest first; ``get(name)`` is a task's result; ``join`` waits
     for every task; ``close`` ends the workers, whatever state they are
-    in."""
+    in, and removes ``dir``, a temporary directory for the tasks' large
+    outputs."""
 
     def __init__(self, src: Path):
+        import tempfile
         self.src, self._pool, self._res, self.seconds = str(src), None, {}, {}
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_refs_")
 
     def start(self, tasks: dict) -> None:
         import multiprocessing as mp
@@ -536,9 +562,11 @@ class CpuRefs:
         return out
 
     def close(self) -> None:
+        import shutil
         if self._pool is not None:
             self._pool.terminate()
             self._pool.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def _card_line() -> str:
@@ -3670,18 +3698,22 @@ def _cpu_many_ref(cfg) -> dict:
 
 
 _CPU_REFS = dict(hierarchy=_cpu_hierarchy_ref, layout=_cpu_layout_ref,
-                 many=_cpu_many_ref, flat_early=_flat_early)
+                 many=_cpu_many_ref, flat_early=_flat_early,
+                 train=lambda *a: _train_cpu_ref(*a))   # phase 10's, below
 
 
-def cpu_ref_tasks(edges, n, weights, e5, n5, cfg5) -> dict:
-    """The CPU references of phases 4d, 5, 5b, 5d and 9c, {name: (kind,
-    args)}, the longest first (by PR 23's seconds)."""
+def cpu_ref_tasks(edges, n, weights, e5, n5, cfg5, out_dir) -> dict:
+    """The CPU references of phases 4d, 5, 5b, 5d, 9c and 10b, {name:
+    (kind, args)}: 10b's first (their files go to ``out_dir``), then the
+    longest first (by their measured seconds)."""
     from repro_torch.core import LayoutConfig
     w5 = _weights5(e5)
     cases = {name: (cfg, w5 if weighted else None, weighted)
              for name, cfg, weighted, _ in _engine_cases(cfg5)}
-    tasks = {"5d": ("many", (LayoutConfig(exact_threshold=64,
-                                          grid_threshold=512),))}
+    tasks = {f"10b:{arch}": ("train", (arch, 2, TRAIN_WIDE_SEQ, out_dir))
+             for arch in TRAIN_WIDE}
+    tasks["5d"] = ("many", (LayoutConfig(exact_threshold=64,
+                                         grid_threshold=512),))
     tasks["5b:centralized"] = ("layout", (e5, n5, *cases["centralized"]))
     tasks["4d"] = ("hierarchy", (edges, n, LayoutConfig(), weights))
     tasks["5b:flat"] = ("layout", (e5, n5, *cases["flat"]))
@@ -3917,9 +3949,9 @@ class GradRecorder:
         from repro_torch.train import train_step
         self._mod, self._apply = train_step, train_step.apply_updates
 
-        def apply_updates(cfg, params, grads, st):
+        def apply_updates(cfg, params, grads, st, **kw):
             self.grads = {k: g.detach().clone() for k, g in grads.items()}
-            return self._apply(cfg, params, grads, st)
+            return self._apply(cfg, params, grads, st, **kw)
         train_step.apply_updates = apply_updates
         return self
 
@@ -3976,8 +4008,80 @@ def _grads_against(label: str, got: dict, ref: dict, truth) -> dict:
     return dict(max_err_over_leaf_max=worst, held_to_float32=via_f32)
 
 
+def train_cpu_side(cfg, b: int, s: int) -> dict:
+    """The CPU side of ``train_step_card_vs_cpu``, up to the optimizer:
+    bf16 weights drawn on the CPU from seed 1 (``init``), the training
+    driver's batch 0, the loss (and ce, aux) and every gradient there, the
+    MoE calls' probs and choices (``RouteRecorder``), its seconds."""
+    import torch
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cpu = M.init_params(cfg, seed=1, device="cpu")
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    cpu.requires_grad_(True)
+    params = dict(cpu.named_parameters())
+    batch = _train_batch(cfg, b, s, "cpu")
+    t1 = time.perf_counter()
+    with RouteRecorder() as rec:
+        loss, parts = M.loss_fn(cpu, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(init=init, grads=dict(zip(params, grads)),
+                metrics={"loss": float(loss.detach()),
+                         **{k: float(v.detach()) for k, v in parts.items()}},
+                routes=rec.calls, tokens=list(batch["tokens"].shape),
+                cpu_step_s=time.perf_counter() - t1, cpu_init_s=t1 - t0)
+
+
+def _train_cpu_ref(arch: str, b: int, s: int, out_dir: str) -> dict:
+    """Phase 10b's CPU side in a worker (``train_cpu_side`` of TRAIN_WIDE's
+    2-layer cut of ``arch``). Its weights and gradients, ~2 GB a model in
+    bf16, go to an npz file in ``out_dir`` (bf16 as int16 words) and the
+    result names the file: a result of that size through the pool's pipe
+    is read in ~64 KB chunks by a thread of the main process, each chunk
+    taking the interpreter lock from the thread that drives the card
+    (beside it phase 5d's first coarsen took 74.6 s instead of 1.4 on an
+    NVIDIA H100 80GB HBM3 at 700 W).
+    AdamW's float32 state, three times the weights again, is not made
+    here: the CPU's AdamW step runs where the card side runs."""
+    import os
+
+    import numpy as np
+    import torch
+    out = train_cpu_side(_wide_cfg(arch), b, s)
+    arrays = {}
+    for key in ("init", "grads"):
+        for k, t in out.pop(key).items():
+            t = t.detach()
+            bf16 = t.dtype == torch.bfloat16
+            arrays[f"{key}:{'bf16' if bf16 else ''}:{k}"] = (
+                t.view(torch.int16) if bf16 else t).numpy()
+    out["file"] = os.path.join(out_dir, f"10b_{arch}.npz")
+    np.savez(out["file"], **arrays)
+    out["routes"] = [(p.numpy(), e.numpy()) for p, e in out["routes"]]
+    return out
+
+
+def _cpu_side_loaded(out: dict) -> dict:
+    """``_train_cpu_ref``'s result with its weights and gradients read back
+    from its file (then deleted) as tensors."""
+    import os
+
+    import numpy as np
+    import torch
+    out["init"], out["grads"] = {}, {}
+    with np.load(out["file"]) as z:
+        for key in z.files:
+            part, kind, name = key.split(":", 2)
+            t = torch.from_numpy(z[key])
+            out[part][name] = t.view(torch.bfloat16) if kind else t
+    os.remove(out["file"])
+    out["routes"] = [(torch.from_numpy(p), torch.from_numpy(e))
+                     for p, e in out["routes"]]
+    return out
+
+
 def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
-                           margin: float = ROUTE_MARGIN):
+                           margin: float = ROUTE_MARGIN, cpu_side=None):
     """One training step of ``cfg`` on the card and on the CPU from the
     same bf16 weights (drawn on the CPU from seed 1 and copied) and the
     training driver's batch 0: the loss (and ce, aux) within LOGIT_TOL,
@@ -3992,7 +4096,10 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
     every token whose CPU margin is at least ``margin`` (flips below it
     are counted). ``remat_modes``: before the step, on the card, each
     mode's loss equal to "none"'s bit for bit and its gradients within
-    GRAD_TOL of them. → the numbers, the CPU's seconds included."""
+    GRAD_TOL of them. The CPU's loss and gradients are ``cpu_side``'s
+    when given (``train_cpu_side`` computed in a CPU worker), else computed
+    here; the CPU's AdamW step on them runs here. → the numbers, the CPU's
+    seconds included."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.train import (AdamWConfig, TrainConfig, apply_updates,
@@ -4000,9 +4107,10 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
                                    make_train_step)
     from repro_torch.utils.device import synchronize
 
+    if cpu_side is None:
+        cpu_side = train_cpu_side(cfg, b, s)
     t0 = time.perf_counter()
-    cpu = M.init_params(cfg, seed=1, device="cpu")
-    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    init = cpu_side["init"]
     card = M.LM(cfg, device=device)
     card.load_state_dict(init)
     tcfg = TrainConfig(optim=AdamWConfig(**TRAIN_OPTIM))
@@ -4011,14 +4119,22 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
     on_card = {k: v.to(device) for k, v in batch.items()}
     res = dict(layers=cfg.n_layers, d_model=cfg.d_model,
                tokens=list(batch["tokens"].shape),
-               init_s=time.perf_counter() - t0)
-
+               init_s=time.perf_counter() - t0 + cpu_side["cpu_init_s"],
+               cpu_step_s=cpu_side["cpu_step_s"])
+    if res["tokens"] != cpu_side["tokens"]:
+        raise AssertionError(f"the CPU side's batch {cpu_side['tokens']}")
+    # the CPU's AdamW step on its gradients, from the drawn weights
     t0 = time.perf_counter()
-    opt_c, _ = init_train_state(cpu, tcfg)
-    with RouteRecorder() as r_cpu, GradRecorder() as g_cpu:
-        _, opt_c, _, m_cpu = step(cpu, opt_c, None, batch)
-    res["cpu_step_s"] = time.perf_counter() - t0
-    follow = r_cpu.calls or None
+    g_cpu = cpu_side["grads"]
+    cpu_params = {k: v.clone() for k, v in init.items()
+                  if k in g_cpu}
+    opt_c = init_opt_state(tcfg.optim, cpu_params)
+    _, opt_c, om = apply_updates(tcfg.optim, cpu_params, g_cpu, opt_c)
+    m_cpu = dict(cpu_side["metrics"], **om)
+    res["cpu_step_s"] += time.perf_counter() - t0
+    del cpu_params
+    r_cpu_calls = cpu_side["routes"]
+    follow = r_cpu_calls or None
 
     t0 = time.perf_counter()
     opt_k, _ = init_train_state(card, tcfg)
@@ -4063,7 +4179,7 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
             f32.update(zip(p32, torch.autograd.grad(
                 loss32, list(p32.values()))))
         return f32
-    res["grads"] = _grads_against("card vs CPU", g_card.grads, g_cpu.grads,
+    res["grads"] = _grads_against("card vs CPU", g_card.grads, g_cpu,
                                   truth)
 
     # the card's AdamW on the CPU's gradients, from the same state
@@ -4072,7 +4188,7 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
     replay = init_opt_state(tcfg.optim, params)
     _, replay, _ = apply_updates(
         tcfg.optim, params,
-        {name: g.to(device) for name, g in g_cpu.grads.items()}, replay)
+        {name: g.to(device) for name, g in g_cpu.items()}, replay)
     worst = 0.0
     for key in ("master", "mu", "nu"):
         for name in names:
@@ -4096,7 +4212,7 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
     for name, p in card.named_parameters():
         mk, mc = opt_k.master[name], opt_c.master[name].to(device)
         gk = g_card.grads[name].float()
-        gc = g_cpu.grads[name].to(device).float()
+        gc = g_cpu[name].to(device).float()
         ok = ((gk.sign() == gc.sign())
               & (gk.abs() * clip[0] >= AGREE_EPS * opt.eps)
               & (gc.abs() * clip[1] >= AGREE_EPS * opt.eps))
@@ -4119,7 +4235,7 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
     res["master_agree_share"] = agree / n_el
     if cfg.moe is not None:
         k, flips = cfg.moe.top_k, 0
-        for (p_cpu, e_cpu), (_, e_card) in zip(r_cpu.calls, r_card.calls):
+        for (p_cpu, e_cpu), (_, e_card) in zip(r_cpu_calls, r_card.calls):
             srt = p_cpu.sort(dim=-1, descending=True).values
             gap = srt[..., k - 1] - srt[..., k]
             differ = (e_card.sort(-1).values
@@ -4130,7 +4246,7 @@ def train_step_card_vs_cpu(device, cfg, b: int, s: int, remat_modes=(),
                                      f"differs at CPU margins "
                                      f"{gap[bad].tolist()} ≥ {margin}")
             flips += int(differ.sum())
-        res["routing"] = dict(moe_calls=len(r_cpu.calls), flips=flips,
+        res["routing"] = dict(moe_calls=len(r_cpu_calls), flips=flips,
                               margin=margin)
     res["compare_s"] = time.perf_counter() - t0
     return res
@@ -4151,20 +4267,29 @@ def train_smoke_phase(device) -> dict:
     return out
 
 
-def train_wide_phase(device) -> dict:
+def _wide_cfg(arch: str):
+    """TRAIN_WIDE's cut of ``arch``: full width, 2 layers (and at most 2
+    encoder layers)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=2,
+                               enc_layers=min(cfg.enc_layers, 2))
+
+
+def train_wide_phase(device, refs) -> dict:
     """Phase 10b: TRAIN_WIDE at full width, 2 layers (and 2 encoder
     layers), one step card against CPU at B 2 × S TRAIN_WIDE_SEQ
-    (``train_step_card_vs_cpu``)."""
-    import dataclasses
-
+    (``train_step_card_vs_cpu``), the CPU sides computed in ``refs``'
+    workers (tasks "10b:<arch>")."""
     import torch
-    from repro_torch.configs import get_config
     out = {}
     for arch in TRAIN_WIDE:
-        cfg = get_config(arch)
-        cfg = dataclasses.replace(cfg, n_layers=2,
-                                  enc_layers=min(cfg.enc_layers, 2))
-        r = train_step_card_vs_cpu(device, cfg, 2, TRAIN_WIDE_SEQ)
+        cpu_side = _cpu_side_loaded(refs.get(f"10b:{arch}"))
+        r = train_step_card_vs_cpu(device, _wide_cfg(arch), 2,
+                                   TRAIN_WIDE_SEQ, cpu_side=cpu_side)
+        r["cpu_worker_s"] = refs.seconds[f"10b:{arch}"]
+        del cpu_side
         print(json.dumps({"train_card_vs_cpu": r, "lm": arch,
                           "config": "full width, 2 layers"}), flush=True)
         out[arch] = r
@@ -4200,10 +4325,10 @@ class StepTimes:
         self.seconds, self.losses, self.profile = [], [], None
         self.optim_ms, marks = [], []
 
-        def apply_updates(*args):
+        def apply_updates(*args, **kw):
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
-            out = self._apply(*args)
+            out = self._apply(*args, **kw)
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
             return out
@@ -4341,21 +4466,409 @@ def train_resume_phase() -> dict:
     return res
 
 
-def train_phase(device) -> None:
+def train_phase(device, refs, elastic) -> None:
     """Phase 10, each sub-phase in PHASE_SECONDS."""
     import torch
     with phase("10a"):
         train_smoke_phase(device)
     with phase("10b"):
-        train_wide_phase(device)
+        train_wide_phase(device, refs)
     gc.collect()
     torch.cuda.empty_cache()
     with phase("10c"):
-        train_full_phase()
+        full = train_full_phase()
     gc.collect()
     torch.cuda.empty_cache()
     with phase("10d"):
         train_resume_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("10e"):
+        train_parallel_phase(device, full, elastic)
+
+
+# -- phase 10e: the sharded trainer and parallel/ on a one-rank NCCL mesh -----
+
+# 10e(a): the sharded step at full width and depth, on 10c's batches and
+# schedule (TRAIN_FULL), this many steps; the step ms is the median from
+# the third
+SHARDED_STEPS = 6
+# 10e(b): granite-moe-3b-a800m's MoE layer at full width, B × S; the a2a
+# form (and apply_moe beside it) at a capacity where no choice drops
+MOE_FORMS = dict(arch="granite-moe-3b-a800m", batch=4, seq=2048,
+                 dropless_cf=4.0)
+# 10e(c): ring attention at internlm2's width, B 1 × S 8192, causal; the
+# ring collective matmul [S, K] @ [K, N]; the pipeline at internlm2's full
+# width, 2 layers, M microbatches of B 4 × S 1024
+RING_ATTN = dict(B=1, S=8192, H=16, KV=8, hd=128)
+RING_MATMUL = dict(S=4096, K=2048, N=8192)
+PIPE = dict(layers=2, batch=4, seq=1024, microbatches=4)
+# 10e(d): ELASTIC_RANKS gloo ranks on the CPU train internlm2's smoke
+# config through the driver and torchrun from the script's start
+# (``ElasticCpuRun``); the card resumes their step_10 on one rank
+ELASTIC_RANKS = 8
+ELASTIC_ARGS = ["--arch", LM_ARCH, "--smoke", "--model-parallel", "2",
+                "--batch", "8", "--seq", "64", "--steps", "12",
+                "--ckpt-every", "10", "--log-every", "1"]
+
+
+class ElasticCpuRun:
+    """Phase 10e(d)'s CPU side: ``torch.distributed.run`` (torchrun,
+    ``--standalone``: a rendezvous on localhost) starts ELASTIC_RANKS
+    gloo ranks of ``repro_torch.launch.train`` with ELASTIC_ARGS and
+    ``--device cpu`` in a temporary directory, the card hidden, one thread
+    a rank, their output in files there. ``start`` launches them, ``wait``
+    → (rank 0's printed text, the seconds from start to end), ``close``
+    ends them if they still run and removes the directory. The seconds
+    are those to their last line of output (the file's time)."""
+
+    def __init__(self, src: Path):
+        self.src, self.proc, self.dir = str(src), None, None
+
+    def start(self) -> None:
+        import os
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        self.ckpt = os.path.join(self.dir, "run")
+        env = dict(os.environ, PYTHONPATH=self.src, OMP_NUM_THREADS="1",
+                   CUDA_VISIBLE_DEVICES="")
+        self._out = open(os.path.join(self.dir, "out.txt"), "w")
+        self._err = open(os.path.join(self.dir, "err.txt"), "w")
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(ELASTIC_RANKS), "-m",
+             "repro_torch.launch.train", *ELASTIC_ARGS, "--ckpt",
+             self.ckpt, "--device", "cpu"], env=env, stdout=self._out,
+            stderr=self._err)
+
+    def wait(self, timeout: float = 300) -> tuple:
+        import os
+        rc = self.proc.wait(timeout=timeout)
+        self._out.close()
+        self._err.close()
+        # their last line of output: the end of their run
+        secs = os.path.getmtime(os.path.join(self.dir, "out.txt")) - self.t0
+        with open(os.path.join(self.dir, "out.txt")) as f:
+            out = f.read()
+        if rc != 0:
+            with open(os.path.join(self.dir, "err.txt")) as f:
+                raise AssertionError(f"10e(d): the CPU ranks exited {rc}:\n"
+                                     f"{f.read()[-4000:]}")
+        return out, secs
+
+    def close(self) -> None:
+        import shutil
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _printed_losses(text: str) -> dict:
+    """{step: loss} of the training driver's printed lines."""
+    import re
+    return {int(a): float(b) for a, b in
+            re.findall(r"step\s+(\d+) loss (\S+)", text)}
+
+
+def _within(a: float, b: float) -> bool:
+    return abs(a - b) <= LOGIT_TOL["atol"] + LOGIT_TOL["rtol"] * abs(b)
+
+
+def sharded_step_phase(device, full) -> dict:
+    """10e(a): internlm2-1.8b at full width and depth, B 4 × S 1024,
+    SHARDED_STEPS steps of ``train_step.make_train_step`` under
+    ``make_rules(mesh, cfg)`` on a one-rank NCCL mesh ``make_mesh((1,
+    1))``, the parameters cut by ``shard_model`` (whole on one rank): every
+    loss within LOGIT_TOL of 10c's at the same step (the same seed-0
+    weights, batches and schedule), whether they are bit-equal, step ms
+    beside 10c's, the peak GB."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import (make_rules, shard_model,
+                                               use_shardings)
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   batch_at, init_train_state,
+                                   make_train_step)
+    cfg = get_config(LM_ARCH)
+    steps = TRAIN_FULL["steps"]
+    tcfg = TrainConfig(optim=AdamWConfig(lr=3e-4, total_steps=steps,
+                                         warmup_steps=max(steps // 20, 5)))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_FULL["seq"],
+                      global_batch=TRAIN_FULL["batch"])
+    mesh = make_mesh((1, 1), device=device)
+    rules = make_rules(mesh, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    with use_shardings(mesh, rules):
+        model = init_params(cfg, seed=0, device=device)
+        shard_model(model, rules)
+        opt, err = init_train_state(model, tcfg)
+        step = make_train_step(tcfg)
+        for i in range(SHARDED_STEPS):
+            batch = {k: v.to(device) for k, v in batch_at(dcfg, i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, err, m = step(model, opt, err, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+    ref = full["none"]["losses"][:SHARDED_STEPS]
+    for i, (a, b) in enumerate(zip(losses, ref)):
+        if not _within(a, b):
+            raise AssertionError(f"10e(a) step {i}: loss {a} against "
+                                 f"10c's {b}")
+    res = dict(losses=losses, losses_10c=ref, bit_equal=losses == ref,
+               step_ms=float(np.median(secs[2:])) * 1e3,
+               step_ms_all=[t * 1e3 for t in secs],
+               step_ms_10c=full["none"]["step_ms"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mesh=[1, 1], tol=LOGIT_TOL)
+    del model, opt, err, step
+    return res
+
+
+def moe_forms_phase(device) -> dict:
+    """10e(b): granite-moe-3b-a800m's MoE layer at full width (40 experts
+    top-8, d 1536, F 512; weights at ``init_moe``'s scales from seed 0),
+    x [4, 2048, 1536] bf16, on the one-rank mesh: ``apply_moe_shardmap``
+    under ``make_rules`` (EP) equal to ``apply_moe`` bit for bit at the
+    config's capacity; ``apply_moe_a2a`` under fsdp_dp with
+    ``moe_impl="all_to_all"`` within LOGIT_TOL of ``apply_moe`` at
+    capacity factor MOE_FORMS["dropless_cf"], where no choice drops in
+    either; device ms of each."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel.sharding import make_rules, use_shardings
+    cfg = get_config(MOE_FORMS["arch"])
+    m = cfg.moe
+    D, B, S = cfg.d_model, MOE_FORMS["batch"], MOE_FORMS["seq"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    p = MOE.MoE(D, m, torch.bfloat16, device)
+    with torch.no_grad():
+        for name, std in (("router", D ** -0.5), ("wup", D ** -0.5),
+                          ("wgate", D ** -0.5), ("wdown", m.d_expert ** -0.5)):
+            w = getattr(p, name)
+            w.copy_(torch.randn(w.shape, generator=gen, device=device) * std)
+    x = torch.randn((B, S, D), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    mesh = make_mesh((1, 1), device=device)
+    res = dict(arch=MOE_FORMS["arch"], x=[B, S, D], experts=m.n_experts,
+               top_k=m.top_k)
+    with torch.no_grad():
+        plain, aux = MOE.apply_moe(p, x, m)
+        with use_shardings(mesh, make_rules(mesh, cfg)):
+            ep, ep_aux = MOE.apply_moe_shardmap(p, x, m)
+            res["shardmap_ms"] = _per_call_ms(
+                lambda: MOE.apply_moe_shardmap(p, x, m), 3, 3)
+        if not (torch.equal(ep, plain) and torch.equal(ep_aux, aux)):
+            raise AssertionError("10e(b): apply_moe_shardmap differs from "
+                                 "apply_moe")
+        res["apply_moe_ms"] = _per_call_ms(lambda: MOE.apply_moe(p, x, m),
+                                           3, 3)
+        m4 = dataclasses.replace(m, capacity_factor=MOE_FORMS["dropless_cf"])
+        _, _, idx = MOE.route(p, x, m4)
+        most = int(torch.stack([torch.bincount(r.reshape(-1),
+                                               minlength=m.n_experts)
+                                for r in idx]).max())
+        cap = MOE.capacity(S, m4)
+        # the a2a form on one rank: every choice fits the send buffer
+        # (C_pair = cf·S·k), then at most C_big land on an expert
+        c_big = math.ceil(m4.capacity_factor * math.ceil(
+            m4.capacity_factor * S * m.top_k) / m.n_experts)
+        if most > min(cap, c_big):
+            raise AssertionError(f"10e(b): an expert takes {most} choices, "
+                                 f"past capacity {cap} / {c_big}")
+        plain4, _ = MOE.apply_moe(p, x, m4)
+        rules = make_rules(mesh, cfg, strategy="fsdp_dp",
+                           moe_impl="all_to_all")
+        with use_shardings(mesh, rules):
+            a2a, _ = MOE.apply_moe_a2a(p, x, m4)
+            res["a2a_ms"] = _per_call_ms(
+                lambda: MOE.apply_moe_a2a(p, x, m4), 3, 3)
+        res["a2a_apply_moe_ms"] = _per_call_ms(
+            lambda: MOE.apply_moe(p, x, m4), 3, 3)
+        torch.testing.assert_close(a2a, plain4, **LOGIT_TOL)
+        res.update(a2a_max_abs_err=float((a2a - plain4).abs().max()),
+                   shardmap_bit_equal=True, most_choices=most,
+                   capacity=cap, a2a_expert_capacity=c_big)
+    return res
+
+
+def rings_phase(device) -> dict:
+    """10e(c): the rings and the pipeline on one-rank axes: ring attention
+    (RING_ATTN, causal, bf16) against SDPA within LOGIT_TOL; the ring
+    collective matmul (RING_MATMUL, bf16) equal to ``torch.matmul``; the
+    pipeline (PIPE) on a (1, 1, 1) pod/data/model mesh against ``forward``
+    within LOGIT_TOL; device ms of each beside its plain version's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import sdpa_attention
+    from repro_torch.parallel.collectives import ring_collective_matmul
+    from repro_torch.parallel.pipeline import pipeline_forward
+    from repro_torch.parallel.ring_attention import ring_attention
+    from repro_torch.parallel.sharding import (make_rules, shard_model,
+                                               use_shardings)
+    from repro_torch.train import DataConfig, batch_at
+    gen = torch.Generator(device=device).manual_seed(1)
+    mesh = make_mesh((1, 1), device=device)
+    a = RING_ATTN
+    q = torch.randn((a["B"], a["S"], a["H"], a["hd"]), generator=gen,
+                    device=device).bfloat16()
+    k, v = (torch.randn((a["B"], a["S"], a["KV"], a["hd"]), generator=gen,
+                        device=device).bfloat16() for _ in range(2))
+    ring = ring_attention(mesh, axis="model", causal=True)
+    out = ring(q, k, v)
+    ref = sdpa_attention(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, **LOGIT_TOL)
+    res = dict(ring_attention=dict(
+        shape=a, max_abs_err=float((out.float() - ref.float()).abs().max()),
+        ms=_per_call_ms(lambda: ring(q, k, v), 3, 3),
+        sdpa_ms=_per_call_ms(lambda: sdpa_attention(q, k, v, causal=True),
+                             3, 3)))
+    del q, k, v, out, ref
+    r = RING_MATMUL
+    x = torch.randn((r["S"], r["K"]), generator=gen, device=device).bfloat16()
+    w = torch.randn((r["K"], r["N"]), generator=gen, device=device).bfloat16()
+    rcm = ring_collective_matmul(mesh, "model")
+    if not torch.equal(rcm(x, w), torch.matmul(x, w)):
+        raise AssertionError("10e(c): the one-rank ring matmul differs from "
+                             "torch.matmul")
+    res["ring_matmul"] = dict(shape=r, bit_equal=True,
+                              ms=_per_call_ms(lambda: rcm(x, w), 5, 3),
+                              matmul_ms=_per_call_ms(
+                                  lambda: torch.matmul(x, w), 5, 3))
+    del x, w
+    import dataclasses
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=PIPE["layers"])
+    model = init_params(cfg, seed=0, device=device)
+    batch = {"tokens": batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=PIPE["seq"], global_batch=PIPE["batch"]),
+        0)["tokens"].to(device)}
+    with torch.no_grad():
+        ref, _ = M.forward(model, batch, train=True)
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                          device=device)
+        with use_shardings(mesh3, make_rules(mesh3, cfg)):
+            shard_model(model, make_rules(mesh3, cfg))
+            pp = lambda: pipeline_forward(
+                model, batch, mesh3, n_microbatches=PIPE["microbatches"])
+            out = pp()
+            res["pipeline"] = dict(ms=_per_call_ms(pp, 2, 3))
+        torch.testing.assert_close(out, ref, **LOGIT_TOL)
+        res["pipeline"].update(
+            PIPE, max_abs_err=float((out.float() - ref.float()).abs().max()),
+            forward_ms=_per_call_ms(
+                lambda: M.forward(model, batch, train=True), 2, 3))
+    return res
+
+
+def elastic_phase(elastic: ElasticCpuRun) -> dict:
+    """10e(d): the CPU ranks' run (ELASTIC_ARGS at mesh 4 × 2, started at
+    the script's start) joined; its step_10 resumed on the card on one
+    rank through the driver (``--resume auto``): the parameters after the
+    restore equal the checkpoint's bit for bit (read at the first step,
+    ``launch.train.make_train_step`` wrapped), and the steps 10 and 11
+    losses within LOGIT_TOL of the CPU run's."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as T
+    text, cpu_s = elastic.wait()
+    cpu = _printed_losses(text)
+    if sorted(cpu) != list(range(12)):
+        raise AssertionError(f"10e(d): the CPU run printed steps "
+                             f"{sorted(cpu)}")
+    checked = []
+    real = T.make_train_step
+
+    def make_train_step(tcfg):
+        step = real(tcfg)
+
+        def first(model, *args):
+            if not checked:
+                src = os.path.join(d, "step_10")
+                for name, p in model.named_parameters():
+                    want = np.load(os.path.join(src, f"params__{name}.npy"))
+                    got = p.detach().cpu()
+                    if got.dtype == torch.bfloat16:
+                        got = got.view(torch.int16).numpy().view(want.dtype)
+                    else:
+                        got = got.numpy()
+                    if got.tobytes() != want.tobytes():
+                        raise AssertionError(f"10e(d): {name} after the "
+                                             "restore is not the "
+                                             "checkpoint's")
+                checked.append(len(list(model.parameters())))
+            return step(model, *args)
+        return first
+    with tempfile.TemporaryDirectory() as d:
+        shutil.copytree(os.path.join(elastic.ckpt, "step_10"),
+                        os.path.join(d, "step_10"))
+        T.make_train_step = make_train_step
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                T.main([*ELASTIC_ARGS, "--ckpt", d, "--resume", "auto"])
+        finally:
+            T.make_train_step = real
+    text_card = log.getvalue()
+    print(text_card, end="", flush=True)
+    if "[resume] restored step 10" not in text_card or not checked:
+        raise AssertionError("10e(d): the card did not restore step 10")
+    card = _printed_losses(text_card)
+    for i in (10, 11):
+        if not _within(card[i], cpu[i]):
+            raise AssertionError(f"10e(d) step {i}: card {card[i]} against "
+                                 f"the CPU ranks' {cpu[i]}")
+    return dict(cpu_ranks=ELASTIC_RANKS, cpu_mesh=[4, 2], cpu_run_s=cpu_s,
+                cpu_losses=[cpu[i] for i in (10, 11)],
+                card_losses=[card[i] for i in (10, 11)],
+                params_checked=checked[0], tol=LOGIT_TOL)
+
+
+def train_parallel_phase(device, full, elastic) -> dict:
+    """Phase 10e (after 10c's model is freed): the sharded trainer and
+    ``parallel/`` on a one-rank NCCL mesh, each part a function; prints
+    ``{"parallel": {...}}``; the group is taken down at the end."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    res = {}
+    try:
+        for name, fn in (("sharded_step", lambda: sharded_step_phase(
+                              device, full)),
+                         ("moe_forms", lambda: moe_forms_phase(device)),
+                         ("rings", lambda: rings_phase(device))):
+            t0 = time.perf_counter()
+            res[name] = fn()
+            res[name]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        mesh_mod.shutdown()
+    t0 = time.perf_counter()
+    res["elastic"] = elastic_phase(elastic)
+    res["elastic"]["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"parallel": res}), flush=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -4379,13 +4892,15 @@ def main(argv=None) -> int:
             return 2
     sys.path.insert(0, str(src))
     refs = CpuRefs(src)
+    elastic = ElasticCpuRun(src)
     try:
-        return _phases(torch, others, refs)
+        return _phases(torch, others, refs, elastic)
     finally:
         refs.close()
+        elastic.close()
 
 
-def _phases(torch, others, refs) -> int:
+def _phases(torch, others, refs, elastic) -> int:
     """Phases 1-11 (the module docstring), the CPU references in ``refs``'
     workers."""
     t_all = time.perf_counter()
@@ -4402,6 +4917,8 @@ def _phases(torch, others, refs) -> int:
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # 10e(d)'s CPU ranks, in the background from here
+    elastic.start()
 
     # 1. the card
     card = _card_line()
@@ -4530,7 +5047,7 @@ def _phases(torch, others, refs) -> int:
     # phase 7, beside the card's phases 4d-6
     e5, n5 = generators.delaunay(5000, seed=3)
     cfg5 = LayoutConfig(exact_threshold=64, grid_threshold=512)
-    refs.start(cpu_ref_tasks(edges, n, weights, e5, n5, cfg5))
+    refs.start(cpu_ref_tasks(edges, n, weights, e5, n5, cfg5, refs.dir))
     with phase("4d"):
         hier_4d = weighted_hierarchy_card(edges, n, weights)
     torch.cuda.empty_cache()
@@ -4590,8 +5107,9 @@ def _phases(torch, others, refs) -> int:
     torch.cuda.empty_cache()
 
     # 10. LM training: every smoke config and three full-width models card
-    # vs CPU, internlm2-1.8b at full size through the driver, a resume
-    train_phase(device)
+    # vs CPU, internlm2-1.8b at full size through the driver, a resume, the
+    # sharded trainer and parallel/ on a one-rank mesh
+    train_phase(device, refs, elastic)
     torch.cuda.empty_cache()
 
     # 11. summary

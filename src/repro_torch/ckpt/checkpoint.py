@@ -15,8 +15,17 @@ numpy has no bf16: a bf16 tensor is stored as its raw 2-byte words (the
 back on restore; the digest hashes shape, itemsize and raw bytes only, as
 the JAX package's does. The optimizer updates its tensors in place, so
 ``save_async`` copies every tensor to host memory, blocking, before it
-queues the tree. The sharded (elastic) restore waits for the port's
-``parallel/`` sharding (ROADMAP.md item 13.7's third slice).
+queues the tree.
+
+Under a mesh the tree's leaves are each rank's blocks and the manager takes
+``shardings`` (``parallel.sharding.Shardings``: a leaf whose path ends in a
+parameter's name is cut as that parameter is). ``save_async`` gathers every
+leaf to full on the calling thread — a collective, kept off the writer
+thread so it cannot interleave with the step's own — and rank 0 writes the
+one-device layout, so a checkpoint from either driver loads in the other.
+``restore_latest`` has rank 0 pick the newest valid step and broadcast it;
+every rank then reads the full leaves and cuts its blocks for its own mesh,
+which may differ from the mesh that saved them: the elastic restore.
 
 The npz helpers (``save_npz``, ``load_npz``, ``array_digest``) are the tile
 store's (serve/store.py): the same bytes and the same digest as the JAX
@@ -33,6 +42,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _digest(arrays: dict[str, np.ndarray]) -> str:
@@ -171,20 +181,23 @@ def _to_leaf(arr: np.ndarray, ref):
     device (bf16 viewed back from its raw words), else ``arr``."""
     if not isinstance(ref, torch.Tensor):
         return arr
+    # ascontiguousarray makes a 0-d array 1-d: keep the stored shape
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if ref.dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2 or arr.dtype.kind not in "Vi":
             raise IOError(f"a bf16 leaf stored as {arr.dtype}")
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
+        t = torch.from_numpy(arr).to(ref.dtype)
     return t.to(ref.device)
 
 
 def restore_checkpoint(directory: str, step: int, tree_like, *,
-                       validate: bool = True):
+                       validate: bool = True, shardings=None):
     """The checkpoint ``step`` in the structure of ``tree_like``, each
-    tensor leaf on the device and in the dtype of ``tree_like``'s."""
+    tensor leaf on the device and in the dtype of ``tree_like``'s; with
+    ``shardings``, each leaf cut to this rank's block (which must have the
+    shape of ``tree_like``'s)."""
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -195,8 +208,15 @@ def restore_checkpoint(directory: str, step: int, tree_like, *,
         arrays[p] = np.load(fn)
     if validate and _digest(arrays) != manifest["digest"]:
         raise IOError(f"checkpoint {d} failed digest validation")
-    return _unflatten(tree_like, iter(
-        [_to_leaf(arrays[p], ref) for p, ref in zip(paths, refs)]))
+    leaves = [_to_leaf(arrays[p], ref) for p, ref in zip(paths, refs)]
+    if shardings is not None:
+        leaves = [shardings.shard(p, x) if isinstance(ref, torch.Tensor)
+                  else x for p, x, ref in zip(paths, leaves, refs)]
+        for p, x, ref in zip(paths, leaves, refs):
+            if isinstance(ref, torch.Tensor) and x.shape != ref.shape:
+                raise IOError(f"checkpoint {d}: {p} cuts to {tuple(x.shape)}"
+                              f", the tree holds {tuple(ref.shape)}")
+    return _unflatten(tree_like, iter(leaves))
 
 
 class CheckpointManager:
@@ -232,11 +252,18 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)
 
-    def save_async(self, step: int, tree):
+    def save_async(self, step: int, tree, shardings=None):
+        """Queue ``tree`` for the writer; with ``shardings`` (every rank
+        calls), gather each leaf to full first, and only rank 0 writes."""
         if self._error:
             raise self._error
-        # snapshot to host first so training can update tensors in place
         paths, leaves = _flatten_with_paths(tree)
+        if shardings is not None:
+            leaves = [shardings.gather(p, l) if isinstance(l, torch.Tensor)
+                      else l for p, l in zip(paths, leaves)]
+            if dist.get_rank() != 0:
+                return
+        # snapshot to host first so training can update tensors in place
         host = dict(zip(paths, (_snapshot(l) for l in leaves)))
         self._q.put((step, host))
 
@@ -245,15 +272,30 @@ class CheckpointManager:
         if self._error:
             raise self._error
 
-    def restore_latest(self, tree_like):
+    def restore_latest(self, tree_like, shardings=None):
         """Restore newest valid checkpoint, skipping (and deleting) corrupt
-        ones → (step, tree), or (None, None)."""
+        ones → (step, tree), or (None, None). With ``shardings`` (every
+        rank calls): rank 0 picks the step, and every rank restores it cut
+        to its blocks."""
+        if shardings is None:
+            return self._newest(tree_like)
+        found, tree = [None], None
+        if dist.get_rank() == 0:
+            found[0], tree = self._newest(tree_like, shardings)
+        dist.broadcast_object_list(found, src=0)
+        if found[0] is not None and tree is None:
+            tree = restore_checkpoint(self.directory, found[0], tree_like,
+                                      shardings=shardings)
+        return found[0], tree
+
+    def _newest(self, tree_like, shardings=None):
         while True:
             step = latest_step(self.directory)
             if step is None:
                 return None, None
             try:
-                tree = restore_checkpoint(self.directory, step, tree_like)
+                tree = restore_checkpoint(self.directory, step, tree_like,
+                                          shardings=shardings)
                 return step, tree
             except Exception:
                 shutil.rmtree(os.path.join(self.directory, f"step_{step}"),

@@ -68,6 +68,7 @@ class Mesh:
         self.axis_groups = {a: (self._group((a,)) if len(self.vtx_axes) > 1
                                 else self.vtx_group)
                             for a in self.vtx_axes}
+        self._extra_groups: dict = {}
 
     def axis_index(self, name: str) -> int:
         return self.coords[name]
@@ -75,6 +76,34 @@ class Mesh:
     def axis_size(self, names) -> int:
         names = (names,) if isinstance(names, str) else tuple(names)
         return math.prod(self.shape[n] for n in names)
+
+    def index(self, names) -> int:
+        """This rank's row-major index over the axes ``names``."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        i = 0
+        for a in names:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, names):
+        """The group of the ranks that share this rank's coordinates off
+        the axes ``names`` (a name or a tuple of names), its ranks in
+        row-major order of those axes in mesh order. A group not built with
+        the mesh is built at its first request, collectively: every rank
+        must make the same requests in the same order."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        key = tuple(a for a in self.axis_names if a in names)
+        if len(key) != len(names):
+            raise ValueError(f"axes {names} on mesh {self.axis_names}")
+        if key == ("model",):
+            return self.model_group
+        if key == self.vtx_axes:
+            return self.vtx_group
+        if len(key) == 1:
+            return self.axis_groups[key[0]]
+        if key not in self._extra_groups:
+            self._extra_groups[key] = self._group(key)
+        return self._extra_groups[key]
 
     def vtx_peer(self, v: int) -> int:
         """Global rank of the rank at vertex index ``v`` that shares this

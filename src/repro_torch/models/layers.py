@@ -6,7 +6,10 @@ the model's dtype (bf16 by default) with float32 softmax, norm and RoPE
 internals, and SiLU rounded at JAX's steps (``silu``). Matmul weights are stored once in the activation dtype: the JAX
 package stores float32 and casts at every use, which gives the same bits.
 Norm scales stay float32. The JAX package's sharding constraints have no
-counterpart here (the sharded path is a later slice). Cross-attention
+counterpart here: under a mesh ``model.py``'s sharded forward hands these
+functions each rank's blocks of the weights and makes each layout change
+itself (``attention_param_specs`` and ``mlp_param_specs`` say how the
+weights are cut). Cross-attention
 (the encoder-decoder family) is ``apply_attention(cross_kv=...)`` with the
 keys and values from ``cross_kv``: no RoPE on either side, no mask.
 Training attends through ``train_attention`` (``apply_attention(train=
@@ -161,7 +164,24 @@ def cross_kv(p, enc_out):
     return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
 
 
+def attention_param_specs(cfg, rules) -> dict:
+    """The JAX package's specs of wq/wk/wv/wo: heads over ``rules.heads``,
+    KV heads over ``rules.kv_heads``."""
+    h, kv = rules.heads, rules.kv_heads
+    return {"wq": (None, h, None), "wk": (None, kv, None),
+            "wv": (None, kv, None), "wo": (h, None, None)}
+
+
 # -- MLP -------------------------------------------------------------------------
+
+def mlp_param_specs(activation: str, rules) -> dict:
+    """Column-parallel wup/wgate, row-parallel wdown over ``rules.tp``."""
+    tp = rules.tp
+    p = {"wup": (None, tp), "wdown": (tp, None)}
+    if activation in ("swiglu", "geglu"):
+        p["wgate"] = (None, tp)
+    return p
+
 
 def silu(x):
     """``jax.nn.silu`` as XLA computes it: x · 1/(1 + exp(−x)), each step

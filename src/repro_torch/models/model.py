@@ -38,6 +38,15 @@ device (an encoder-decoder model's graph also holds the encoder output in
 a static buffer). ``prefill`` stays eager, encodes the frames once for
 every chunk, and carries the SSD state from one chunk to the next.
 
+Under a mesh (``parallel.sharding.use_shardings``) each rank holds its
+blocks of the weights (``param_specs``, cut by ``sharding.shard_model``)
+and its rows of the batch, and ``forward``/``loss_fn`` run the sharded
+form (``_Par``): Megatron TP over the model axis (heads, the MLP's and
+the SSD's columns, the vocabulary), EP or expert TP in MoE layers,
+sequence parallelism with ``rules.seq``, and the loss's sums over the
+batch axes; the collectives are ``parallel/comm.py``'s. Without rules the
+code is the single-device path, unchanged.
+
 Training: ``loss_fn`` (cross-entropy plus the weighted MoE aux loss) runs
 ``forward(..., train=True, remat=...)``. The weights are built with
 ``requires_grad=False``, so serving builds no autograd graph; the trainer
@@ -59,6 +68,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import (active, block_range,
+                                           current_rules, dim_range)
 from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
@@ -235,10 +247,45 @@ def _tied_encoder_attention(name: str) -> bool:
     return parts[0] == "encoder" and int(parts[1]) >= 4 and parts[2] == "attn"
 
 
+def param_specs(cfg: ArchConfig, rules) -> dict:
+    """{parameter name: spec} for ``cfg``'s LM — the JAX package's
+    ``param_specs`` by the port's names, each layer's without the scan's
+    leading group axis: the embedding ``(tp, None)``, the LM head ``(None,
+    tp)``, norms whole, attention (and cross-attention, and the encoder's)
+    by ``layers.attention_param_specs``, MLPs by ``mlp_param_specs``, MoE
+    layers by ``moe.moe_param_specs``, SSD layers by
+    ``ssm.ssm_param_specs``."""
+    att = L.attention_param_specs(cfg, rules)
+    mlp = L.mlp_param_specs(cfg.activation, rules)
+    ssm = SSM.ssm_param_specs(cfg, rules) if cfg.ssm is not None else {}
+    moe = MOE.moe_param_specs(cfg.moe, rules) if cfg.moe is not None else {}
+    out = {}
+    for name, p in LM(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        leaf, owner = parts[-1], parts[-2]
+        if parts[0] == "embed":
+            spec = (rules.tp, None)
+        elif parts[0] == "lm_head":
+            spec = (None, rules.tp)
+        elif owner in ("attn", "cross"):
+            spec = att[leaf]
+        elif owner == "mlp":
+            spec = mlp[leaf]
+        elif owner == "ssm":
+            spec = ssm[leaf]
+        elif "moe" in parts:
+            spec = moe[name.split(".moe.")[1]]
+        else:                            # norms
+            spec = (None,) * p.dim()
+        out[name] = spec
+    return out
+
+
 # -- forward --------------------------------------------------------------------
 
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
-                    cache=None, cache_pos=None, enc_out=None, train=False):
+                    cache=None, cache_pos=None, enc_out=None, train=False,
+                    par=None):
     """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
     ``cache``, the layer's state pair, is written in place. An SSD layer
     with a state takes the decode step for one token and the prefill that
@@ -246,7 +293,11 @@ def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
     picks them. With ``enc_out`` [B, S_enc, D], a layer with ``cross``
     attends over it after its self-attention, its keys and values
     computed from it in every call, as the JAX package computes them.
-    ``train`` sends attention through ``layers.train_attention``."""
+    ``train`` sends attention through ``layers.train_attention``. ``par``
+    (a ``_Par``) runs the sharded layer instead."""
+    if par is not None:
+        return _sharded_sublayer(layer, x, cfg, rope, par, enc_out=enc_out,
+                                 train=train)
     h = L.apply_norm(layer.norm1, x, cfg.norm)
     if layer.attn is not None:
         x = x + L.apply_attention(layer.attn, h, rope, cache=cache,
@@ -277,23 +328,204 @@ def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
     return x, aux
 
 
-def _head(model: LM, x):
-    x = L.apply_norm(model.final_norm, x, model.cfg.norm)
+class _Par:
+    """How one sharded forward lays out its work, from the rules in force:
+    ``tp`` — the model axis cuts the layers (``g``, the model group);
+    ``seq`` — the residual is cut along the sequence over it (Megatron-SP:
+    ``rules.seq``, when the length divides, as the JAX package's
+    ``shard_batch`` asks). A region that each model rank computes a part of
+    is entered by ``enter`` and left by ``leave``; one that every rank
+    computes whole by ``whole`` and ``unwhole``."""
+
+    def __init__(self, rules, S: int, seq: bool = True):
+        self.rules, self.mesh = rules, rules.mesh
+        self.tp = rules.tp is not None
+        self.g = self.mesh.model_group if self.tp else None
+        m = self.mesh.shape["model"] if self.tp else 1
+        self.seq = (seq and self.tp and rules.seq is not None
+                    and S % m == 0 and S > 1)
+
+    def enter(self, h):
+        if self.seq:
+            return comm.all_gather(h, self.g, 1)
+        return comm.copy_to(h, self.g)
+
+    def leave(self, y):
+        if self.seq:
+            return comm.reduce_scatter(y, self.g, 1)
+        return comm.psum(y, self.g)
+
+    def norm(self, p):
+        """A norm's weights as this rank applies them: under ``seq`` its
+        positions give a part of their gradient, so they enter by
+        ``copy_to``."""
+        if not self.seq:
+            return p
+        return {k: comm.copy_to(v, self.g) for k, v in p.items()}
+
+    def whole(self, h):
+        return comm.gather_whole(h, self.g, 1) if self.seq else h
+
+    def unwhole(self, y):
+        return comm.scatter(y, self.g, 1) if self.seq else y
+
+
+def _attention_view(p, cfg: ArchConfig, par: _Par) -> dict:
+    """The weights this rank's heads read: its blocks of wq and wo, its
+    block of wk/wv when the KV heads are cut, else the KV heads its q
+    heads use, taken from the whole wk/wv after ``copy_to`` (each rank's
+    gradient of them is a part)."""
+    if par.rules.kv_heads:
+        return p
+    H_loc = p["wq"].shape[1]
+    G = cfg.n_heads // cfg.n_kv_heads
+    h0 = par.mesh.axis_index("model") * H_loc
+    kv_of = [(h0 + j) // G for j in range(H_loc)]
+    used = sorted(set(kv_of))
+    rep = H_loc // len(used)
+    grouped = kv_of == [used[j // rep] for j in range(H_loc)]
+    sel = torch.tensor(used if grouped else kv_of,
+                       device=p["wk"].device)
+    return {"wq": p["wq"], "wo": p["wo"],
+            "wk": comm.copy_to(p["wk"], par.g).index_select(1, sel),
+            "wv": comm.copy_to(p["wv"], par.g).index_select(1, sel)}
+
+
+def _sharded_attention(p, h, cfg: ArchConfig, rope, par: _Par, *,
+                       causal=True, enc_out=None, train=False):
+    """Attention (cross-attention with ``enc_out``) under ``par``: the
+    rank's heads when ``rules.heads`` cuts them (column-parallel q/k/v,
+    row-parallel wo), else whole on every rank."""
+    if not par.tp or not par.rules.heads:
+        ckv = None if enc_out is None else L.cross_kv(p, enc_out)
+        if not par.tp:
+            return L.apply_attention(p, h, rope, causal=causal,
+                                     cross_kv=ckv, train=train)
+        return par.unwhole(L.apply_attention(
+            p, par.whole(h), rope, causal=causal, cross_kv=ckv, train=train))
+    view = _attention_view(p, cfg, par)
+    ckv = (None if enc_out is None
+           else L.cross_kv(view, comm.copy_to(enc_out, par.g)))
+    return par.leave(L.apply_attention(view, par.enter(h), rope,
+                                       causal=causal, cross_kv=ckv,
+                                       train=train))
+
+
+class _SSMView:
+    """An SSD layer's weights as this rank reads them: its heads' blocks,
+    w_B/w_C whole and the conv cut to its channels of x plus B and C (all
+    after ``copy_to``: each rank's gradient of them is a part)."""
+
+    def __init__(self, p, cfg: ArchConfig, par: _Par):
+        d_inner, H, _ = SSM.dims(cfg)
+        m = par.mesh.shape["model"]
+        if H % m:
+            raise ValueError(f"{cfg.name}: {H} SSD heads over a model axis "
+                             f"of {m}")
+        lo, hi = block_range(d_inner, m, par.mesh.axis_index("model"))
+        n_bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        ch = torch.cat([torch.arange(lo, hi), d_inner + torch.arange(n_bc)]
+                       ).to(p.conv_w.device)
+        for k in ("w_z", "w_x", "w_dt", "dt_bias", "A_log", "D", "w_out"):
+            setattr(self, k, getattr(p, k))
+        self.w_B = comm.copy_to(p.w_B, par.g)
+        self.w_C = comm.copy_to(p.w_C, par.g)
+        self.conv_w = comm.copy_to(p.conv_w, par.g).index_select(1, ch)
+        self.conv_b = comm.copy_to(p.conv_b, par.g).index_select(0, ch)
+
+
+def _sharded_moe(p, h, cfg: ArchConfig, par: _Par):
+    """An MoE layer under ``par``: the form the rules pick, as the JAX
+    package's ``_apply_sublayer`` picks it; the EP and expert-TP forms take
+    the tokens whole over the model group."""
+    r = par.rules
+    if r.experts and r.moe_impl == "all_to_all":
+        return MOE.apply_moe_a2a(p, h, cfg.moe, cfg.activation)
+    if r.experts and r.moe_impl == "shard_map":
+        y, aux = MOE.apply_moe_shardmap(p, par.whole(h), cfg.moe,
+                                        cfg.activation)
+    else:
+        y, aux = MOE.apply_moe(p, par.whole(h), cfg.moe, cfg.activation)
+    return par.unwhole(y), aux
+
+
+def _sharded_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope,
+                      par: _Par, *, enc_out=None, train=False):
+    """``_apply_sublayer`` for training under ``par`` (no cache)."""
+    h = L.apply_norm(par.norm(layer.norm1), x, cfg.norm)
+    if layer.attn is not None:
+        x = x + _sharded_attention(layer.attn, h, cfg, rope, par,
+                                   train=train)
+        if enc_out is not None and layer.cross is not None:
+            hx = L.apply_norm(par.norm(layer.norm_x), x, cfg.norm)
+            x = x + _sharded_attention(layer.cross, hx, cfg, None, par,
+                                       enc_out=enc_out, train=train)
+    elif par.tp:
+        x = x + par.leave(SSM.apply_ssm(_SSMView(layer.ssm, cfg, par),
+                                        par.enter(h), cfg))
+    else:
+        x = x + SSM.apply_ssm(layer.ssm, h, cfg)
+    aux = None
+    if layer.moe is not None or layer.mlp is not None:
+        h = L.apply_norm(par.norm(layer.norm2), x, cfg.norm)
+        if layer.moe is not None:
+            y, aux = _sharded_moe(layer.moe, h, cfg, par)
+        elif par.tp:
+            y = par.leave(L.apply_mlp(layer.mlp, par.enter(h),
+                                      cfg.activation))
+        else:
+            y = L.apply_mlp(layer.mlp, h, cfg.activation)
+        x = x + y
+    return x, aux
+
+
+def _vocab_embed(model: LM, tokens, par: _Par):
+    """This rank's part of the embedding: the rows of the tokens in its
+    vocabulary block, zeros elsewhere (vocab-parallel)."""
+    tok = model.embed["tok"]
+    lo, hi = dim_range(par.mesh, par.rules.tp, model.cfg.vocab_padded)
+    ids = tokens - lo
+    own = (ids >= 0) & (ids < hi - lo)
+    rows = tok[ids.clamp(0, max(hi - lo - 1, 0))]
+    return torch.where(own[..., None], rows, rows.new_zeros(()))
+
+
+def _head(model: LM, x, par: _Par | None = None):
+    """Final norm and LM head → logits; under ``par`` with TP, this rank's
+    vocabulary block of them (column-parallel)."""
+    if par is not None and par.tp:
+        x = par.enter(L.apply_norm(par.norm(model.final_norm), x,
+                                   model.cfg.norm))
+    else:
+        x = L.apply_norm(model.final_norm, x, model.cfg.norm)
     return L.apply_lm_head(model.embed, model.lm_head, x,
                            model.cfg.tie_embeddings)
 
 
-def _encode(model: LM, frames, train: bool = False):
+def _encode(model: LM, frames, train: bool = False, par=None):
     """The encoder stack of an encoder-decoder model → enc_out [B, S_enc,
     D]: the frames [B, S_enc, D] cast to the activation dtype, each
     encoder layer's non-causal self-attention (RoPE at positions 0 …
     S_enc − 1) and MLP, then ``enc_norm``. The JAX package's KV chunking
     above 4096 frames has no counterpart: the flash kernel streams any
     length. ``train`` sends attention through ``layers.train_attention``;
-    the encoder is never rematerialised, as in the JAX package."""
+    the encoder is never rematerialised, as in the JAX package. Under
+    ``par`` its layers run sharded, the residual whole along the
+    sequence."""
     cfg = model.cfg
     x = frames.to(model.device, model.dtype)
     rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
+    if par is not None:
+        par = _Par(par.rules, x.shape[1], seq=False)
+        for layer in model.encoder:
+            h = L.apply_norm(layer.norm1, x, cfg.norm)
+            x = x + _sharded_attention(layer.attn, h, cfg, rope, par,
+                                       causal=False, train=train)
+            h = L.apply_norm(layer.norm2, x, cfg.norm)
+            x = x + (par.leave(L.apply_mlp(layer.mlp, par.enter(h),
+                                           cfg.activation)) if par.tp
+                     else L.apply_mlp(layer.mlp, h, cfg.activation))
+        return L.apply_norm(model.enc_norm, x, cfg.norm)
     for layer in model.encoder:
         h = L.apply_norm(layer.norm1, x, cfg.norm)
         x = x + L.apply_attention(layer.attn, h, rope, causal=False,
@@ -303,17 +535,29 @@ def _encode(model: LM, frames, train: bool = False):
     return L.apply_norm(model.enc_norm, x, cfg.norm)
 
 
-def _embed(model: LM, batch: dict, train: bool = False):
+def _embed(model: LM, batch: dict, train: bool = False, par=None):
     """(The embedded tokens [B, S, D] — a VLM's first n positions replaced
     by ``batch["patches"]`` [B, n, D] in the activation dtype, where the
     batch has them — and the encoder output, or None for a model without
-    an encoder.)"""
+    an encoder.) Under ``par`` with TP the lookup is vocab-parallel, summed
+    over the model group (cut along the sequence with ``par.seq``)."""
     cfg = model.cfg
-    x = L.apply_embedding(model.embed, batch["tokens"].to(model.device))
-    if cfg.modality == "vlm" and "patches" in batch:
-        patches = batch["patches"].to(model.device, model.dtype)
-        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
-    enc_out = (_encode(model, batch["frames"], train) if cfg.enc_layers
+    tokens = batch["tokens"].to(model.device)
+    patches = (batch["patches"].to(model.device, model.dtype)
+               if cfg.modality == "vlm" and "patches" in batch else None)
+    if par is not None and par.tp:
+        x = _vocab_embed(model, tokens, par)
+        if patches is None:
+            x = par.leave(x)
+        else:
+            x = comm.psum(x, par.g)
+            x = par.unwhole(torch.cat([patches, x[:, patches.shape[1]:]],
+                                      dim=1))
+    else:
+        x = L.apply_embedding(model.embed, tokens)
+        if patches is not None:
+            x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    enc_out = (_encode(model, batch["frames"], train, par) if cfg.enc_layers
                else None)
     return x, enc_out
 
@@ -362,14 +606,17 @@ def forward(model: LM, batch: dict, *, remat: str = "none",
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r}, expected one of {REMAT}")
     cfg = model.cfg
-    x, enc_out = _embed(model, batch, train)
-    rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
+    S = batch["tokens"].shape[1]
+    r = current_rules()
+    par = _Par(r, S) if active(r) else None
+    x, enc_out = _embed(model, batch, train, par)
+    rope = L.rope_for(torch.arange(S, device=model.device), cfg)
 
     def run(layers, x):
         aux_g = torch.zeros((), device=model.device)
         for layer in layers:
             x, aux = _apply_sublayer(layer, x, cfg, rope, enc_out=enc_out,
-                                     train=train)
+                                     train=train, par=par)
             if aux is not None:
                 aux_g = aux_g + aux
         return x, aux_g
@@ -386,7 +633,7 @@ def forward(model: LM, batch: dict, *, remat: str = "none",
             x, aux_g = checkpoint(run, group, x, use_reentrant=False,
                                   context_fn=ctx)
         aux_total = aux_total + aux_g
-    return _head(model, x), aux_total
+    return _head(model, x, par), aux_total
 
 
 def loss_fn(model: LM, batch: dict, *, remat: str = "none",
@@ -403,10 +650,41 @@ def loss_fn(model: LM, batch: dict, *, remat: str = "none",
     logits, aux = forward(model, batch, remat=remat, train=True)
     labels = batch["labels"].to(model.device).long()
     lf = logits.float()
+    r = current_rules()
+    if active(r):
+        return _sharded_loss(model, r, lf, labels, aux, aux_weight)
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     ce = ((lse - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def _sharded_loss(model: LM, r, lf, labels, aux, aux_weight: float):
+    """``loss_fn`` on this rank's rows under the rules ``r``: with TP the
+    logits are this rank's vocabulary block, so the logsumexp's max and
+    sum are reduced over the model group and the gold logit comes from the
+    rank that owns the label; the masked sum and the count are summed over
+    the batch axes and the aux loss averaged over them — the global loss,
+    on every rank."""
+    mesh = r.mesh
+    if r.tp:
+        g = mesh.model_group
+        lo, hi = dim_range(mesh, r.tp, model.cfg.vocab_padded)
+        mx = comm.pmax(lf.amax(-1), g)
+        lse = mx + comm.psum(torch.exp(lf - mx[..., None]).sum(-1), g).log()
+        ids = labels - lo
+        own = (ids >= 0) & (ids < hi - lo)
+        gold = lf.gather(-1, ids.clamp(0, max(hi - lo - 1, 0))[..., None])
+        gold = comm.psum(torch.where(own, gold[..., 0], 0.0), g)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    bg = mesh.group(tuple(a for a in r.batch if a in mesh.axis_names))
+    ce = (comm.psum(((lse - gold) * mask).sum(), bg)
+          / comm.psum(mask.sum(), bg).clamp_min(1.0))
+    aux = comm.pmean(aux, bg)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

@@ -65,6 +65,19 @@ class SSM(nn.Module):
                 device=dev), requires_grad=False))
 
 
+def ssm_param_specs(cfg, rules) -> dict:
+    """The JAX package's specs: w_z, w_x, w_dt, dt_bias, A_log and D cut over
+    ``rules.tp`` by heads, w_out row-parallel, w_B, w_C and the conv whole."""
+    tp = rules.tp
+    return {
+        "w_z": (None, tp), "w_x": (None, tp),
+        "w_B": (None, None), "w_C": (None, None),
+        "w_dt": (None, tp), "dt_bias": (tp,), "A_log": (tp,), "D": (tp,),
+        "conv_w": (None, None), "conv_b": (None,),
+        "w_out": (tp, None),
+    }
+
+
 def a_log_init(H: int, device=None) -> torch.Tensor:
     """``init_ssm``'s A_log = log(linspace(1, 16, H)) in float32, the
     linspace by ``jnp.linspace``'s formula (start·(1 − t) + stop·t at
@@ -128,10 +141,13 @@ def apply_ssm(p: SSM, x, cfg, *, return_state: bool = False,
               initial_state=None):
     """Prefill/training forward, chunked SSD. x [B, S, D] → [B, S, D], and
     the final (conv, h) state with ``return_state``. ``initial_state``
-    (conv, h) continues from a previous prefill chunk (chunked prefill)."""
+    (conv, h) continues from a previous prefill chunk (chunked prefill).
+    The widths come from the weights (``w_x``, ``A_log``), so the sharded
+    forward passes a rank's heads with the conv cut to its channels."""
     s = cfg.ssm
     B_, S_orig, _ = x.shape
-    d_inner, H, _ = dims(cfg)
+    # the weights' own widths: a rank's heads under a mesh
+    d_inner, H = p.w_x.shape[1], p.A_log.shape[0]
     P_, N, Q = s.head_dim, s.d_state, s.chunk
     dt_ = x.dtype
 

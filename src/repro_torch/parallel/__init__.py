@@ -1,0 +1,4 @@
+from repro_torch.parallel.sharding import (ShardingRules, batch_axes,
+                                          current_mesh, current_rules,
+                                          make_rules, param_shardings,
+                                          use_shardings)

@@ -80,12 +80,16 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict,
-                  st: OptState):
+                  st: OptState, *, gnorm=None):
     """One AdamW step over ``params`` (name → tensor, updated in place) with
     ``grads`` (name → tensor) → (params, the new state, {"grad_norm",
-    "lr"}); the state's mu, nu and master are updated in place."""
+    "lr"}); the state's mu, nu and master are updated in place. Under a
+    mesh the parameters and state are this rank's blocks, and the caller
+    passes ``gnorm``, the norm over the logical leaves
+    (``parallel.sharding.global_norm``)."""
     step = st.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = lr_at(cfg, step)

@@ -1258,3 +1258,128 @@ def test_a_model_in_training_serves_through_the_kernel(cuda):
     assert _build.launches["flash_attention"] == 2 * cfg.n_layers
     for t in (logits, step_logits):
         assert t.grad_fn is None and torch.isfinite(t.float()).all()
+
+
+# -- the sharded trainer and parallel/ on a one-rank NCCL mesh ----------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL (data, model) mesh (``launch.mesh.make_mesh``),
+    taken down after the test."""
+    from repro_torch.launch import mesh as mesh_mod
+    yield mesh_mod.make_mesh((1, 1), device=cuda)
+    mesh_mod.shutdown()
+
+
+def test_sharded_step_on_one_rank_equals_the_unsharded(cuda, nccl_mesh):
+    """internlm2's smoke config, float32, 3 training steps: under
+    ``make_rules`` on the one-rank mesh (vocab-parallel loss, the
+    collectives on one rank) the losses and the weights after the steps
+    equal the unsharded step's within 1e-5 (the loss's logsumexp is taken
+    in another order)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import (make_rules, shard_model,
+                                               use_shardings)
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   batch_at, init_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config("internlm2-1.8b")
+    tcfg = TrainConfig(optim=AdamWConfig(warmup_steps=2, total_steps=6))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    runs = []
+    for rules in (None, make_rules(nccl_mesh, cfg)):
+        with use_shardings(nccl_mesh, rules):
+            model = init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
+            if rules is not None:
+                shard_model(model, rules)
+            opt, err = init_train_state(model, tcfg)
+            step = make_train_step(tcfg)
+            losses = []
+            for i in range(3):
+                batch = {k: v.to(cuda) for k, v in batch_at(dcfg, i).items()}
+                model, opt, err, m = step(model, opt, err, batch)
+                losses.append(float(m["loss"]))
+            runs.append((losses, dict(model.named_parameters())))
+    (l0, p0), (l1, p1) = runs
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for name, p in p0.items():
+        p = p.detach()
+        torch.testing.assert_close(p1[name].detach(), p, rtol=1e-5,
+                                   atol=1e-5 * float(p.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_forms_on_one_rank_equal_apply_moe(cuda, nccl_mesh, dtype):
+    """``apply_moe_shardmap`` (EP over one rank) is ``apply_moe`` bit for
+    bit; ``apply_moe_a2a`` (fsdp_dp, the tokens over data × model) at a
+    dropless capacity within 1e-5 in float32, the bf16 logit tolerance in
+    bf16."""
+    import dataclasses
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel.sharding import make_rules, use_shardings
+    m = MoEConfig(n_experts=8, top_k=2, d_expert=16, capacity_factor=4.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = MOE.MoE(32, m, dtype, cuda)
+    with torch.no_grad():
+        for name in ("router", "wup", "wgate", "wdown"):
+            w = getattr(p, name)
+            w.copy_(torch.randn(w.shape, generator=gen, device=cuda) * 0.2)
+    x = torch.randn((4, 48, 32), generator=gen, device=cuda).to(dtype)
+    plain, aux = MOE.apply_moe(p, x, m)
+    rules = dataclasses.replace(make_rules(nccl_mesh, None), experts="model")
+    with use_shardings(nccl_mesh, rules):
+        ep, ep_aux = MOE.apply_moe_shardmap(p, x, m)
+    assert torch.equal(ep, plain) and torch.equal(ep_aux, aux)
+    rules = dataclasses.replace(rules, batch=("data", "model"),
+                                moe_impl="all_to_all")
+    with use_shardings(nccl_mesh, rules):
+        a2a, _ = MOE.apply_moe_a2a(p, x, m)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=0.02, atol=0.1))
+    torch.testing.assert_close(a2a, plain, **tol)
+
+
+def test_rings_of_one_rank_equal_sdpa_and_matmul(cuda, nccl_mesh):
+    """On a one-rank axis ring attention sends nothing and equals SDPA
+    (float32, causal and not, GQA 8/2), and the ring collective matmul is
+    ``torch.matmul`` bit for bit."""
+    from repro_torch.models.layers import sdpa_attention
+    from repro_torch.parallel.collectives import ring_collective_matmul
+    from repro_torch.parallel.ring_attention import ring_attention
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 300, 8, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 300, 2, 64), generator=gen, device=cuda)
+            for _ in range(2))
+    for causal in (True, False):
+        out = ring_attention(nccl_mesh, causal=causal)(q, k, v)
+        torch.testing.assert_close(out, sdpa_attention(q, k, v,
+                                                       causal=causal),
+                                   rtol=2e-5, atol=2e-5)
+    x = torch.randn((96, 64), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((64, 80), generator=gen, device=cuda).bfloat16()
+    assert torch.equal(ring_collective_matmul(nccl_mesh)(x, w),
+                       torch.matmul(x, w))
+
+
+def test_one_stage_pipeline_equals_forward(cuda, nccl_mesh):
+    """``pipeline_forward`` on a (1, 1, 1) pod/data/model mesh, 4
+    microbatches, internlm2's smoke config in float32: the ``forward``'s
+    logits within 1e-5."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.model import forward
+    from repro_torch.parallel.pipeline import pipeline_forward
+    from repro_torch.parallel.sharding import make_rules, use_shardings
+    cfg = get_smoke_config("internlm2-1.8b")
+    model = init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (8, 64), device=cuda)
+    with torch.no_grad():
+        ref, _ = forward(model, {"tokens": tokens}, train=True)
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device=cuda)
+        with use_shardings(mesh, make_rules(mesh, cfg)):
+            out = pipeline_forward(model, {"tokens": tokens}, mesh,
+                                   n_microbatches=4)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)

@@ -296,8 +296,3 @@ def test_resumed_run_equals_uninterrupted_bit_for_bit(tmp_path, capsys):
         if f.endswith(".npy"):
             x, y = (np.load(os.path.join(d, "step_40", f)) for d in (a, b))
             assert x.tobytes() == y.tobytes(), f
-
-
-def test_model_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="13.7"):
-        main(["--arch", "gemma-2b", "--model-parallel", "2", *SMOKE])
