@@ -202,12 +202,14 @@ of them passed):
      service's tenants submit: suite A, SUITE_A graphs
      ``generators.delaunay(5_000, seed=100+i)`` (L0 neighbor, coarser
      levels exact; L0 lanes at n_pad 8192), default ``LayoutConfig()``,
-     cold (cache cleared), warm (profiled: device busy and idle share) and
-     through as many warm sequential ``multigila_layout`` calls; then the
-     same with ``engines=["stress"]`` for every graph and weights U(0.5, 2) from
-     ``default_rng(i)``; suite B, SUITE_B graphs
+     cold (cache cleared), warm, warm again with the seeds moved (profiled:
+     device busy and idle share) and through as many warm sequential
+     ``multigila_layout`` calls; then the same on its first SUITE_A_STRESS
+     graphs with ``engines=["stress"]`` for every graph and weights
+     U(0.5, 2) from ``default_rng(i)``; suite B, SUITE_B graphs
      ``generators.delaunay(50_000, seed=200+i)`` (L0 grid, L1 neighbor),
-     the same runs. Each prints wall, graphs/s, phase seconds, the cache's
+     the same runs, a third warm run profiled as it moves no seed. Each
+     prints wall, graphs/s, phase seconds, the cache's
      entries/hits/misses, resident and peak GB, waves, groups a wave and
      launches by kernel and by shape, each shape's equal to the sum over
      its groups of their largest iteration budget. Every lane's hierarchy,
@@ -307,7 +309,24 @@ of them passed):
         rank through the driver: the parameters after the restore equal
         the checkpoint's bit for bit, steps 10 and 11 within LOGIT_TOL of
         the CPU run's;
-  11. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
+  11. sharded LM serving over a one-rank NCCL mesh
+     (``serve_parallel_phase``; prints ``{"sharded_serving": {...}}``):
+     a. at the decode shape of every registered config with attention,
+        the flash kernel's split route with its lse against the plain
+        version (ATTN_TOL's decode bound, LSE_TOL), and the cache cut into
+        2, 4 and 8 sequence blocks (the last ones past kv_len: out 0, lse
+        −inf), each block through the kernel, merged by
+        ``comm.merge_partials_local``, against the uncut kernel's output
+        (``split_merge_checks``);
+     b. internlm2-1.8b at full width and depth under ``make_rules`` (the
+        ``kv_heads`` form) and with ``kv_heads=None`` (``kv_seq``): 6b's
+        prompt, prefill and LM_NEW greedy eager ``decode_step``s, the flash
+        launches counted from 0: 6b's eager tokens, every step's logits
+        within LOGIT_TOL of 6b's, two more steps under sync-debug "error";
+        ms a step and peak GB beside 6b's (``sharded_serving``); the
+        kernels line's ``flash_attention_decode_lse`` row at 11b's
+        ``kv_seq`` call (``lse_row``);
+  12. ``{"cpu_refs": {...}}`` (each CPU reference's seconds in its
      worker), ``{"phase_seconds": {...}}`` (the wall seconds of every phase
      and sub-phase: a phase whose check waits for a CPU reference counts
      its card side and its check; ``cpu_refs_wait`` is the wait for the
@@ -403,9 +422,13 @@ FLOOR_ULPS = 8
 N_MAIN = 1_000_000
 # the batched driver's suites: (graphs, vertices, first seed) of
 # generators.delaunay, as a layout service's tenants submit them. Suite A
-# had 64 graphs until phase 8 joined the script; 32 keep it inside the
-# time limit (each of its runs took ~30 s at 64 graphs)
-SUITE_A = (32, 5_000, 100)
+# had 64 graphs until phase 8 joined the script and 32 until phase 11 did,
+# for both its passes. At 32, phase 7 took 356.7-475.2 s of whole runs of
+# 951.8-1216.1 s (NVIDIA H100 80GB HBM3, 700 W), past the 1200 s limit on
+# a slow host; now the gila pass takes SUITE_A's graphs and the stress
+# pass their first SUITE_A_STRESS
+SUITE_A = (16, 5_000, 100)
+SUITE_A_STRESS = 8
 SUITE_B = (8, 50_000, 200)
 LANES_5D = 8                          # suite A's first graphs, card vs CPU
 # the card-free CPU references of phases 4d, 5, 5b, 5d and 9c run in
@@ -499,6 +522,10 @@ SYNC_ITERS, EAGER_STEPS = 136, 4
 
 #: wall seconds of each phase and sub-phase, printed before the last lines
 PHASE_SECONDS: dict = {}
+#: phase 6b's eager decode of LM_ARCH (tokens [B, 1 + LM_NEW], the prefill's
+#: and every step's logits [B, 1 + LM_NEW, V] on the CPU, ms a step, peak
+#: GB), which phase 11 holds sharded serving to
+LM_EAGER: dict = {}
 
 
 @contextlib.contextmanager
@@ -1309,7 +1336,7 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         encode_s = time.perf_counter() - t0
 
     # the eager step, LM_NEW times
-    tok, out = first, [first]
+    tok, out, step_logits = first, [first], [logits]
     _build.launches.clear()
     t0 = time.perf_counter()
     for i in range(LM_NEW):
@@ -1318,6 +1345,7 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
         finite &= torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1, keepdim=True)
         out.append(tok)
+        step_logits.append(logits)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
     eager_launches = dict(_build.launches)
@@ -1438,6 +1466,11 @@ def lm_main_path(device, arch: str = LM_ARCH) -> dict:
                                       * cfg.n_kv_heads * cfg.hd),
                        flops, BF16_FLOPS_PER_S)[0],
                    cross_kv_share=cross_ms / (graph_s / LM_NEW * 1e3))
+    if arch == LM_ARCH:        # phase 11 holds sharded serving to these
+        LM_EAGER.update(tokens=eager_seq,
+                        logits=torch.cat(step_logits, dim=1).cpu(),
+                        ms_per_step=res["eager_decode_ms_per_step"],
+                        peak_gb=res["peak_mem_gb"])
     # the captured decode holds the model: break the cycle, so that the
     # weights (~32 GB for starcoder2-15b) leave the card when this returns
     model.__dict__.pop("_decode_graphs", None)
@@ -2583,14 +2616,15 @@ def _suite_weights(graphs):
 
 def _batched_run(label, graphs, cfg, *, engines=None, weights=None,
                  device=None, kernels=None, requests=False,
-                 seeds=None) -> dict:
+                 seeds=None, profiled=False) -> dict:
     """One ``multigila_layout_many`` call with the launch counts set to 0
     just before it and read just after, under a ``ManyRecorder``: wall,
     graphs/s, phase seconds (the graphs' sums), the cache's
     entries/hits/misses, resident and peak GB, waves and groups a wave,
     launches by kernel and by shape (on the card, each shape's count must
     equal the budgets of the groups at that shape), and every position
-    finite."""
+    finite. With ``profiled`` the call is ``profile_run``'s, its summary
+    returned under "profile"."""
     import numpy as np
     import torch
     from repro_torch.core import bucketing, multigila_layout_many
@@ -2602,11 +2636,18 @@ def _batched_run(label, graphs, cfg, *, engines=None, weights=None,
     with ManyRecorder(requests=requests, kernels=kernels) as rec:
         _build.launches.clear()
         _build.shape_launches.clear()
-        t0 = time.perf_counter()
-        outs = multigila_layout_many(graphs, cfg, seeds=seeds,
-                                     engines=engines, weights=weights,
-                                     device=device)
-        wall = time.perf_counter() - t0
+        run = lambda: multigila_layout_many(graphs, cfg, seeds=seeds,
+                                            engines=engines, weights=weights,
+                                            device=device)
+        prof = None
+        if profiled:
+            got = []
+            prof = profile_run(lambda: got.append(run()))
+            outs, wall = got[0], prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            outs = run()
+            wall = time.perf_counter() - t0
         launches = dict(_build.launches)
         shape_launches = dict(_build.shape_launches)
     for (e, n), (pos, _) in zip(graphs, outs):
@@ -2634,7 +2675,8 @@ def _batched_run(label, graphs, cfg, *, engines=None, weights=None,
         res.update(resident_gb=torch.cuda.memory_allocated() / 1e9,
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(json.dumps({label: res}), flush=True)
-    return dict(res, outs=outs, rec=rec, shape_counts=shape_launches)
+    return dict(res, outs=outs, rec=rec, shape_counts=shape_launches,
+                profile=prof)
 
 
 def _sequential_run(label, graphs, cfg, *, engines=None, weights=None,
@@ -2822,7 +2864,8 @@ def batched_vs_single_step(label, batched, mode, k=10) -> dict:
 def many_suite(label, graphs, cfg, *, kernels=None, engines=None,
                weights=None, cre_too=False, single_step_mode=None) -> dict:
     """Phase 7 for one suite: ``multigila_layout_many`` cold (cache
-    cleared) and warm, the warm run profiled, then the same graphs through
+    cleared) and warm, a warm run profiled (with ``cre_too`` the one with
+    the seeds moved, else one more), then the same graphs through
     warm sequential ``multigila_layout`` calls; each lane against its
     sequential run (``_lanes_against``), the groups' bits repeated, and the
     speed of both. With ``cre_too``, the lanes' CRE too, held to a bound
@@ -2844,8 +2887,8 @@ def many_suite(label, graphs, cfg, *, kernels=None, engines=None,
     runs["warm"] = _batched_run(f"{label}_batched_warm", graphs, cfg,
                                 engines=engines, weights=weights,
                                 requests=True)
-    prof = profile_run(lambda: (multigila_layout_many(
-        graphs, cfg, engines=engines, weights=weights), None))
+    prof = None if cre_too else profile_run(lambda: multigila_layout_many(
+        graphs, cfg, engines=engines, weights=weights))
     # the single-graph entries warmed by the first graph, then timed
     _sequential_run(f"{label}_sequential_warm_up", graphs[:1], cfg,
                     engines=engines, weights=weights and weights[:1])
@@ -2855,7 +2898,9 @@ def many_suite(label, graphs, cfg, *, kernels=None, engines=None,
     if cre_too:
         moved = _batched_run(f"{label}_batched_seeds_moved", graphs, cfg,
                              engines=engines, weights=weights,
-                             seeds=[cfg.seed + SPREAD_SEED] * len(graphs))
+                             seeds=[cfg.seed + SPREAD_SEED] * len(graphs),
+                             profiled=True)
+        prof = moved["profile"]
         spread = _cre_gaps(f"{label}_cre_seed_spread", graphs, runs["warm"],
                            moved)
         del moved
@@ -3050,6 +3095,7 @@ def many_phase() -> tuple:
     out["A_gila"] = many_suite("suite_A_gila", a, cfg, kernels=cases,
                                cre_too=True, single_step_mode="neighbor")
     launches = dict(out["A_gila"]["runs"]["warm"]["shape_counts"])
+    a = a[:SUITE_A_STRESS]
     out["A_stress"] = many_suite(
         "suite_A_stress", a, cfg, engines=["stress"] * len(a),
         weights=_suite_weights(a), cre_too=True)
@@ -4871,6 +4917,287 @@ def train_parallel_phase(device, full, elastic) -> dict:
     return res
 
 
+# -- phase 11: sharded LM serving on a one-rank NCCL mesh -----------------------
+
+# 11a: the cache of each decode check, its filled rows and the sequence
+# blocks it is cut into (P blocks of LM_CACHE / P rows; at 0.6 of the cache
+# the last blocks of P 4 and 8 lie past kv_len, local kv_len 0)
+SPLIT_BLOCKS = (2, 4, 8)
+SPLIT_KV_LEN = int(0.6 * LM_CACHE)
+# the lse of the kernel against the plain version's: both are float32 sums
+# of 2^x terms (the kernel's ex2.approx, ~2 ulp); one key of ~1250 more or
+# less moves an lse by ~8e-4, so this bound would show a wrong key
+LSE_TOL = dict(rtol=0.0, atol=2e-4)
+
+
+def split_merge_checks(device) -> dict:
+    """11a: at the decode shape of every registered config with attention
+    (B LM_BATCH, Sq 1, its H, KV and hd; a cache of LM_CACHE rows, kv_len
+    SPLIT_KV_LEN on the device): the kernel's out and lse
+    (``return_lse``) against the plain version's (ATTN_TOL's decode bound,
+    LSE_TOL); then the cache cut into P sequence blocks (SPLIT_BLOCKS),
+    each block through the kernel with its local kv_len (0 past the filled
+    rows: out 0, lse −inf, no NaN), merged by ``merge_partials_local``
+    — what the ranks of a ``kv_seq`` mesh compute — against the uncut
+    kernel's out within ATTN_TOL's decode bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.parallel.comm import merge_partials_local
+    rng = np.random.default_rng(11)
+    tol = ATTN_TOL["flash_attention_decode"]
+    res = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        if "attn" not in cfg.layer_pattern():
+            continue
+        B, H, KV, hd, C = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+            LM_CACHE
+
+        def draw(*shape):
+            x = rng.standard_normal(shape, dtype=np.float32)
+            return torch.from_numpy(x).to(device, torch.bfloat16)
+        q, k, v = draw(B, 1, H, hd), draw(B, C, KV, hd), draw(B, C, KV, hd)
+        L = torch.tensor(SPLIT_KV_LEN, dtype=torch.int32, device=device)
+        out, lse = flash_attention(q, k, v, kv_len=L, return_lse=True)
+        ref, ref_lse = flash_attention_ref(q, k[:, :SPLIT_KV_LEN],
+                                           v[:, :SPLIT_KV_LEN],
+                                           return_lse=True)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+        row = dict(H=H, KV=KV, G=H // KV, hd=hd, cache=C,
+                   kv_len=SPLIT_KV_LEN,
+                   out_err=float((out.float() - ref.float()).abs().max()),
+                   lse_err=float((lse - ref_lse).abs().max()))
+        for P in SPLIT_BLOCKS:
+            blk = C // P
+            outs, lses, empty = [], [], 0
+            for r in range(P):
+                local = (L - r * blk).clamp(0, blk).to(torch.int32)
+                o, l = flash_attention(q, k[:, r * blk:(r + 1) * blk],
+                                       v[:, r * blk:(r + 1) * blk],
+                                       kv_len=local, return_lse=True)
+                if r * blk >= SPLIT_KV_LEN:      # a block past kv_len
+                    empty += 1
+                    if not (bool((o == 0).all())
+                            and bool(torch.isneginf(l).all())):
+                        raise AssertionError(f"11a {arch} P {P}: block {r} "
+                                             "past kv_len is not 0 / -inf")
+                outs.append(o)
+                lses.append(l)
+            merged = merge_partials_local(torch.stack(outs),
+                                          torch.stack(lses))
+            if not bool(torch.isfinite(merged).all()):
+                raise AssertionError(f"11a {arch} P {P}: non-finite merge")
+            torch.testing.assert_close(merged.float(), out.float(), **tol)
+            row[f"P{P}"] = dict(
+                blocks_past_kv_len=empty,
+                merge_err=float((merged.float() - out.float()).abs().max()))
+        res[arch] = row
+    torch.cuda.synchronize()
+    return dict(tol=tol, lse_tol=LSE_TOL, checks=res)
+
+
+def lse_row(device, cache: int) -> dict:
+    """The kernels line's row of the split-KV route with its lse, at the
+    path's call in 11b's ``kv_seq`` decode (LM_ARCH: q [LM_BATCH, 1, H,
+    hd] of every head, the whole one-rank cache block, kv_len on the
+    device at the prompt + LM_NEW), rotating over caches of
+    DECODE_KV_BYTES together as 6a's decode row does (so that its ms
+    compares with that row's): ms (graph replay), the plain version's ms,
+    SDPA's on the visible keys (its output only), the bound (q, the
+    visible k and v, out and lse once)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    cfg = get_config(LM_ARCH)
+    B, H, KV, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n = LM_PROMPT + LM_NEW
+    rng = np.random.default_rng(12)
+
+    def draw(*shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).to(device, torch.bfloat16)
+    q = draw(B, 1, H, hd)
+    n_caches = -(-int(DECODE_KV_BYTES) // (2 * B * cache * KV * hd * 2))
+    kvs = [(draw(B, cache, KV, hd), draw(B, cache, KV, hd))
+           for _ in range(n_caches)]
+    L = torch.tensor(n, dtype=torch.int32, device=device)
+    turn = [0]
+
+    def rotate():
+        turn[0] += 1
+        return kvs[turn[0] % n_caches]
+
+    def f():
+        return flash_attention(q, *rotate(), kv_len=L, return_lse=True)
+
+    def lib():
+        k, v = rotate()
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :n].transpose(1, 2),
+            v[:, :n].transpose(1, 2), enable_gqa=True)
+    k, v = kvs[0]
+    out, lse = flash_attention(q, k, v, kv_len=L, return_lse=True)
+    ref, ref_lse = flash_attention_ref(q, k[:, :n], v[:, :n],
+                                       return_lse=True)
+    err = float((out.float() - ref.float()).abs().max())
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **ATTN_TOL["flash_attention_decode"])
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    nbytes = 2 * (2 * q.numel() + 2 * B * n * KV * hd) + 4 * B * H
+    bound, by = _bound_ms(nbytes, 4 * B * H * hd * n, BF16_FLOPS_PER_S)
+    return dict(
+        name="flash_attention_decode_lse", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:63",
+        launches=0, max_abs_err=err, ms=_graph_ms(f, 3 * n_caches),
+        plain_ms=_per_call_ms(lambda: flash_attention_ref(
+            q, k, v, kv_len=L, return_lse=True), 3, batches=3),
+        bound_ms=bound, bound_by=by,
+        library_ms=_graph_ms(lib, 3 * n_caches),
+        lse_err=float((lse - ref_lse).abs().max()),
+        count_key=_shape_key((B, 1, cache, 1)),
+        shape=dict(B=B, Sq=1, Sk=cache, kv_len=n, H=H, KV=KV, hd=hd,
+                   caches=n_caches))
+
+
+def sharded_serving(device, model, mesh, form: str) -> dict:
+    """11b, one cache form: LM_ARCH at full width and depth from seed 0
+    (6b's weights; ``model``, cut by ``shard_model`` on the one-rank NCCL
+    mesh ``mesh``, whole: the blocks of both forms), bf16, under
+    ``make_rules`` (``"kv_heads"``) or the same rules with
+    ``kv_heads=None`` (``"kv_seq"``: the cache cut along its sequence, one
+    block here, each step's attention through the split route with its
+    lse and ``merge_partials``): ``prefill`` of 6b's prompt, then LM_NEW
+    greedy ``decode_step``s, eager, the flash launches counted from 0 over
+    the prefill and the steps; the tokens equal 6b's eager decode and
+    every step's logits lie within LOGIT_TOL of 6b's; two more steps run
+    under ``torch.cuda.set_sync_debug_mode("error")`` (no host read), and
+    four under the profiler (kernels a step, the device's idle share)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import make_rules, use_shardings
+    cfg = model.cfg
+    prompt, cache, frames = _lm_shapes(cfg)
+    rules = make_rules(mesh, cfg)
+    if form == "kv_seq":
+        rules = dataclasses.replace(rules, kv_heads=None)
+    torch.cuda.reset_peak_memory_stats()
+    batch = _lm_batch(cfg, LM_BATCH, prompt, frames, M.VLM_PATCHES, 0,
+                      device)
+    with use_shardings(mesh, rules):
+        warm = {k: t[:, :64] for k, t in batch.items()}
+        _, st, _ = M.prefill(model, warm, 128)
+        M.decode_step(model, warm["tokens"][:, :1], st, 64)
+        del st
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        _build.shape_launches.clear()
+        logits, state, pos = M.prefill(model, batch, cache)
+        tok, toks, kept = logits[:, -1].argmax(-1, keepdim=True), [], [logits]
+        toks.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_NEW):
+            logits, state = M.decode_step(model, tok, state, pos + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+            kept.append(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / LM_NEW * 1e3
+        launches = dict(_build.launches)
+        shapes = _flash_shapes()
+        p = torch.tensor(pos + LM_NEW, dtype=torch.int32, device=device)
+        torch.cuda.synchronize()
+        with _sync_debug_error():
+            for _ in range(2):
+                logits, state = M.decode_step(model, tok, state, p)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                p = p + 1
+        torch.cuda.synchronize()
+
+        def steps4():
+            for _ in range(4):
+                M.decode_step(model, tok, state, p)
+        prof = profile_run(steps4)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seq = torch.cat(toks, dim=1).cpu()
+    got = torch.cat(kept, dim=1).float().cpu()
+    if not torch.equal(seq, LM_EAGER["tokens"]):
+        raise AssertionError(f"11b {form}: tokens {seq[:, :12]}, 6b's "
+                             f"{LM_EAGER['tokens'][:, :12]}")
+    want = LM_EAGER["logits"].float()
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    n_attn = sum(layer.kind == "attn" for layer in model.layers)
+    if launches != {"flash_attention": n_attn * (1 + LM_NEW)}:
+        raise AssertionError(f"11b {form}: launches {launches}, expected "
+                             f"{n_attn} a prefill and a step")
+    del state
+    return dict(form=form, rules=dict(heads=rules.heads,
+                                      kv_heads=rules.kv_heads,
+                                      kv_seq=rules.kv_seq),
+                mesh=[1, 1], layers=cfg.n_layers, batch=LM_BATCH,
+                prompt=prompt, cache_len=cache, new_tokens=LM_NEW,
+                tokens_equal_6b=True,
+                logits_max_abs_diff_6b=float((got - want).abs().max()),
+                logits_bit_equal_6b=bool(torch.equal(got, want)),
+                eager_ms_per_step=step_ms,
+                eager_ms_per_step_6b=LM_EAGER["ms_per_step"],
+                peak_gb=peak, peak_gb_6b=LM_EAGER["peak_gb"],
+                launches=launches, launches_by_shape=shapes,
+                sync_free_steps=2, kernels_per_step=prof["kernels"] / 4,
+                profile_4_steps=prof)
+
+
+def serve_parallel_phase(device) -> list:
+    """Phase 11: 11a (``split_merge_checks``), then 11b
+    (``sharded_serving`` in both cache forms) and the lse row; prints
+    ``{"sharded_serving": {...}}``; the group is taken down at the end →
+    the kernels line's lse row, its launches those of its shape in 11b's
+    ``kv_seq`` run."""
+    import torch
+    from repro_torch.launch import mesh as mesh_mod
+    res = {}
+    with phase("11a"):
+        res["split_merge"] = split_merge_checks(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("11b"):
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as M
+        from repro_torch.parallel.sharding import make_rules, shard_model
+        try:
+            mesh = mesh_mod.make_mesh((1, 1), device=device)
+            cfg = get_config(LM_ARCH)
+            model = M.init_params(cfg, seed=0, device=device)
+            shard_model(model, make_rules(mesh, cfg))
+            for form in ("kv_heads", "kv_seq"):
+                res[form] = sharded_serving(device, model, mesh, form)
+                gc.collect()
+                torch.cuda.empty_cache()
+            del model
+        finally:
+            mesh_mod.shutdown()
+        row = lse_row(device, res["kv_seq"]["cache_len"])
+    row["launches"] = res["kv_seq"]["launches_by_shape"].get(
+        row.pop("count_key"), 0)
+    if not row["launches"]:
+        raise AssertionError("11b: no launch at the lse row's shape")
+    print(json.dumps({"sharded_serving": res, "lse_row": row}), flush=True)
+    row.pop("lse_err")
+    row.pop("shape")
+    return [row]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4901,7 +5228,7 @@ def main(argv=None) -> int:
 
 
 def _phases(torch, others, refs, elastic) -> int:
-    """Phases 1-11 (the module docstring), the CPU references in ``refs``'
+    """Phases 1-12 (the module docstring), the CPU references in ``refs``'
     workers."""
     t_all = time.perf_counter()
     import numpy as np
@@ -5112,7 +5439,12 @@ def _phases(torch, others, refs, elastic) -> int:
     train_phase(device, refs, elastic)
     torch.cuda.empty_cache()
 
-    # 11. summary
+    # 11. sharded serving over a one-rank NCCL mesh
+    with phase("11"):
+        rows += serve_parallel_phase(device)
+    torch.cuda.empty_cache()
+
+    # 12. summary
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro"
            for m in sys.modules):
         raise AssertionError("JAX or the JAX package was imported")

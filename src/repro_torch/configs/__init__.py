@@ -9,8 +9,9 @@ dense ``internlm2-1.8b``, ``starcoder2-7b``, ``starcoder2-15b`` and
 ``internvl2-76b``: every model the JAX package registers.
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
-                                      ShapeCell, SHAPES, get_config,
-                                      get_smoke_config, list_archs, pad_to)
+                                      ShapeCell, SHAPES, cells_for,
+                                      get_config, get_smoke_config,
+                                      list_archs, pad_to)
 
 # importing the modules populates the registry
 from repro_torch.configs import (deepseek_moe_16b, gemma_2b,

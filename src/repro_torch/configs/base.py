@@ -120,6 +120,22 @@ class ArchConfig:
             total += self.n_layers * (per_attn + D)  # cross-attn in decoder
         return total
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        gated = self.activation in ("swiglu", "geglu")
+        D = self.d_model
+        def ffn(width): return D * width * (3 if gated else 2)
+        n_moe_layers = sum(
+            1 for li in range(self.n_layers)
+            if (li % self.moe.every) == self.moe.every - 1
+            and not (li == 0 and self.moe.first_dense_ff))
+        inactive = n_moe_layers * (self.moe.n_experts - self.moe.top_k) \
+            * ffn(self.moe.d_expert)
+        return full - inactive
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
@@ -135,6 +151,15 @@ SHAPES: dict[str, ShapeCell] = {
     "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
 }
+
+
+def cells_for(cfg: ArchConfig) -> list[ShapeCell]:
+    """The runnable shape cells for an arch (long_500k needs sub-quadratic
+    attention — skipped for pure full-attention archs, per assignment)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.subquadratic:
+        out.append(SHAPES["long_500k"])
+    return out
 
 
 _REGISTRY: dict[str, "ArchConfig"] = {}

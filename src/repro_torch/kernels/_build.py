@@ -56,8 +56,8 @@ build_log: dict[str, str] = {}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream: void*)
 # (the force kernels take a lane count and their constants as a pointer to
-# (C·L², md²) of each lane, the split-KV attention route an optional pointer
-# to kv_len)
+# (C·L², md²) of each lane, the split-KV attention route optional pointers
+# to kv_len and to the rows' log-sum-exp)
 _SIGNATURES = {
     "nbody_repulsion_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
     "grid_far_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
@@ -71,7 +71,7 @@ _SIGNATURES = {
                                      _I, _L, _L, _I, _P],
     "flash_attention_split_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _L, _L, _I, _I, _I, _P, _P, _P,
-                                     _P, _P],
+                                     _P, _P, _P],
 }
 
 

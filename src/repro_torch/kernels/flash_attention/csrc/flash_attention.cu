@@ -55,7 +55,12 @@
 //    (an int32 on the device, as a captured decode step keeps it), the
 //    keys at or past *kv_len are masked and the causal mask is aligned at
 //    kv_len: the splits are planned from the cache's capacity Sk, and a
-//    block whose chunk starts at or past kv_len writes an empty partial.
+//    block whose chunk starts at or past kv_len writes an empty partial
+//    (a kv_len of 0 masks every key: out 0). Given an lse pointer, the
+//    merging block also writes each row's log-sum-exp of the scaled
+//    scores, float32 [B, Sq, H] (−inf for a row that sees no key), so that
+//    partial attentions over blocks of a cache held by several ranks merge
+//    (flash-decoding across ranks: parallel/comm.py:merge_partials).
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run
                    // time through cudaGetDriverEntryPoint, so no -lcuda
 #include <math.h>
@@ -592,7 +597,8 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 long long k_bstride, long long v_bstride, float scale_log2,
                 int causal, const int* __restrict__ kv_len,
                 float* __restrict__ part_o, float* __restrict__ part_ml,
-                int* __restrict__ tickets, bf16* __restrict__ out) {
+                int* __restrict__ tickets, bf16* __restrict__ out,
+                float* __restrict__ lse) {
   using namespace fa;
   constexpr int PROW = CHUNK + SPLIT_PAD; // shared row of p
   constexpr int KW = CHUNK / 4;           // keys per warp for S
@@ -768,7 +774,7 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // partial by the log-sum-exp rule, two columns of one row a thread: a
   // running max over batches of MERGE chunks whose loads are all issued
   // before any is used (no branch between them). A row no chunk saw gives
-  // 0. It then zeroes its ticket for the next launch.
+  // 0 (and an lse of -inf). It then zeroes its ticket for the next launch.
   __shared__ int last;
   __threadfence();                        // partials visible to the merger
   __syncthreads();
@@ -812,9 +818,15 @@ fa_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-    *reinterpret_cast<uint32_t*>(
-        out + (((long long)b * Sq + row / G) * H + kvh * G + row % G) * HD +
-        col) = pack_bf16(acc0 * inv, acc1 * inv);
+    const long long orow = ((long long)b * Sq + row / G) * H + kvh * G +
+                           row % G;
+    *reinterpret_cast<uint32_t*>(out + orow * HD + col) =
+        pack_bf16(acc0 * inv, acc1 * inv);
+    // mg is the row max in the log2 domain of the scaled scores, so
+    // ln Σ exp(s·scale) = (mg + log2 lsum) · ln 2
+    if (lse != nullptr && col == 0)
+      lse[orow] = lsum > 0.f ? (mg + log2f(lsum)) * 0.6931471805599453f
+                             : -INFINITY;
   }
   if (tid == 0) tickets[b * KV + kvh] = 0;
 }
@@ -824,7 +836,7 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Sk, int H, int KV, long long k_bstride,
                  long long v_bstride, int causal, const int* kv_len,
                  int splits, float* part_o, float* part_ml, int* tickets,
-                 cudaStream_t stream) {
+                 float* lse, cudaStream_t stream) {
   static std::atomic<uint64_t> smem_done{0};
   cudaError_t e = allow_smem(fa_split_kernel<HD, CHUNK>,
                              split_smem_bytes<HD, CHUNK>(SPLIT_MAX_ROWS / 16),
@@ -839,7 +851,7 @@ int launch_split(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), Sq, Sk, H, KV, k_bstride, v_bstride,
       LOG2E / sqrtf((float)HD), causal, kv_len, part_o, part_ml, tickets,
-      static_cast<bf16*>(out));
+      static_cast<bf16*>(out), lse);
   return (int)cudaGetLastError();
 }
 
@@ -873,16 +885,17 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
 // and B·KV int32 tickets, zero before the launch and left zero after it.
 // kv_len: null (all Sk keys), or an int32 on the device, read by each
 // block: keys at or past it are masked, the causal mask aligned at it.
+// lse: null, or float32 [B, Sq, H] for each row's log-sum-exp.
 extern "C" int flash_attention_split_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Sk, int H, int KV, int hd, long long k_bstride, long long v_bstride,
     int causal, int splits, int chunk, const int* kv_len, float* part_o,
-    float* part_ml, int* tickets, cudaStream_t stream) {
+    float* part_ml, int* tickets, float* lse, cudaStream_t stream) {
 #define FA_SPLIT(HD, CHUNK)                                                  \
   if (hd == HD && chunk == CHUNK)                                            \
     return launch_split<HD, CHUNK>(q, k, v, out, B, Sq, Sk, H, KV, k_bstride, \
                                    v_bstride, causal, kv_len, splits,        \
-                                   part_o, part_ml, tickets, stream);
+                                   part_o, part_ml, tickets, lse, stream);
   FA_SPLIT(64, 64)
   FA_SPLIT(64, 128)
   FA_SPLIT(128, 64)

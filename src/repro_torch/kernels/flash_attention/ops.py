@@ -19,9 +19,20 @@ k/v) and take the batch strides of k and v, so a caller may hand them
 ``kv_len`` as an int32 tensor on the device (the JAX package's traced
 ``_sdpa(kv_len=)``): it then reads the whole cache's capacity, plans its
 splits from it and masks the keys at or past ``kv_len`` on the device, so
-one captured decode step serves every position. One wrapper call counts one
-launch of ``flash_attention``, whichever route and however many device
-kernels it runs, by shape as (B, Sq, Sk, causal).
+one captured decode step serves every position; a ``kv_len`` of 0 masks
+every key (out 0, lse −inf), which a rank whose block of a sequence-cut
+cache lies past the filled rows is handed — such a rank calls the route
+on its own block, which plans its splits from that block's capacity. ``return_lse=True`` (the split
+route) also returns each row's log-sum-exp of the scaled scores, float32
+[B, Sq, H], which the merging block writes beside ``out``. One wrapper call
+counts one launch of ``flash_attention``, whichever route and however many
+device kernels it runs, by shape as (B, Sq, Sk, causal).
+
+A ``meta`` tensor (the dry run's shapes, ``launch/dryrun.py``) gets empty
+meta outputs of the right shapes and launches nothing, as ``jax.eval_shape``
+serves the JAX package's; while ``meta_flops`` is a list (the dry run's
+count, ``launch/roofline.py``) each such call appends the kernel's
+4·B·H·Sq·Sk·hd FLOPs, which ``FlopCounterMode`` does not see.
 """
 from __future__ import annotations
 
@@ -67,6 +78,8 @@ def _sm_count(index: int) -> int:
 
 
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
+#: the FLOPs of each meta call, while the dry run counts them
+meta_flops: list | None = None
 
 
 def _tickets_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -81,16 +94,29 @@ def _tickets_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_len: torch.Tensor | None = None,
+                    return_lse: bool = False):
     """q [B, Sq, H, hd]; k/v [B, Sk, KV, hd] → [B, Sq, H, hd] (ref.py has
     the function: GQA, float32 softmax, bottom-right causal mask). With
-    ``kv_len`` (an int32 0-d tensor on q's device, ≤ Sk) the keys at or
-    past it are masked and the causal mask is aligned at it, as if k/v were
-    ``[:, :kv_len]``; only the split-KV route takes it. On a CUDA tensor
-    it raises when grad mode is on and an input requires grad: its output
-    has no ``grad_fn``. The plain version on the CPU differentiates."""
+    ``kv_len`` (an int32 0-d tensor on q's device, 0 ≤ kv_len ≤ Sk) the
+    keys at or past it are masked and the causal mask is aligned at it, as
+    if k/v were ``[:, :kv_len]``; only the split-KV route takes it.
+    ``return_lse`` → (out, lse float32 [B, Sq, H]); on the card only the
+    split-KV route gives it. On a CUDA tensor it raises when grad mode is
+    on and an input requires grad: its output has no ``grad_fn``. The plain
+    version on the CPU differentiates."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        return flash_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                   return_lse=return_lse)
+    if q.device.type == "meta":
+        if meta_flops is not None:
+            B, Sq, H, hd = q.shape
+            meta_flops.append(4 * B * H * Sq * k.shape[1] * hd)
+        out = torch.empty(q.shape, dtype=q.dtype, device="meta")
+        if not return_lse:
+            return out
+        return out, torch.empty(q.shape[:3], dtype=torch.float32,
+                                device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -130,6 +156,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              "the split-KV route only (Sq·H/KV ≤ "
                              f"{SPLIT_ROWS}), not at Sq {Sq}")
         _build.require(kv_len, "kv_len", torch.int32, (), dev)
+    if return_lse and not split:
+        raise ValueError("flash_attention: return_lse is given by the "
+                         f"split-KV route only (Sq·H/KV ≤ {SPLIT_ROWS}), "
+                         f"not at Sq {Sq}")
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if split:
         splits, chunk = split_plan(B, KV, Sk, _sm_count(dev.index), hd)
         rows = B * KV * splits * Sq * (H // KV)
@@ -139,9 +171,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         err = lib.flash_attention_split_launch(
             *args, splits, chunk,
             None if kv_len is None else kv_len.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), stream)
+            part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            None if lse is None else lse.data_ptr(), stream)
     else:
         err = lib.flash_attention_wgmma_launch(*args, stream)
     _build.count("flash_attention", B, Sq, Sk, int(causal))
     _build.check(err, "flash_attention")
-    return out
+    return (out, lse) if return_lse else out

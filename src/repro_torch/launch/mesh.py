@@ -17,8 +17,14 @@ temporary directory, never a TCP port). ``init_from_env`` initializes the
 group that ``torchrun`` describes in the environment. A CUDA mesh needs
 NCCL and one card a rank; a CPU mesh needs gloo.
 
-The JAX package's ``make_production_mesh`` and its TPU v5e constants serve
-the dry-run and the roofline (ROADMAP item 14) and have no counterpart.
+``make_production_mesh`` builds the dry run's meshes, (16, 16) or (2, 16,
+16), for rank 0 of a process group of that world size whose collectives do
+nothing (PyTorch's ``fake`` backend): the dry run (``launch/dryrun.py``)
+runs a cell's step on ``meta`` tensors over it, and nothing else reaches
+it. The checks of ``make_mesh`` (``_check_backend``,
+``_check_one_card_a_rank``) stay on every other path. Beside it, the
+NVIDIA H100 80GB HBM3's data-sheet rates the dry run's roofline reads (the
+JAX package's TPU v5e constants do not carry over).
 """
 from __future__ import annotations
 
@@ -32,6 +38,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.utils.device import resolve_device
+
+# NVIDIA H100 80GB HBM3 (SXM, 700 W), NVIDIA's data sheet, per card
+PEAK_FLOPS_BF16 = 989e12         # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12                 # B/s
+NVLINK_BW = 450e9                # B/s a direction (900 GB/s both ways)
+HBM_PER_CARD = 80e9              # bytes
 
 _MESHES: dict = {}
 _OWN_STORE: list = []        # the temporary directory of a group made here
@@ -245,3 +257,37 @@ def shutdown() -> None:
         dist.destroy_process_group()
     while _OWN_STORE:
         shutil.rmtree(_OWN_STORE.pop(), ignore_errors=True)
+
+
+def make_fake_mesh(shape, axes=("data", "model")) -> Mesh:
+    """A mesh of ``shape`` for rank 0 of a process group of its size whose
+    collectives do nothing and take ``meta`` tensors (the ``fake``
+    backend of ``torch.testing._internal.distributed.fake_pg``). A group
+    already initialized is taken down first when it is such a group of
+    another size; any other group raises. For the dry run only: its
+    tensors are shapes, never values."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    size = math.prod(int(s) for s in shape)
+    if dist.is_initialized():
+        if str(dist.get_backend()) != "fake":
+            raise RuntimeError("make_fake_mesh: a real process group is "
+                               "initialized")
+        if dist.get_world_size() != size:
+            shutdown()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=size)
+    key = (tuple(shape), tuple(axes), "meta")
+    mesh = _MESHES.get(key)
+    if mesh is None:
+        mesh = _MESHES[key] = Mesh(tuple(shape), tuple(axes),
+                                   torch.device("meta"))
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh as a fake mesh: (16, 16) over
+    (data, model), or (2, 16, 16) over (pod, data, model)."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))

@@ -65,12 +65,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import (active, block_range,
-                                           current_rules, dim_range)
+from repro_torch.parallel.sharding import (_batch_spec, active, block_range,
+                                           current_rules, decode_state_specs,
+                                           dim_range, gather_leaf, spec_axes)
 from repro_torch.utils.cuda_graph import StepGraph
 from repro_torch.utils.device import resolve_device
 
@@ -285,7 +287,7 @@ def param_specs(cfg: ArchConfig, rules) -> dict:
 
 def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
                     cache=None, cache_pos=None, enc_out=None, train=False,
-                    par=None):
+                    par=None, srv=None):
     """Pre-norm residual layer → (x, the MoE layer's aux loss or None);
     ``cache``, the layer's state pair, is written in place. An SSD layer
     with a state takes the decode step for one token and the prefill that
@@ -294,7 +296,11 @@ def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
     attends over it after its self-attention, its keys and values
     computed from it in every call, as the JAX package computes them.
     ``train`` sends attention through ``layers.train_attention``. ``par``
-    (a ``_Par``) runs the sharded layer instead."""
+    (a ``_Par``) runs the sharded layer instead, ``srv`` (a ``_Serve``)
+    the sharded layer with its state."""
+    if srv is not None:
+        return _serve_sublayer(layer, x, cfg, rope, srv, cache, cache_pos,
+                               enc_out)
     if par is not None:
         return _sharded_sublayer(layer, x, cfg, rope, par, enc_out=enc_out,
                                  train=train)
@@ -307,14 +313,8 @@ def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
             x = x + L.apply_attention(
                 layer.cross, hx, None,
                 cross_kv=L.cross_kv(layer.cross, enc_out), train=train)
-    elif cache is not None and h.shape[1] == 1:
-        x = x + SSM.apply_ssm_decode(layer.ssm, h, cfg, cache)
     elif cache is not None:
-        y, (conv, hs) = SSM.apply_ssm(layer.ssm, h, cfg, return_state=True,
-                                      initial_state=cache)
-        cache[0].copy_(conv)
-        cache[1].copy_(hs)
-        x = x + y
+        x = x + _ssm_with_state(layer.ssm, h, cfg, cache)
     else:
         x = x + SSM.apply_ssm(layer.ssm, h, cfg)
     aux = None
@@ -328,6 +328,19 @@ def _apply_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope, *,
     return x, aux
 
 
+def _ssm_with_state(p, h, cfg: ArchConfig, cache):
+    """An SSD layer with its state pair ``cache``, written in place: the
+    decode step for one token, else the prefill that carries the state, as
+    the JAX package's ``_apply_sublayer`` picks them → its output."""
+    if h.shape[1] == 1:
+        return SSM.apply_ssm_decode(p, h, cfg, cache)
+    y, (conv, hs) = SSM.apply_ssm(p, h, cfg, return_state=True,
+                                  initial_state=cache)
+    cache[0].copy_(conv)
+    cache[1].copy_(hs)
+    return y
+
+
 class _Par:
     """How one sharded forward lays out its work, from the rules in force:
     ``tp`` — the model axis cuts the layers (``g``, the model group);
@@ -335,10 +348,16 @@ class _Par:
     ``rules.seq``, when the length divides, as the JAX package's
     ``shard_batch`` asks). A region that each model rank computes a part of
     is entered by ``enter`` and left by ``leave``; one that every rank
-    computes whole by ``whole`` and ``unwhole``."""
+    computes whole by ``whole`` and ``unwhole``. ``f32_sums`` (serving's)
+    adds the ranks' parts in float32 and rounds once: an all-reduce in
+    bf16 rounds at every step of its sum, which over 8 ranks moved
+    jamba-smoke's bf16 logits past the LM tolerance against the JAX
+    package; the trainer's parts are summed in the activation dtype."""
 
-    def __init__(self, rules, S: int, seq: bool = True):
+    def __init__(self, rules, S: int, seq: bool = True,
+                 f32_sums: bool = False):
         self.rules, self.mesh = rules, rules.mesh
+        self.f32_sums = f32_sums
         self.tp = rules.tp is not None
         self.g = self.mesh.model_group if self.tp else None
         m = self.mesh.shape["model"] if self.tp else 1
@@ -353,6 +372,8 @@ class _Par:
     def leave(self, y):
         if self.seq:
             return comm.reduce_scatter(y, self.g, 1)
+        if self.f32_sums:
+            return comm.psum(y.float(), self.g).to(y.dtype)
         return comm.psum(y, self.g)
 
     def norm(self, p):
@@ -377,14 +398,7 @@ def _attention_view(p, cfg: ArchConfig, par: _Par) -> dict:
     gradient of them is a part)."""
     if par.rules.kv_heads:
         return p
-    H_loc = p["wq"].shape[1]
-    G = cfg.n_heads // cfg.n_kv_heads
-    h0 = par.mesh.axis_index("model") * H_loc
-    kv_of = [(h0 + j) // G for j in range(H_loc)]
-    used = sorted(set(kv_of))
-    rep = H_loc // len(used)
-    grouped = kv_of == [used[j // rep] for j in range(H_loc)]
-    sel = torch.tensor(used if grouped else kv_of,
+    sel = torch.tensor(_kv_select(cfg, par, p["wq"].shape[1]),
                        device=p["wk"].device)
     return {"wq": p["wq"], "wo": p["wo"],
             "wk": comm.copy_to(p["wk"], par.g).index_select(1, sel),
@@ -426,6 +440,7 @@ class _SSMView:
         n_bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
         ch = torch.cat([torch.arange(lo, hi), d_inner + torch.arange(n_bc)]
                        ).to(p.conv_w.device)
+        self.ch = ch                 # the conv channels this rank reads
         for k in ("w_z", "w_x", "w_dt", "dt_bias", "A_log", "D", "w_out"):
             setattr(self, k, getattr(p, k))
         self.w_B = comm.copy_to(p.w_B, par.g)
@@ -443,9 +458,11 @@ def _sharded_moe(p, h, cfg: ArchConfig, par: _Par):
         return MOE.apply_moe_a2a(p, h, cfg.moe, cfg.activation)
     if r.experts and r.moe_impl == "shard_map":
         y, aux = MOE.apply_moe_shardmap(p, par.whole(h), cfg.moe,
-                                        cfg.activation)
+                                        cfg.activation,
+                                        f32_sum=par.f32_sums)
     else:
-        y, aux = MOE.apply_moe(p, par.whole(h), cfg.moe, cfg.activation)
+        y, aux = MOE.apply_moe(p, par.whole(h), cfg.moe, cfg.activation,
+                               f32_sum=par.f32_sums)
     return par.unwhole(y), aux
 
 
@@ -516,7 +533,7 @@ def _encode(model: LM, frames, train: bool = False, par=None):
     x = frames.to(model.device, model.dtype)
     rope = L.rope_for(torch.arange(x.shape[1], device=model.device), cfg)
     if par is not None:
-        par = _Par(par.rules, x.shape[1], seq=False)
+        par = _Par(par.rules, x.shape[1], seq=False, f32_sums=par.f32_sums)
         for layer in model.encoder:
             h = L.apply_norm(layer.norm1, x, cfg.norm)
             x = x + _sharded_attention(layer.attn, h, cfg, rope, par,
@@ -693,13 +710,35 @@ def _sharded_loss(model: LM, r, lf, labels, aux, aux_weight: float):
 def init_decode_state(model: LM, batch: int, cache_len: int) -> list:
     """One zeroed state pair a layer, in the model's activation dtype: the
     (k, v) caches [batch, cache_len, KV, hd] of an attention layer, the
-    (conv, h) state of an SSD layer."""
+    (conv, h) state of an SSD layer. Under a mesh each tensor is this
+    rank's block of it, cut by ``sharding.decode_state_specs``: the batch
+    rows over the batch axes where they divide (``_batch_spec``), a cache
+    over its KV heads (``rules.kv_heads``) or along its sequence
+    (``rules.kv_seq``: flash-decoding), an SSD layer's conv channels and
+    heads over "model" where they divide it."""
     cfg = model.cfg
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
-    return [tuple(torch.zeros(shape, dtype=model.dtype, device=model.device)
-                  for _ in range(2)) if layer.kind == "attn"
-            else SSM.init_ssm_state(cfg, batch, model.dtype, model.device)
-            for layer in model.layers]
+    r = current_rules()
+    if not active(r):
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+        return [tuple(torch.zeros(shape, dtype=model.dtype,
+                                  device=model.device) for _ in range(2))
+                if layer.kind == "attn"
+                else SSM.init_ssm_state(cfg, batch, model.dtype, model.device)
+                for layer in model.layers]
+    state = []
+    for layer, specs in zip(model.layers, decode_state_specs(cfg, r, batch)):
+        if layer.kind == "attn":
+            fulls = [(batch, cache_len, cfg.n_kv_heads, cfg.hd)] * 2
+        else:
+            _, H, ch = SSM.dims(cfg)
+            s = cfg.ssm
+            fulls = [(batch, s.conv_width - 1, ch),
+                     (batch, H, s.d_state, s.head_dim)]
+        state.append(tuple(
+            torch.zeros(block_shape(f, spec, r.mesh), dtype=model.dtype,
+                        device=model.device)
+            for f, spec in zip(fulls, specs)))
+    return state
 
 
 @torch.no_grad()
@@ -710,21 +749,30 @@ def prefill(model: LM, batch: dict, cache_len: int, *, chunks: int = 1):
     from chunk to chunk (chunked prefill). A VLM's patches replace the
     first positions of the whole prompt before it is cut into chunks; an
     encoder-decoder model encodes its frames once and every chunk attends
-    over that output."""
+    over that output. Under a mesh (``_Serve``) every rank is handed the
+    whole batch and takes its rows, the state is this rank's blocks
+    (``init_decode_state``) and the logits are gathered whole on every
+    rank, as the JAX package's global array."""
     cfg = model.cfg
     B, S = batch["tokens"].shape
     assert S % chunks == 0
     Sc = S // chunks
     state = init_decode_state(model, B, cache_len)
-    x_full, enc_out = _embed(model, batch)
+    srv = _Serve.of(model, B)
+    if srv is not None:
+        batch = {k: srv.rows(v.to(model.device)) for k, v in batch.items()}
+    x_full, enc_out = _embed(model, batch, par=srv and srv.par)
     for c in range(chunks):
         x = x_full[:, c * Sc:(c + 1) * Sc]
         rope = L.rope_for(torch.arange(c * Sc, (c + 1) * Sc,
                                        device=model.device), cfg)
         for layer, cache in zip(model.layers, state):
             x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
-                                   cache_pos=c * Sc, enc_out=enc_out)
-    return _head(model, x[:, -1:]), state, S
+                                   cache_pos=c * Sc, enc_out=enc_out,
+                                   srv=srv)
+    if srv is None:
+        return _head(model, x[:, -1:]), state, S
+    return srv.logits(_head(model, x[:, -1:], srv.par)), state, S
 
 
 @torch.no_grad()
@@ -733,15 +781,236 @@ def decode_step(model: LM, token, state: list, pos, *, enc_out=None):
     tensor on the model's device; an int is moved there) → (logits
     [B, 1, vocab_padded], state); the state is written in place. An
     encoder-decoder model takes ``enc_out``, its prompt's ``_encode``
-    output, as the JAX package's ``decode_step`` does."""
+    output (``encode``), as the JAX package's ``decode_step`` does. Under
+    a mesh the token and ``enc_out`` are whole, each rank takes its rows,
+    and the logits are gathered whole; nothing is read on the host."""
     cfg = model.cfg
     pos = torch.as_tensor(pos, dtype=torch.int32).to(model.device)
-    x = L.apply_embedding(model.embed, token.to(model.device))
+    srv = _Serve.of(model, token.shape[0])
+    token = token.to(model.device)
+    if srv is None:
+        x = L.apply_embedding(model.embed, token)
+    else:
+        token = srv.rows(token)
+        enc_out = None if enc_out is None else srv.rows(enc_out)
+        x = (srv.par.leave(_vocab_embed(model, token, srv.par))
+             if srv.par.tp else L.apply_embedding(model.embed, token))
     rope = L.rope_for(pos.reshape(1), cfg)
     for layer, cache in zip(model.layers, state):
         x, _ = _apply_sublayer(layer, x, cfg, rope, cache=cache,
-                               cache_pos=pos, enc_out=enc_out)
-    return _head(model, x), state
+                               cache_pos=pos, enc_out=enc_out, srv=srv)
+    if srv is None:
+        return _head(model, x), state
+    return srv.logits(_head(model, x, srv.par)), state
+
+
+@torch.no_grad()
+def encode(model: LM, frames):
+    """An encoder-decoder model's encoder output [B, S_enc, D] of frames
+    [B, S_enc, D] (``_encode``), for ``decode_step(enc_out=)``; under a
+    mesh the sharded encoder on this rank's rows, gathered whole."""
+    srv = _Serve.of(model, frames.shape[0])
+    if srv is None:
+        return _encode(model, frames)
+    out = _encode(model, srv.rows(frames.to(model.device)), par=srv.par)
+    return srv.whole_rows(out)
+
+
+def block_shape(full: tuple, spec, mesh) -> tuple:
+    """The block of a tensor of shape ``full`` that every rank holds under
+    ``spec``: ⌈n / size⌉ rows of each cut dimension, as ``NamedSharding``
+    pads its shards. Only a cache cut along its sequence can be uneven
+    (the other cuts of ``decode_state_specs`` divide): its last ranks then
+    hold rows past its length, never written and masked."""
+    out = list(full)
+    for d, entry in enumerate(spec):
+        if spec_axes(entry):
+            out[d] = -(-full[d] // mesh.axis_size(spec_axes(entry)))
+    return tuple(out)
+
+
+class _Serve:
+    """How ``prefill`` and ``decode_step`` run under the rules in force:
+    the batch rows this rank takes (``_batch_spec``: all of them where B
+    does not divide the batch axes), the layers' ``_Par`` (no sequence
+    cut: the residual is whole along the sequence at serving) and the
+    decode state's specs."""
+
+    def __init__(self, model: LM, rules, B: int):
+        self.rules, self.mesh, self.B = rules, rules.mesh, B
+        self.bs = _batch_spec(rules, B)
+        self.par = _Par(rules, 1, seq=False, f32_sums=True)
+        self.cfg = model.cfg
+
+    @staticmethod
+    def of(model: LM, B: int):
+        r = current_rules()
+        return _Serve(model, r, B) if active(r) else None
+
+    def rows(self, x):
+        """This rank's rows of a whole-batch tensor."""
+        if self.bs is None:
+            return x
+        lo, hi = dim_range(self.mesh, self.bs, x.shape[0])
+        return x[lo:hi]
+
+    def whole_rows(self, x):
+        """The whole batch of this rank's rows, on every rank."""
+        if self.bs is None:
+            return x
+        return gather_leaf(x, (self.bs,), self.mesh,
+                           (self.B, *x.shape[1:]))
+
+    def logits(self, y):
+        """The LM head's [B_loc, 1, V_loc] → [B, 1, vocab_padded], on every
+        rank: the vocabulary blocks over ``rules.tp``, the rows over the
+        batch axes."""
+        V = self.cfg.vocab_padded
+        spec = (self.bs, None, self.rules.tp if self.par.tp else None)
+        return gather_leaf(y, spec, self.mesh, (self.B, 1, V))
+
+
+def _serve_sublayer(layer: DecoderLayer, x, cfg: ArchConfig, rope,
+                    srv: _Serve, cache, cache_pos, enc_out=None):
+    """``_apply_sublayer`` with a state under a mesh: the attention on this
+    rank's block of the cache (``_serve_attention``), cross-attention with
+    its heads cut as the trainer cuts them, an SSD layer on this rank's
+    heads and state blocks (``_serve_ssm``), the MLP and MoE layers as the
+    sharded forward runs them."""
+    par = srv.par
+    h = L.apply_norm(layer.norm1, x, cfg.norm)
+    if layer.attn is not None:
+        x = x + _serve_attention(layer.attn, h, cfg, rope, srv, cache,
+                                 cache_pos)
+        if enc_out is not None and layer.cross is not None:
+            hx = L.apply_norm(layer.norm_x, x, cfg.norm)
+            x = x + _sharded_attention(layer.cross, hx, cfg, None, par,
+                                       enc_out=enc_out)
+    else:
+        x = x + _serve_ssm(layer.ssm, h, cfg, srv, cache)
+    if layer.moe is not None:
+        y, _ = _sharded_moe(layer.moe, L.apply_norm(layer.norm2, x,
+                                                    cfg.norm), cfg, par)
+        x = x + y
+    elif layer.mlp is not None:
+        h = L.apply_norm(layer.norm2, x, cfg.norm)
+        x = x + (par.leave(L.apply_mlp(layer.mlp, par.enter(h),
+                                       cfg.activation)) if par.tp
+                 else L.apply_mlp(layer.mlp, h, cfg.activation))
+    return x, None
+
+
+def _serve_ssm(p, h, cfg: ArchConfig, srv: _Serve, cache):
+    """An SSD layer with its state under a mesh. With a model axis the
+    rank runs its heads (``_SSMView``) on its block of h, and its conv
+    window — its channels of x, then B and C — is taken from the conv
+    state's layout (``decode_state_specs``: the channels cut evenly over
+    "model", or whole) and put back into it after the step, by gathering
+    the ranks' x channels."""
+    par = srv.par
+    if not par.tp:
+        return _ssm_with_state(p, h, cfg, cache)
+    view = _SSMView(p, cfg, par)
+    conv, hs = cache
+    cut = conv.shape[2] != SSM.dims(cfg)[2]
+    whole = comm.gather_whole(conv, par.g, 2) if cut else conv
+    window = whole.index_select(2, view.ch)
+    y = _ssm_with_state(view, par.enter(h), cfg, (window, hs))
+    d_loc = view.w_x.shape[1]
+    whole = torch.cat([comm.gather_whole(window[..., :d_loc].contiguous(),
+                                         par.g, 2), window[..., d_loc:]],
+                      dim=2)
+    if cut:
+        lo = par.mesh.axis_index("model") * conv.shape[2]
+        whole = whole[..., lo:lo + conv.shape[2]]
+    conv.copy_(whole)
+    return par.leave(y)
+
+
+def _kv_select(cfg: ArchConfig, par: _Par, H_loc: int):
+    """The KV heads this rank's ``H_loc`` query heads read (as
+    ``_attention_view`` picks them from wk/wv): an index into the KV-head
+    dimension that keeps the kernel's grouping."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    h0 = par.mesh.axis_index("model") * H_loc
+    kv_of = [(h0 + j) // G for j in range(H_loc)]
+    used = sorted(set(kv_of))
+    rep = H_loc // len(used)
+    grouped = kv_of == [used[j // rep] for j in range(H_loc)]
+    return used if grouped else kv_of
+
+
+def _serve_attention(p, h, cfg: ArchConfig, rope, srv: _Serve, cache,
+                     cache_pos):
+    """Self-attention over this rank's block of the cache.
+
+    * No model axis (``rules.tp`` None): the one-device attention.
+    * ``rules.kv_heads``: the rank's query heads and its block of the KV
+      heads (and of the cache): ``layers.apply_attention``, then the
+      row-parallel wo summed over the model group.
+    * Otherwise the cache is cut along its sequence over ``rules.kv_seq``
+      and every rank computes all KV heads' new keys and values (wk/wv are
+      whole). At decode (``cache_pos`` a device scalar) only the rank whose
+      block holds ``pos`` writes its row — an ``index_copy_`` at the
+      clamped local position of the row or of what was there, chosen on
+      the device — then each rank attends with all query heads (gathered
+      when ``rules.heads`` cuts them) over its block with its local
+      ``kv_len`` (0 for a block past the filled rows) and the ranks merge
+      by ``comm.merge_partials``. At prefill (``cache_pos`` an int) each
+      rank writes its rows of the chunk, and the chunk attends over the
+      blocks gathered whole along the sequence (the prefix ``[:kv_len]``),
+      with the rank's query heads and the KV heads they read. The cache
+      keeps this one layout (``decode_state_specs``'s) at prefill and
+      decode alike, where the JAX package cuts a prefill cache's sequence
+      only past 8 GiB."""
+    par, r = srv.par, srv.rules
+    if not par.tp:
+        return L.apply_attention(p, h, rope, cache=cache,
+                                 cache_pos=cache_pos)
+    if r.kv_heads:
+        return par.leave(L.apply_attention(p, par.enter(h), rope,
+                                           cache=cache, cache_pos=cache_pos))
+    hin = par.enter(h)
+    q = L.apply_rope(L._proj(hin, p["wq"]), *rope)
+    k_new = L.apply_rope(L._proj(hin, p["wk"]), *rope)
+    v_new = L._proj(hin, p["wv"])
+    ck, cv = cache
+    n = ck.shape[1]                       # every rank's block: ⌈len / size⌉
+    seq = spec_axes(r.kv_seq)
+    lo = srv.mesh.index(seq) * n
+    H_loc = p["wq"].shape[1]
+    heads_cut = r.heads is not None
+    if isinstance(cache_pos, torch.Tensor):
+        x_len = h.shape[1]
+        at = (cache_pos - lo).clamp(0, n - 1).reshape(1).long()
+        own = (cache_pos >= lo) & (cache_pos < lo + n)
+        ck.index_copy_(1, at, torch.where(own, k_new, ck.index_select(1, at)))
+        cv.index_copy_(1, at, torch.where(own, v_new, cv.index_select(1, at)))
+        kv_len = (cache_pos + x_len - lo).clamp(0, n).to(torch.int32)
+        if heads_cut:
+            q = comm.gather_whole(q, par.g, 2).contiguous()
+        out, lse = flash_attention(q, ck, cv, causal=True, kv_len=kv_len,
+                                   return_lse=True)
+        out = comm.merge_partials(out, lse, par.g)
+        if heads_cut:
+            h0 = par.mesh.axis_index("model") * H_loc
+            out = out[:, :, h0:h0 + H_loc]
+    else:
+        kv_len = cache_pos + h.shape[1]
+        a, b = max(cache_pos, lo), min(kv_len, lo + n)
+        if a < b:
+            ck[:, a - lo:b - lo] = k_new[:, a - cache_pos:b - cache_pos]
+            cv[:, a - lo:b - lo] = v_new[:, a - cache_pos:b - cache_pos]
+        g = srv.mesh.group(seq)
+        kf = comm.gather_whole(ck, g, 1)[:, :kv_len].contiguous()
+        vf = comm.gather_whole(cv, g, 1)[:, :kv_len].contiguous()
+        if heads_cut:
+            sel = torch.tensor(_kv_select(cfg, par, H_loc), device=kf.device)
+            kf, vf = kf.index_select(2, sel), vf.index_select(2, sel)
+        out = flash_attention(q, kf, vf, causal=True)
+    wo = p["wo"]
+    y = out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return par.leave(y) if heads_cut else y
 
 
 class DecodeGraph:
@@ -755,11 +1024,16 @@ class DecodeGraph:
     card the first step runs eagerly and captures the step as a CUDA graph
     (``utils.cuda_graph.StepGraph``); later steps replay it. On the CPU each
     step runs eagerly on the same buffers. ``logits`` is the static buffer
-    of the last step's logits [B, 1, vocab_padded]."""
+    of the last step's logits [B, 1, vocab_padded]. Under a mesh it
+    raises: sharded decode runs ``decode_step`` eagerly."""
 
     def __init__(self, model: LM, batch: int, cache_len: int,
                  enc_len: int = 0):
         dev, cfg = model.device, model.cfg
+        if active(current_rules()):
+            raise NotImplementedError(
+                "DecodeGraph under a mesh: capturing NCCL collectives in a "
+                "CUDA graph is untried; run decode_step eagerly")
         if bool(cfg.enc_layers) != bool(enc_len):
             raise ValueError(f"{cfg.name}: enc_len {enc_len} for a model "
                              f"with {cfg.enc_layers} encoder layers")
@@ -813,3 +1087,35 @@ def compile_decode(model: LM, batch: int, cache_len: int,
     if key not in graphs:
         graphs[key] = DecodeGraph(model, batch, cache_len, enc_len)
     return graphs[key]
+
+
+# -- input specs (the dry run) ---------------------------------------------------
+
+def input_specs(cfg: ArchConfig, cell) -> dict:
+    """The JAX package's ``input_specs``: every model input of a shape cell
+    as an empty ``meta`` tensor of its shape and dtype (int32 tokens,
+    labels, token and 0-d pos; bf16 frames, patches and enc_out): a train
+    cell's tokens and labels [B, S] (an encoder-decoder model's decoder
+    length S/2, with frames [B, S/2, D]; a VLM's patches [B, VLM_PATCHES,
+    D]), a prefill cell's tokens (with the same extras), a decode cell's
+    token [B, 1] and pos (an encoder-decoder model's enc_out [B, S/2,
+    D])."""
+    B, S = cell.global_batch, cell.seq_len
+    dec = S // 2 if cfg.enc_layers else S
+
+    def meta(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    act = torch.bfloat16
+    if cell.kind == "decode":
+        spec = {"token": meta(B, 1), "pos": meta()}
+        if cfg.enc_layers:
+            spec["enc_out"] = meta(B, S // 2, cfg.d_model, dtype=act)
+        return spec
+    spec = {"tokens": meta(B, dec)}
+    if cell.kind == "train":
+        spec["labels"] = meta(B, dec)
+    if cfg.enc_layers:
+        spec["frames"] = meta(B, S // 2, cfg.d_model, dtype=act)
+    if cfg.modality == "vlm":
+        spec["patches"] = meta(B, VLM_PATCHES, cfg.d_model, dtype=act)
+    return spec

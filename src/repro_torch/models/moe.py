@@ -150,10 +150,11 @@ def _experts(p: MoE, buf, activation: str):
 
 
 def _moe(p: MoE, x, m, activation: str, group=None, e0: int = 0,
-         E_loc: int | None = None):
+         E_loc: int | None = None, f32_sum: bool = False):
     """The MoE layer, whole (``group`` None) or this rank's part over the
     model ``group``: experts [e0, e0 + E_loc) of E with the weights' own
-    FFN width; its output summed over the group."""
+    FFN width; its output summed over the group (in float32, rounded once,
+    with ``f32_sum``: sharded serving's)."""
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
     E_loc = E if E_loc is None else E_loc
@@ -187,23 +188,27 @@ def _moe(p: MoE, x, m, activation: str, group=None, e0: int = 0,
     if p.shared is not None:
         y = y + L.apply_mlp(p.shared, x, "swiglu")
     if group is not None:
-        y = comm.psum(y, group)
+        y = (comm.psum(y.float(), group).to(y.dtype) if f32_sum
+             else comm.psum(y, group))
     return y, aux
 
 
-def apply_moe(p: MoE, x, m, activation: str = "swiglu"):
+def apply_moe(p: MoE, x, m, activation: str = "swiglu", *,
+              f32_sum: bool = False):
     """x [B, S, D] → (y [B, S, D], aux loss float32 scalar). Under a mesh
     whose rules cut the experts (EP) or inside them (``expert_tp``): this
     rank's part, x whole over the model group."""
     r = current_rules()
     if active(r) and r.experts:
-        return apply_moe_shardmap(p, x, m, activation)
+        return apply_moe_shardmap(p, x, m, activation, f32_sum=f32_sum)
     if active(r) and r.expert_tp:
-        return _moe(p, x, m, activation, r.mesh.model_group)
+        return _moe(p, x, m, activation, r.mesh.model_group,
+                    f32_sum=f32_sum)
     return _moe(p, x, m, activation)
 
 
-def apply_moe_shardmap(p: MoE, x, m, activation: str = "swiglu"):
+def apply_moe_shardmap(p: MoE, x, m, activation: str = "swiglu", *,
+                       f32_sum: bool = False):
     """EP over the model axis (the JAX package's explicit ``shard_map``
     form): x [B_loc, S, D] is whole over the model group, the rank holds
     experts [i·E/model, (i+1)·E/model), routes every token (the router is
@@ -214,7 +219,7 @@ def apply_moe_shardmap(p: MoE, x, m, activation: str = "swiglu"):
     msize = mesh.shape["model"]
     E_loc = m.n_experts // msize
     return _moe(p, x, m, activation, mesh.model_group,
-                mesh.axis_index("model") * E_loc, E_loc)
+                mesh.axis_index("model") * E_loc, E_loc, f32_sum)
 
 
 def apply_moe_a2a(p: MoE, x, m, activation: str = "swiglu"):

@@ -20,7 +20,12 @@ in the activation dtype through the recurrence, as ``lax.scan`` keeps it.
 Decode keeps one state a layer: the conv window [B, W-1, conv_ch] (the last
 W-1 rows before the convolution) and the SSM state h [B, H, N, P], both in
 the activation dtype; ``apply_ssm_decode`` writes both in place, so that a
-captured decode step advances them.
+captured decode step advances them. Under a mesh a rank holds its blocks of
+both (``parallel.sharding.decode_state_specs``: the conv's channels and h's
+heads over "model" where they divide it) and ``apply_ssm_decode`` runs on a
+rank's heads, its widths read from the weights it is handed, as
+``apply_ssm``'s are (``models/model.py``'s sharded serving moves the conv
+window between the two layouts).
 """
 from __future__ import annotations
 
@@ -230,7 +235,9 @@ def apply_ssm(p: SSM, x, cfg, *, return_state: bool = False,
 
 
 def init_ssm_state(cfg, batch: int, dtype, device) -> tuple:
-    """A zeroed decode state: (conv [B, W-1, conv_ch], h [B, H, N, P])."""
+    """A zeroed decode state: (conv [B, W-1, conv_ch], h [B, H, N, P]);
+    under a mesh ``models.model.init_decode_state`` makes a rank's blocks
+    of them."""
     s = cfg.ssm
     _, H, conv_ch = dims(cfg)
     return (torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=dtype,
@@ -241,10 +248,11 @@ def init_ssm_state(cfg, batch: int, dtype, device) -> tuple:
 
 def apply_ssm_decode(p: SSM, x, cfg, state: tuple):
     """One-token decode. x [B, 1, D] → [B, 1, D]; the state (conv, h) is
-    advanced in place."""
+    advanced in place. The widths come from the weights, as in
+    ``apply_ssm``."""
     s = cfg.ssm
     B_ = x.shape[0]
-    d_inner, H, _ = dims(cfg)
+    d_inner, H = p.w_x.shape[1], p.A_log.shape[0]
     P_, N = s.head_dim, s.d_state
     dt_ = x.dtype
     conv, h_state = state

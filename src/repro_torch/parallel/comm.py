@@ -25,11 +25,62 @@ tensor. ``ppermute`` and ``all_to_all`` are their own kind's transpose.
 No collective here falls back: a failing one raises. A rank never sends to
 itself (gloo and NCCL refuse it): ``ppermute`` keeps a self-pair's block
 and sends nothing.
+
+``merge_partials`` is flash-decoding's combine across ranks: each rank's
+attention over its block of a sequence-cut KV cache, with the rows'
+log-sum-exp, merged over the model group (``merge_partials_local`` is the
+same rule on partials stacked along a dimension).
+
+``counting()`` turns on a count of every collective's bytes by kind and
+group size (the dry run's: ``launch/roofline.py``), by the ring model of
+the JAX package's ``launch/roofline.py``: an all-reduce moves 2(g−1)/g of
+its size a rank, an all-gather, reduce-scatter or all-to-all (g−1)/g of the
+whole, a permute its size. Off, it costs one test of a flag a collective.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+#: (kind, group size) → bytes a rank moves, while ``counting`` is on
+coll_bytes: collections.Counter | None = None
+
+
+@contextlib.contextmanager
+def counting():
+    """Within ``with``: every collective of this module (and those that
+    ``record`` is told of) adds its ring-model bytes to ``coll_bytes``,
+    which starts empty; yields the counter."""
+    global coll_bytes
+    prev, coll_bytes = coll_bytes, collections.Counter()
+    try:
+        yield coll_bytes
+    finally:
+        coll_bytes = prev
+
+
+_RING = {"all-reduce": lambda g: 2.0 * (g - 1) / g,
+         "all-gather": lambda g: (g - 1) / g,
+         "reduce-scatter": lambda g: (g - 1) / g,
+         "all-to-all": lambda g: (g - 1) / g,
+         "collective-permute": lambda g: 1.0}
+
+
+def record(kind: str, nbytes: int, group) -> None:
+    """Count a collective of ``kind`` over ``group`` whose largest side
+    (input or output) holds ``nbytes``, when ``counting`` is on."""
+    if coll_bytes is None:
+        return
+    g = size(group)
+    if g > 1:
+        coll_bytes[(kind, g)] += _RING[kind](g) * nbytes
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
 
 
 # the single-tensor all-gather and reduce-scatter: torch 2.13 names them
@@ -50,6 +101,7 @@ def rank(group) -> int:
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):
     out = x.contiguous().clone()
+    record("all-reduce", _nbytes(out), group)
     dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -58,6 +110,7 @@ def _gather(x, group, dim: int):
     n = size(group)
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    record("all-gather", _nbytes(out), group)
     _gather_into(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -68,6 +121,7 @@ def _reduce_scatter(x, group, dim: int):
     if x.shape[0] % n:
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows over {n} ranks")
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    record("reduce-scatter", _nbytes(x), group)
     _scatter_into(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -200,6 +254,7 @@ def _permute(x, group, pairs):
             ops.append(dist.P2POp(dist.irecv, out,
                                   dist.get_global_rank(group, src), group))
     if ops:
+        record("collective-permute", _nbytes(x), group)
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return torch.zeros_like(x) if out is None else out
@@ -232,6 +287,7 @@ def _a2a(x, group, dim: int):
                          f"for {n} ranks")
     x = x.movedim(dim, 0).contiguous()
     out = torch.empty_like(x)
+    record("all-to-all", _nbytes(x), group)
     dist.all_to_all_single(out, x, group=group)
     return out.movedim(0, dim)
 
@@ -257,3 +313,33 @@ def all_to_all(x, group, dim: int):
 def axis_index(mesh, axis: str) -> int:
     """This rank's coordinate on ``axis``."""
     return mesh.axis_index(axis)
+
+
+def merge_partials_local(out, lse, dim: int = 0):
+    """Partial attentions stacked along ``dim`` — out [..., Sq, H, hd] in
+    the activation dtype, each over its own block of the keys, and lse
+    [..., Sq, H] float32, its rows' log-sum-exp — merged into the attention
+    over all the keys: weights exp(lse − max lse) over the partials, the
+    weighted sum of the outputs over the sum of the weights, in float32,
+    cast to out's dtype at the end. A partial that saw no key (lse −inf)
+    weighs 0; a row no partial saw gives 0."""
+    mx = lse.amax(dim, keepdim=True)
+    w = torch.where(torch.isfinite(mx), torch.exp(lse - mx), 0.0)
+    num = (out.float() * w[..., None]).sum(dim)
+    den = w.sum(dim)
+    return (num / den.clamp_min(1e-30)[..., None]).to(out.dtype)
+
+
+def merge_partials(out, lse, group):
+    """``merge_partials_local`` over the ranks of ``group``: each rank's
+    partial out [B, Sq, H, hd] and lse [B, Sq, H] → the merged attention,
+    the same on every rank — a ``pmax`` of lse, then one all-reduce of the
+    weighted outputs beside the weights (float32). A one-rank group returns
+    ``out`` unchanged. Outside autograd (serving)."""
+    if size(group) == 1:
+        return out
+    mx = pmax(lse, group)
+    w = torch.where(torch.isfinite(mx), torch.exp(lse - mx), 0.0)
+    both = _all_reduce(torch.cat([out.float() * w[..., None],
+                                  w[..., None]], dim=-1), group)
+    return (both[..., :-1] / both[..., -1:].clamp_min(1e-30)).to(out.dtype)

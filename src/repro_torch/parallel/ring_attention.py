@@ -7,7 +7,11 @@ arriving block folded into a streaming softmax in float32 (running max and
 denominator). Causality is by global positions: a block wholly in a query's
 future contributes exp(−inf) = 0, and the schedule keeps the same steps.
 Forward only, as in the JAX package, whose test does not differentiate it.
-A one-rank axis attends over its own block and sends nothing.
+A one-rank axis attends over its own block and sends nothing. Its merge
+streams (max, sum, an unnormalised accumulator in v's dtype) one block at
+a time in the JAX package's order; ``comm.merge_partials`` combines
+normalised partials by their log-sum-exp in float32 instead, so sharing it
+would move this module's bf16 roundings away from the JAX package's.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ The mesh is (pod, data, model) — multi-pod — or (data, model).
   mlp/vocab/ssm-inner → "model"     (Megatron TP)
   experts → "model" when n_experts % model_size == 0 (EP), else expert FFNs
             TP-cut inside each expert (``expert_tp``)
-  kv_seq  → "model" for decode KV caches (the dry run's; the port serves
-            unsharded)
+  kv_seq  → "model" for decode KV caches when the KV heads are not cut
+            (flash-decoding: each rank attends over its block of the cache
+            and ``comm.merge_partials`` combines the ranks)
 
 A spec is a tuple with one entry a dimension: None (whole), a mesh axis, or
 a tuple of axes. ``make_rules`` and ``zero_spec`` return the JAX package's
@@ -120,6 +121,44 @@ def batch_axes() -> tuple | None:
 def active(r: ShardingRules | None) -> bool:
     """Whether ``r`` shards anything (rules with a mesh)."""
     return r is not None and r.mesh is not None
+
+
+def _batch_spec(rules: ShardingRules, B: int):
+    """The batch axes that cut B rows (the JAX package's dry run's
+    ``_batch_spec``): ``rules.batch`` when B divides their size, else None
+    (whole: ``long_500k``'s one row)."""
+    dp = 1
+    for a in rules.batch:
+        dp *= rules.mesh.shape[a]
+    return rules.batch if B % dp == 0 else None
+
+
+def decode_state_specs(cfg, rules: ShardingRules, B: int) -> list:
+    """The spec of each layer's decode state (``models.model.
+    init_decode_state``'s list of pairs), the JAX package's
+    ``decode_state_specs`` without the scan's group axis: an attention
+    layer's (k, v) [B, S, KV, hd] cut over ``rules.kv_heads``, or, when the
+    KV heads are not cut, along the sequence over ``rules.kv_seq``
+    (flash-decoding); an SSD layer's conv [B, W−1, channels] over "model"
+    when the channels divide it, its h [B, H, N, P] over "model" when the
+    heads do; the batch by ``_batch_spec``."""
+    bs = _batch_spec(rules, B)
+    msize = rules.mesh.shape["model"]
+    if rules.kv_heads is not None:
+        kv = (bs, None, rules.kv_heads, None)
+    else:
+        kv = (bs, rules.kv_seq, None, None)
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_pattern()[i % len(cfg.layer_pattern())] == "attn":
+            out.append((kv, kv))
+            continue
+        d_inner = cfg.ssm.expand * cfg.d_model
+        H = d_inner // cfg.ssm.head_dim
+        ch = d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        out.append(((bs, None, "model" if ch % msize == 0 else None),
+                    (bs, "model" if H % msize == 0 else None, None, None)))
+    return out
 
 
 def zero_spec(spec, shape, mesh, axes=("pod", "data")) -> tuple:
@@ -286,6 +325,7 @@ def reduce_grads(grads: dict, specs: dict, rules: ShardingRules) -> dict:
     out = dict(grads)
     for axes, names in buckets.items():
         flat = torch.cat([out[k].float().reshape(-1) for k in names])
+        comm.record("all-reduce", flat.numel() * 4, mesh.group(axes))
         dist.all_reduce(flat, group=mesh.group(axes))
         at = 0
         for k in names:
@@ -303,6 +343,8 @@ def leaf_max(specs: dict, mesh):
         if not axes:
             return m
         m = m.clone()
+        comm.record("all-reduce", m.numel() * m.element_size(),
+                    mesh.group(axes))
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group(axes))
         return m
     return amax
@@ -320,6 +362,7 @@ def global_norm(tree: dict, specs: dict, mesh) -> torch.Tensor:
     for axes, sq in by_axes.items():
         if axes:
             sq = sq.clone()
+            comm.record("all-reduce", 4, mesh.group(axes))
             dist.all_reduce(sq, group=mesh.group(axes))
         total = total + sq
     return torch.sqrt(total)

@@ -740,6 +740,74 @@ def test_flash_split_kv_reads_kv_len_from_the_device(cuda, kv_len, H, KV,
                         kv_len=n)
 
 
+DECODE_HEADS = [(16, 8, 128), (36, 4, 128), (48, 4, 128), (8, 1, 256),
+                (24, 8, 64), (16, 16, 128), (32, 8, 128), (16, 16, 64),
+                (64, 8, 128)]
+
+
+@pytest.mark.parametrize("H,KV,hd", DECODE_HEADS)
+@pytest.mark.parametrize("kv_len", [0, 1, 37, 2049])
+def test_flash_split_kv_lse_matches_plain(cuda, kv_len, H, KV, hd):
+    """``return_lse=True`` on the split-KV route at the decode heads of
+    every registered config with attention (jamba 32 over 8, seamless 16
+    over 16 at hd 64 and internvl2 64 over 8 beside the above), over a
+    2088-row cache with a device ``kv_len``: out as above, and lse within
+    2e-4 of the plain version's (float32 sums of the same 2^x terms; one
+    key more or less moves an lse of ~2000 keys by ~5e-4); at kv_len 0
+    out 0 and lse −inf, with no NaN."""
+    tol = dict(rtol=1e-2, atol=2e-3 if kv_len > 1024 else 1e-2)
+    q, ck, cv = _attn_inputs(4, 1, 2088, H, KV, hd, max(kv_len, 1), cuda)
+    n = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    out, lse = _launched("flash_attention", lambda: flash_attention(
+        q, ck, cv, kv_len=n, return_lse=True))
+    ref, ref_lse = flash_attention_ref(q, ck, cv, kv_len=n, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (4, 1, H)
+    if kv_len == 0:
+        assert (out == 0).all() and torch.isneginf(lse).all()
+        return
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-4)
+    # the same bits of out as the call without lse
+    assert torch.equal(out, flash_attention(q, ck, cv, kv_len=n))
+
+
+@pytest.mark.parametrize("H,KV,hd", DECODE_HEADS)
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_flash_split_blocks_merge_to_the_uncut_kernel(cuda, P, H, KV, hd):
+    """A 2048-row cache with 1229 rows filled, cut into P sequence blocks
+    (the last ones past the filled rows: local kv_len 0), each through the
+    kernel with its lse, merged by ``comm.merge_partials_local``: the
+    uncut kernel's out within rtol 1e-2, atol 2e-3 (bf16 outputs of ~0.04
+    merged in float32)."""
+    from repro_torch.parallel.comm import merge_partials_local
+    C, kv = 2048, 1229
+    q, ck, cv = _attn_inputs(4, 1, C, H, KV, hd, kv, cuda)
+    n = torch.tensor(kv, dtype=torch.int32, device=cuda)
+    want = flash_attention(q, ck, cv, kv_len=n)
+    blk, outs, lses = C // P, [], []
+    for r in range(P):
+        local = (n - r * blk).clamp(0, blk).to(torch.int32)
+        o, l = flash_attention(q, ck[:, r * blk:(r + 1) * blk],
+                               cv[:, r * blk:(r + 1) * blk], kv_len=local,
+                               return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    got = merge_partials_local(torch.stack(outs), torch.stack(lses))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=2e-3)
+
+
+def test_flash_lse_is_refused_on_the_wgmma_route(cuda):
+    """The wgmma route writes no lse: ``return_lse`` at a prefill shape
+    raises rather than computing it another way."""
+    q, ck, cv = _attn_inputs(2, 128, 256, 16, 8, 128, 256, cuda)
+    with pytest.raises(ValueError, match="return_lse"):
+        flash_attention(q, ck, cv, return_lse=True)
+
+
 @pytest.mark.parametrize("engine_name", ["gila", "stress"])
 @pytest.mark.parametrize("mode", ["exact", "neighbor", "grid"])
 def test_captured_refine_step_matches_eager(cuda, engine_name, mode):
