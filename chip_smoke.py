@@ -84,9 +84,9 @@ of them passed):
         mode; each SYNC_ITERS iterations (replays and a schedule chunk
         reload), then EAGER_STEPS eager calls of the step function, its
         launches equal to its iterations, positions finite;
-  The CPU sides of phases 4d, 5, 5b, 5d, 9c and 10b (hierarchies and
-  layouts on the CPU, 10b's training steps: the references of
-  card-against-CPU checks) run in CPU_WORKERS worker processes
+  The CPU sides of phases 4d, 5, 5b, 5d, 9c, 9e and 10b (hierarchies and
+  layouts on the CPU, 9e's dry-run counts, 10b's training steps: the
+  references of card-against-CPU checks) run in CPU_WORKERS worker processes
   (``CpuRefs``) from the end of phase 4c until phase 7, beside the card's
   phases 4d to 6; each card side runs in its place, and its check against
   the CPU reference is made once the workers are done, before phase 7
@@ -257,6 +257,24 @@ of them passed):
         included, NELD and CRE within phase 5's deltas;
      d. the layout CLI with ``--driver multigila_dist --mesh 1x1`` in
         process on the card;
+     e. the dry run's layout rows (``launch/dryrun.py``'s ``layout``
+        suite) run for real over the same mesh (``dryrun_layout_card``):
+        each of its 10 rows at its ``BIG_GRAPH_DRYRUN`` size (the four
+        fine-level modes of ``hugetric_like``, 8,388,608 vertices, and of
+        ``delaunay_like``, 4,194,304, each with 33,554,432 edge slots;
+        ``coarse_level``'s neighbor row at 65,536 and its exact row cut to
+        DRYRUN_EXACT_CARD_N), one step through ``layout_train_step`` or
+        ``layout_train_step_halo`` on shape-true random inputs made on
+        the card from a seed, cold then DRYRUN_WARM warm: ms a step, peak
+        GB, launches (one grid_far and one near_field call a step in the
+        grid rows, none elsewhere), every position finite, the halo and
+        grid_halo rows within REPLAY_FACTOR × the spread of the neighbor
+        and grid rows; the dry run's own argument bytes and counted peak
+        of each row at mesh (1, 1), counted on meta in a CPU worker,
+        beside (``{"dryrun_layout_card": {...}}``); grid_far and both
+        forms of near_field timed on the arguments of ``hugetric_like``'s
+        grid and grid_halo rows, rows of the kernels line whose launches
+        are those rows' counts;
   10. LM training (after the CPU workers are joined; 10a's CPU sides run
      in the main process, 10b's came from the workers):
      a. every registered model's smoke config (LM_ARCHS), one training
@@ -3745,13 +3763,15 @@ def _cpu_many_ref(cfg) -> dict:
 
 _CPU_REFS = dict(hierarchy=_cpu_hierarchy_ref, layout=_cpu_layout_ref,
                  many=_cpu_many_ref, flat_early=_flat_early,
-                 train=lambda *a: _train_cpu_ref(*a))   # phase 10's, below
+                 train=lambda *a: _train_cpu_ref(*a),   # phase 10's, below
+                 dryrun=lambda *a: _cpu_dryrun_ref(*a))  # phase 9e's
 
 
 def cpu_ref_tasks(edges, n, weights, e5, n5, cfg5, out_dir) -> dict:
-    """The CPU references of phases 4d, 5, 5b, 5d, 9c and 10b, {name:
+    """The CPU references of phases 4d, 5, 5b, 5d, 9c, 9e and 10b, {name:
     (kind, args)}: 10b's first (their files go to ``out_dir``), then the
-    longest first (by their measured seconds)."""
+    longest first (by their measured seconds; 9e's dry-run counts, a few
+    seconds, last)."""
     from repro_torch.core import LayoutConfig
     w5 = _weights5(e5)
     cases = {name: (cfg, w5 if weighted else None, weighted)
@@ -3771,6 +3791,7 @@ def cpu_ref_tasks(edges, n, weights, e5, n5, cfg5, out_dir) -> dict:
     for name, cfg, weighted in _dist_cases(cfg5):
         tasks[f"9c:{name}"] = ("layout", (e5, n5, cfg, w5 if weighted
                                           else None, True))
+    tasks["9e"] = ("dryrun", (dryrun_card_rows(),))
     return tasks
 
 
@@ -3795,6 +3816,333 @@ def dist_cli_on_card() -> dict:
                report=rep, launches=launches)
     print(json.dumps(res), flush=True)
     return res
+
+
+# phase 9e: the dry run's layout rows run for real at mesh (1, 1). The exact
+# row's cut: on one rank ``_exact_rep`` holds [n_pad, n_pad] float32
+# intermediates, 17.2 GB each at the suite's 65536 and several live at once
+# (the dry run counts 86 GB at its peak), past the card's 80 GB
+DRYRUN_EXACT_CARD_N = 16384
+DRYRUN_WARM = 5                       # timed warm steps after one cold step
+DRYRUN_PARAMS = (1.0, 1.0, 1e-3)      # (C, L, min_dist)
+DRYRUN_TEMP = 1.0
+# the all-gather row each halo row is held to
+DRYRUN_PAIRS = {"halo": "neighbor", "grid_halo": "grid"}
+# the rows whose grid kernel calls phase 9e times (``dryrun_kernel_rows``)
+DRYRUN_KERNEL_ROWS = ("layout_hugetric_like_grid",
+                      "layout_hugetric_like_grid_halo")
+
+
+def dryrun_card_rows() -> list:
+    """[(tag, mode, n_pad, m_pad, cap)]: the dry run's layout rows
+    (``launch.dryrun.layout_rows``) at their ``BIG_GRAPH_DRYRUN`` sizes,
+    the exact row's n_pad cut to DRYRUN_EXACT_CARD_N."""
+    from repro_torch.launch import dryrun
+    out = []
+    for g, mode in dryrun.layout_rows():
+        s = dryrun.BIG_GRAPH_DRYRUN[g]
+        n = DRYRUN_EXACT_CARD_N if mode == "exact" else s["n_pad"]
+        out.append((f"layout_{g}_{mode}", mode, n, s["m_pad"], s["cap"]))
+    return out
+
+
+def _cpu_dryrun_ref(rows) -> dict:
+    """The dry run's own counts of phase 9e's rows at mesh (1, 1): each
+    row's step on meta over a one-rank fake group (made here and taken
+    down after) under ``roofline.count_ops``: argument bytes, counted peak
+    live bytes, FLOPs and HBM bytes."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import layout_row_step
+    from repro_torch.launch.mesh import make_fake_mesh, shutdown
+    from repro_torch.utils.tree import tree_bytes
+    mesh = make_fake_mesh((1, 1))
+    try:
+        out = {}
+        for tag, mode, n, m, cap in rows:
+            step, args = layout_row_step(mesh, n, m, cap, mode)
+            _, cost = RL.count_ops(step, *args.values(),
+                                   live=list(args.values()))
+            out[tag] = dict(argument_bytes=tree_bytes(args),
+                            peak_bytes=cost.peak_bytes, flops=cost.flops,
+                            bytes=cost.bytes)
+    finally:
+        shutdown()
+    return out
+
+
+def _dryrun_base(n: int, m: int, cap: int, seed: int, dev) -> dict:
+    """Shape-true random inputs of one graph size, made on the card from a
+    seeded ``torch.Generator``: positions uniform in a square of side √n,
+    neighbour lists and edge endpoints uniform over the vertices."""
+    import math
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev, generator=gen)
+    return dict(pos=torch.rand((n, 2), device=dev, generator=gen)
+                * math.sqrt(n),
+                nbr=torch.randint(0, n, (n, cap), **i32),
+                src=torch.randint(0, n, (m,), **i32),
+                dst=torch.randint(0, n, (m,), **i32))
+
+
+def _dryrun_args(specs: dict, base: dict, dev) -> list:
+    """A row's inputs in its specs' order, each of its spec's shape and
+    dtype, from ``base``: w 1, every edge on with weight 1, one rank's
+    ``send_idx`` all sentinel (a one-rank halo has no peer)."""
+    import torch
+    n = base["pos"].shape[0]
+    made = dict(pos=base["pos"], src=base["src"], src_local=base["src"],
+                dst_local=base["dst"],
+                params=torch.tensor(DRYRUN_PARAMS, device=dev),
+                temp=torch.tensor(DRYRUN_TEMP, device=dev))
+    out = []
+    for name, spec in specs.items():
+        if name in made:
+            t = made[name]
+        elif name in ("nbr_idx", "nbr_local"):
+            t = base["nbr"][:, :spec.shape[1]].contiguous()
+        elif name == "send_idx":
+            t = torch.full(tuple(spec.shape), n, dtype=torch.int32,
+                           device=dev)
+        else:                                     # w, emask, ewt
+            t = torch.ones(tuple(spec.shape), dtype=spec.dtype, device=dev)
+        if (tuple(t.shape), t.dtype) != (tuple(spec.shape), spec.dtype):
+            raise AssertionError(f"9e {name}: {tuple(t.shape)} {t.dtype}, "
+                                 f"spec {tuple(spec.shape)} {spec.dtype}")
+        out.append(t)
+    return out
+
+
+def _max_floor(pos) -> float:
+    """FLOOR_ULPS float32 ulps of the largest |coordinate| of ``pos``: the
+    floor of a spread measured as a largest |Δpos| (``_spread_floor`` is
+    that of a mean over the vertices)."""
+    import math
+    scale = float(pos.abs().max())
+    return FLOOR_ULPS * 2.0 ** (math.frexp(scale)[1] - 24)
+
+
+class GridCallInputs:
+    """For the length of a run, wraps ``grid_force.ops.grid_far`` and
+    ``near_field`` (what the sharded grid step calls, through the module)
+    and keeps the arguments of the first call of each: {name: (args,
+    kwargs)}. The names are put back on exit, which raises if a wrapper saw
+    no call (a caller that bound the function by name is not seen)."""
+
+    NAMES = ("grid_far", "near_field")
+
+    def __enter__(self):
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        self.cases, self._real = {}, {}
+        for name in self.NAMES:
+            real = self._real[name] = getattr(grid_ops, name)
+
+            def wrapper(*args, _name=name, _real=real, **kw):
+                if _name not in self.cases:
+                    self.cases[_name] = (args, kw)
+                return _real(*args, **kw)
+            setattr(grid_ops, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.grid_force import ops as grid_ops
+        for name, real in self._real.items():
+            setattr(grid_ops, name, real)
+        missing = [n for n in self.NAMES if n not in self.cases]
+        if exc[0] is None and missing:
+            raise AssertionError(
+                f"9e: no call of grid_force.ops.{missing} was seen; the "
+                "step must call them through the module")
+        return False
+
+
+def _dryrun_kernel_row(name, form, f, p, nbytes, pairs, shape,
+                       launches) -> dict:
+    """A grid kernel on phase 9e's arguments at ``hugetric_like``'s shape:
+    against its plain version (one call, its wall between a synchronize
+    and another the plain ms) and itself, timed as device time per call
+    (two calls captured, three replays). ``launches``: its count in the
+    row of phase 9e that gave the arguments, which must not be 0."""
+    import torch
+    if not launches:
+        raise AssertionError(f"9e {name} {form}: no launch in its row")
+    out, again = f(), f()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"9e {name} {form}: two calls differ")
+    t0 = time.perf_counter()
+    ref = p()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _compare(name, out, ref)
+    del ref
+    bound, by = _bound_ms(nbytes, FLOPS_PER_PAIR * pairs)
+    source = ("src/repro_torch/kernels/grid_force/csrc/near_field.cu"
+              if name == "near_field" else _FORCE_KERNELS[name][0])
+    row = dict(name=name, route="cuda", source=source,
+               replaces=_FORCE_KERNELS["grid_near" if name == "near_field"
+                                       else name][1],
+               launches=launches, max_abs_err=err, ms=_graph_ms(f, 2, 3),
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=None, inputs=f"9e, {form}", shape=shape)
+    print(json.dumps(dict(row, pairs=pairs,
+                          mufu_ms=pairs / MUFU_PER_S * 1e3,
+                          tol=dict(rtol=RTOL, atol_frac_of_max=ATOL_FRAC))),
+          flush=True)
+    return row
+
+
+def dryrun_kernel_rows(grid_calls: dict, halo_calls: dict, n: int,
+                       grid_launches: dict, halo_launches: dict) -> list:
+    """Phase 9e's kernel rows: grid_far and near_field's index form on the
+    arguments of their first call in ``hugetric_like``'s grid row, and
+    near_field's direct form on those of its grid_halo row; each row's
+    launches are its kernel's count in that phase 9e row."""
+    from repro_torch.kernels.grid_force import ops as grid_ops
+    from repro_torch.kernels.grid_force.ref import (grid_far_ref,
+                                                    near_field_ref)
+    rows = []
+    (pos, cell_xyw, consts), _ = grid_calls["grid_far"]
+    nc = cell_xyw.shape[0]
+    shape = f"hugetric_like: {n} rows, cells {nc}"
+    rows.append(_dryrun_kernel_row(
+        "grid_far", "all-gather variant",
+        lambda: grid_ops.grid_far(pos, cell_xyw, consts),
+        lambda: grid_far_ref(pos, cell_xyw, consts[0], consts[1]),
+        16 * n + 12 * nc, n * nc, shape, grid_launches.get("grid_far", 0)))
+    for form, (args, kw), counts in (
+            ("index", grid_calls["near_field"], grid_launches),
+            ("direct", halo_calls["near_field"], halo_launches)):
+        r, near9, cells, c = args
+        ncell, cap = cells.shape[0], cells.shape[1]
+        if form == "index":
+            cnt = (kw["w"][cells.long()] > 0).sum(dim=1)
+            table = 4 * ncell * cap + 12 * kw["pos"].shape[0]
+        else:
+            cnt = (cells[..., 2] > 0).sum(dim=1)
+            table = 12 * ncell * cap
+        rows.append(_dryrun_kernel_row(
+            "near_field", f"{form} form",
+            lambda: grid_ops.near_field(r, near9, cells, c, **kw),
+            lambda: near_field_ref(r, near9, cells, c[0], c[1], **kw),
+            52 * r.shape[0] + table, _near_pairs_rows(near9, cnt),
+            f"hugetric_like: {n} rows, cap {cap}",
+            counts.get("near_field", 0)))
+    return rows
+
+
+def dryrun_layout_card(mesh, refs) -> tuple:
+    """Phase 9e: each layout row of the dry run (``dryrun_card_rows``) run
+    for real on the card over phase 9's one-rank NCCL mesh, through the
+    same ``layout_train_step`` / ``layout_train_step_halo`` on inputs of
+    its specs' shapes (``_dryrun_args``: shape-true random data, since the
+    dry run checks shapes, not a layout). Per row: one cold step, then
+    DRYRUN_WARM warm steps on the same inputs, each between CUDA events
+    (the median printed); the peak allocated GB (reset before the cold
+    step) and the step's own peak with its inputs (``step_peak_gb``: the
+    graph's base arrays that are no input of the row taken out); the
+    kernel launches, which must be one
+    grid_far and one near_field call a step in the grid rows and none in
+    the others; every position finite. Each halo row's positions must lie
+    within REPLAY_FACTOR × the all-gather row's own spread of that row's
+    (DRYRUN_PAIRS): the largest |Δpos| between two of its steps, floored
+    at FLOOR_ULPS ulps of the largest coordinate (``_max_floor``: the
+    check compares maxima, and ``_spread_floor`` floors a mean). Beside
+    each row, the dry run's own counts at mesh (1, 1) from a CPU worker
+    (``_cpu_dryrun_ref``): argument bytes and counted peak, printed, not
+    held. The grid kernels are also timed on the arguments of their
+    first call in ``hugetric_like``'s grid and grid_halo rows
+    (``dryrun_kernel_rows``: rows of the ``{"kernels": [...]}`` line, with
+    the launches those rows counted). → ({row: its record}, the kernel
+    rows)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import layout_row_step
+    dev = mesh.device
+    counted = refs.get("9e")
+    res, ref_out, spread, recorded, kernel_rows = {}, {}, {}, {}, []
+    base_key, base = None, None
+    for i, (tag, mode, n, m, cap) in enumerate(dryrun_card_rows()):
+        graph = tag[len("layout_"):-len(mode) - 1]
+        if base_key != (graph, n):
+            base = None
+            torch.cuda.empty_cache()
+            base_key = (graph, n)
+            base = _dryrun_base(n, m, cap, i, dev)
+        step, specs = layout_row_step(mesh, n, m, cap, mode)
+        args = _dryrun_args(specs, base, dev)
+        _build.launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        outs, ms = [], []
+        for _ in range(1 + DRYRUN_WARM):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            record = (GridCallInputs() if tag in DRYRUN_KERNEL_ROWS
+                      and not outs else contextlib.nullcontext())
+            with record:
+                a.record()
+                out = step(*args)
+                b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            if tag in DRYRUN_KERNEL_ROWS and not outs:
+                recorded[tag] = record.cases
+            if len(outs) < 2:
+                outs.append(out)
+        launches = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        calls = 1 + DRYRUN_WARM
+        want = ({"grid_far": calls, "near_field": calls}
+                if mode.startswith("grid") else {})
+        if launches != want:
+            raise AssertionError(f"9e {tag}: launches {launches}, want "
+                                 f"{want}")
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            raise AssertionError(f"9e {tag}: a position is not finite")
+        # the step's own peak with its inputs: the allocator's, less what
+        # was resident before that is no input of the row (the graph's
+        # base arrays, which its other rows cut their inputs from)
+        arg_gb = sum(t.numel() * t.element_size() for t in args) / 1e9
+        step_peak = peak - before / 1e9 + arg_gb
+        row = dict(n_pad=n, m_pad=m, cap=cap, cold_ms=ms[0],
+                   ms=float(sorted(ms[1:])[len(ms[1:]) // 2]),
+                   warm_ms=ms[1:], peak_gb=peak, argument_gb=arg_gb,
+                   step_peak_gb=step_peak, launches=launches,
+                   dryrun_argument_gb=counted[tag]["argument_bytes"] / 1e9,
+                   dryrun_peak_gb=counted[tag]["peak_bytes"] / 1e9,
+                   dryrun_flops=counted[tag]["flops"],
+                   dryrun_bytes=counted[tag]["bytes"])
+        row["step_peak_over_dryrun"] = step_peak / row["dryrun_peak_gb"]
+        if mode in DRYRUN_PAIRS.values():
+            ref_out[(graph, mode)] = outs[0]
+            spread[(graph, mode)] = max(
+                float((outs[0] - outs[1]).abs().max()), _max_floor(outs[0]))
+            row["spread"] = spread[(graph, mode)]
+        if mode in DRYRUN_PAIRS:
+            key = (graph, DRYRUN_PAIRS[mode])
+            d = float((outs[0] - ref_out[key]).abs().max())
+            row.update(vs=DRYRUN_PAIRS[mode], max_dpos=d,
+                       bound=REPLAY_FACTOR * spread[key])
+            if not d <= row["bound"]:
+                raise AssertionError(f"9e {tag}: max |Δpos| {d} from the "
+                                     f"{DRYRUN_PAIRS[mode]} row, bound "
+                                     f"{row['bound']}")
+        print(json.dumps({"dryrun_layout_row": tag, **row}), flush=True)
+        res[tag] = row
+        del args, outs, out
+        if len(recorded) == len(DRYRUN_KERNEL_ROWS) and not kernel_rows:
+            kernel_rows = dryrun_kernel_rows(
+                *(recorded[t] for t in DRYRUN_KERNEL_ROWS), n,
+                *(res[t]["launches"] for t in DRYRUN_KERNEL_ROWS))
+            recorded.clear()
+        if mode in ("grid_halo", "exact"):
+            ref_out = {k: v for k, v in ref_out.items() if k[0] != graph}
+    del base, ref_out
+    torch.cuda.empty_cache()
+    print(json.dumps({"dryrun_layout_card": res}), flush=True)
+    return res, kernel_rows
 
 
 def dist_phase(edges, n, main, scheds, e5, n5, cfg5, refs) -> tuple:
@@ -3882,6 +4230,9 @@ def dist_phase(edges, n, main, scheds, e5, n5, cfg5, refs) -> tuple:
         t = time.perf_counter()
         cli = dist_cli_on_card()
         secs["9d"] = time.perf_counter() - t
+        t = time.perf_counter()
+        dryrun, dryrun_rows = dryrun_layout_card(mesh, refs)
+        secs["9e"] = time.perf_counter() - t
     finally:
         bucketing.STEP_CACHE.clear()
         mesh_mod.shutdown()
@@ -3889,9 +4240,9 @@ def dist_phase(edges, n, main, scheds, e5, n5, cfg5, refs) -> tuple:
     PHASE_SECONDS.update({k: v for k, v in secs.items() if k[0] == "9"})
     PHASE_SECONDS["9_sync_free"] = secs["sync_free"]
     summary = dict(runs=runs, sync_free=loop, small=small, cli=cli,
-                   seconds=secs)
+                   dryrun=dryrun, seconds=secs)
     print(json.dumps({"dist_seconds": secs}), flush=True)
-    return rows, summary
+    return rows + dryrun_rows, summary
 
 
 def _host_consts(consts) -> tuple:

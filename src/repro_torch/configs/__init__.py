@@ -6,7 +6,9 @@ dense ``internlm2-1.8b``, ``starcoder2-7b``, ``starcoder2-15b`` and
 ``gemma-2b``, the mixture-of-experts ``granite-moe-3b-a800m`` and
 ``deepseek-moe-16b``, the SSM ``mamba2-1.3b``, the hybrid
 ``jamba-v0.1-52b``, the encoder-decoder ``seamless-m4t-medium`` and the VLM
-``internvl2-76b``: every model the JAX package registers.
+``internvl2-76b``: every model the JAX package registers. Beside them,
+``multigila_presets`` (``configs/multigila.py``): the paper's layout
+experiments and the dry run's layout sizes.
 """
 from repro_torch.configs.base import (ArchConfig, MoEConfig, SSMConfig,
                                       ShapeCell, SHAPES, cells_for,
@@ -19,3 +21,4 @@ from repro_torch.configs import (deepseek_moe_16b, gemma_2b,
                                  internvl2_76b, jamba_v0_1_52b, mamba2_1_3b,
                                  seamless_m4t_medium, starcoder2_7b,
                                  starcoder2_15b)
+from repro_torch.configs import multigila as multigila_presets

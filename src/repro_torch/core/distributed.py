@@ -46,10 +46,13 @@ capturing NCCL collectives is a later item. The exact and neighbor
 repulsions are plain torch, as the JAX package's are plain jnp outside any
 Pallas kernel; grid levels run the two grid kernels.
 
-The JAX package's ``layout_step_specs``/``layout_halo_specs`` (shapes for
-the dry-run, ROADMAP item 14), ``utils/transfer.io_boundary`` (the transfer
-guard's allowance) and ``utils/compat.shard_map`` are JAX shims with no
-counterpart here.
+``layout_step_specs``/``layout_halo_specs`` give the dry run's inputs of
+the two steps (``launch/dryrun.py``'s ``layout`` suite): rank 0's blocks as
+``meta`` tensors, of the shapes and dtypes of the JAX package's shards.
+Every collective here adds its bytes to ``parallel/comm.py``'s count
+(``comm.record``, the JAX package's ring-model kinds), which the dry run
+reads. ``utils/transfer.io_boundary`` (the transfer guard's allowance) and
+``utils/compat.shard_map`` are JAX shims with no counterpart here.
 """
 from __future__ import annotations
 
@@ -66,6 +69,7 @@ from repro_torch.graphs.graph import (PaddedGraph, bucket_pad, segment_max,
                                       segment_sum, unique_edges)
 from repro_torch.kernels.grid_force import ops as gops
 from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel import comm
 from repro_torch.utils.device import synchronize
 
 
@@ -84,6 +88,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     rank order (the JAX package's tiled ``all_gather``)."""
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
                       + tuple(x.shape[1:]))
+    comm.record("all-gather", out.numel() * out.element_size(), group)
     # the call every supported torch has; newer ones name it deprecated
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
@@ -92,6 +97,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    comm.record("all-reduce", x.numel() * x.element_size(), group)
     dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -220,9 +226,16 @@ def _box(mesh: Mesh, pos_blk, vmask_blk) -> tuple:
 def _halo_rows(mesh: Mesh, band: torch.Tensor) -> tuple:
     """(the previous vertex rank's last band row, the next one's first):
     each rank sends its first row back and its last row forward; a rank
-    with no peer on a side receives zeros there."""
+    with no peer on a side receives zeros there. Counted as the JAX
+    package's two ``ppermute``s; on ``meta`` (the dry run's fake group,
+    which refuses a batched send of meta tensors) nothing is sent."""
     d, vsize = mesh.vtx_index, mesh.vtx_size
     top, bot = torch.zeros_like(band[0]), torch.zeros_like(band[0])
+    for _ in (top, bot):
+        comm.record("collective-permute",
+                    top.numel() * top.element_size(), mesh.vtx_group)
+    if band.device.type == "meta":
+        return top, bot
     ops = []
     if d > 0:
         peer = mesh.vtx_peer(d - 1)
@@ -560,6 +573,8 @@ def _all_to_all_vtx(mesh: Mesh, send: torch.Tensor) -> torch.Tensor:
     for d, ax in enumerate(mesh.vtx_axes):
         x = recv.movedim(d, 0).contiguous()
         out = torch.empty_like(x)
+        comm.record("all-to-all", x.numel() * x.element_size(),
+                    mesh.axis_groups[ax])
         dist.all_to_all_single(out, x, group=mesh.axis_groups[ax])
         recv = out.movedim(0, d)
     return recv.reshape(send.shape[0], -1, 3)
@@ -609,6 +624,51 @@ def layout_train_step_halo(mesh: Mesh, n_pad: int, m_pad: int, cap: int,
                           emask, ewt, L, md, n_loc)
         return _fr_update(pos_blk, rep + att, temp)
     return step
+
+
+def _meta_blocks(shapes: dict) -> dict:
+    return {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in shapes.items()}
+
+
+def layout_step_specs(mesh: Mesh, n_pad: int, m_pad: int, cap: int,
+                      mode: str = "neighbor", engine: str = "gila") -> dict:
+    """``layout_train_step``'s inputs for the dry run: rank 0's blocks as
+    ``meta`` tensors (no allocation), named as the JAX package's
+    ``layout_step_specs`` names its global shapes, each the block of its
+    ``P(VTX)`` sharding (the scalars whole). In grid mode the neighbor
+    lists are unused; cap collapses to a 1-wide dummy. The stress engine's
+    step takes one more scalar, ``alpha``."""
+    if mode == "grid":
+        cap = 1
+    n_loc, m_loc = n_pad // mesh.vtx_size, m_pad // mesh.vtx_size
+    f32, i32 = torch.float32, torch.int32
+    shapes = dict(pos=((n_loc, 2), f32), w=((n_loc,), f32),
+                  nbr_idx=((n_loc, cap), i32), src=((m_loc,), i32),
+                  dst_local=((m_loc,), i32), emask=((m_loc,), torch.bool),
+                  ewt=((m_loc,), f32), params=((3,), f32), temp=((), f32))
+    if engine == "stress":
+        shapes["alpha"] = ((), f32)
+    return _meta_blocks(shapes)
+
+
+def layout_halo_specs(mesh: Mesh, n_pad: int, m_pad: int, cap: int,
+                      halo: int, mode: str = "neighbor") -> dict:
+    """``layout_train_step_halo``'s inputs for the dry run, as
+    ``layout_step_specs`` gives the all-gather step's: ``send_idx`` is the
+    block [vsize, halo] of the global [vsize², halo] over the vertex
+    axes; grid mode collapses cap to 1."""
+    if mode == "grid":
+        cap = 1
+    vsize = mesh.vtx_size
+    n_loc, m_loc = n_pad // vsize, m_pad // vsize
+    f32, i32 = torch.float32, torch.int32
+    return _meta_blocks(dict(
+        pos=((n_loc, 2), f32), w=((n_loc,), f32),
+        nbr_local=((n_loc, cap), i32), send_idx=((vsize, halo), i32),
+        src_local=((m_loc,), i32), dst_local=((m_loc,), i32),
+        emask=((m_loc,), torch.bool), ewt=((m_loc,), f32),
+        params=((3,), f32), temp=((), f32)))
 
 
 # -- host-side level driver (driver="multigila_dist" in core/multilevel.py) ----

@@ -21,7 +21,15 @@ Per call (positions move every iteration, so all of it reruns):
 ``near_field`` is the near field a row at a time (csrc/near_field.cu), the
 form in which the sharded grid step (core/distributed.py) resolves it.
 Each wrapper runs its plain version (ref.py) for a CPU tensor and launches
-its kernel, or raises, for a CUDA tensor.
+its kernel, or raises, for a CUDA tensor. ``grid_far`` and ``near_field``,
+the two kernels the sharded grid step reaches, also take ``meta`` tensors
+(the dry run's shapes, ``launch/dryrun.py``): an empty meta output of the
+shape and dtype the card's route returns, and no launch, as the flash
+op's meta route. They refuse what the card's route refuses (its checks
+of dtype and shape run first). While ``meta_flops`` and ``meta_bytes``
+are lists (the dry run's count, ``launch/roofline.py``) each such call
+appends its FLOPS_PER_PAIR FLOPs a pair and the bytes it reads and
+writes. Any other device raises.
 
 Lanes: every function here also takes B independent levels at once, each
 array with a leading lane axis (pos [B, n_pad, 2], consts [B, 2], ...), as
@@ -48,6 +56,26 @@ from repro_torch.kernels.grid_force.ref import (grid_far_lanes_ref,
 
 _EPS = 1e-12
 _AVG_OCCUPANCY = 12      # target vertices per grid cell
+#: a pair's FLOPs: 2 sub, 2 mul + 2 add (d2), 1 div, 2 fma (a multiply-add
+#: counts 2)
+FLOPS_PER_PAIR = 11
+#: the FLOPs and the bytes of each meta call, while the dry run counts them
+meta_flops: list | None = None
+meta_bytes: list | None = None
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _meta_call(pairs: int, out: torch.Tensor, *inputs) -> torch.Tensor:
+    """A meta call's count (its pairs' FLOPs, its inputs read and ``out``
+    written once) while the dry run counts; → ``out``."""
+    if meta_flops is not None:
+        meta_flops.append(FLOPS_PER_PAIR * pairs)
+    if meta_bytes is not None:
+        meta_bytes.append(_nbytes(out, *inputs))
+    return out
 
 
 def choose_grid(n: int, *, multiple_of: int = 1) -> tuple[int, int]:
@@ -329,15 +357,17 @@ def grid_far(pos, cell_xyw, consts) -> torch.Tensor:
         return grid_far(pos[None], cell_xyw[None], consts[None])[0]
     if pos.device.type == "cpu":
         return grid_far_lanes_ref(pos, cell_xyw, consts)
-    if pos.device.type != "cuda":
+    if pos.device.type not in ("cuda", "meta"):
         raise ValueError(f"grid_far: unsupported device {pos.device}")
     B, n, nc, dev = pos.shape[0], pos.shape[1], cell_xyw.shape[1], pos.device
     _build.require(pos, "pos", torch.float32, (B, n, 2), dev)
     _build.require(cell_xyw, "cell_xyw", torch.float32, (B, nc, 3), dev)
-    if pos.data_ptr() % 8:
-        raise ValueError("grid_far: pos must be 8-byte aligned (float2 loads)")
     _build.require(consts, "consts", torch.float32, (B, 2), dev)
     out = torch.empty((B, n, 2), dtype=torch.float32, device=dev)
+    if dev.type == "meta":              # the card's checks, then no launch
+        return _meta_call(B * n * nc, out, pos, cell_xyw, consts)
+    if pos.data_ptr() % 8:
+        raise ValueError("grid_far: pos must be 8-byte aligned (float2 loads)")
     err = _build.load().grid_far_launch(
         pos.data_ptr(), n, cell_xyw.data_ptr(), nc, B, consts.data_ptr(),
         out.data_ptr(), _build.stream_of(pos))
@@ -390,7 +420,7 @@ def near_field(rows, near9, cells, consts, *, pos=None, w=None,
     if rows.device.type == "cpu":
         return near_field_ref(rows, near9, cells, consts[0], consts[1],
                               pos=pos, w=w, col0=col0, ncols=ncols)
-    if rows.device.type != "cuda":
+    if rows.device.type not in ("cuda", "meta"):
         raise ValueError(f"near_field: unsupported device {rows.device}")
     R, dev = rows.shape[0], rows.device
     ncell, cap = int(cells.shape[0]), int(cells.shape[1])
@@ -402,15 +432,19 @@ def near_field(rows, near9, cells, consts, *, pos=None, w=None,
         _build.require(cells, "cells", torch.int32, (ncell, cap), dev)
         _build.require(pos, "pos", torch.float32, (N, 2), dev)
         _build.require(w, "w", torch.float32, (N,), dev)
-        if pos.data_ptr() % 8:
-            raise ValueError("near_field: pos must be 8-byte aligned")
     else:
         N = 0
         _build.require(cells, "cells", torch.float32, (ncell, cap, 3), dev)
-    if rows.data_ptr() % 8:
-        raise ValueError("near_field: rows must be 8-byte aligned")
     if col0 < 0 or ncols < 0:
         raise ValueError(f"near_field: columns {col0}, {ncols}")
+    if dev.type == "meta":   # the card's checks, then no launch; the pairs:
+        out = torch.empty((R, 2), dtype=torch.float32, device=dev)
+        real = max(min(col0 + ncols, K) - col0, 0)     # R × the real columns
+        return _meta_call(R * real, out, rows, near9, cells, consts, pos, w)
+    if index and pos.data_ptr() % 8:
+        raise ValueError("near_field: pos must be 8-byte aligned")
+    if rows.data_ptr() % 8:
+        raise ValueError("near_field: rows must be 8-byte aligned")
     packed = torch.empty((ncell, cap, 4), dtype=torch.float32, device=dev)
     work = torch.empty(4 * R + 3 * ncell + 3, dtype=torch.int32, device=dev)
     out = torch.empty((R, 2), dtype=torch.float32, device=dev)

@@ -5,7 +5,9 @@ package's ``launch/report.py`` renders its own.
 
 Times are the roofline's terms against one NVIDIA H100 80GB HBM3's
 data-sheet rates; sizes are shape counts (GB = 1e9 bytes), not
-measurements.
+measurements. An ``lm`` cell's resident GB are its blocks and its peak
+``analytic_cell``'s; a ``layout`` or ``pp`` record's resident GB are its
+step's argument bytes and its peak the counted one (``launch/opcount.py``).
 """
 from __future__ import annotations
 
@@ -53,13 +55,15 @@ def roofline_table(recs, mesh: str) -> str:
     for r in rows:
         t = r["roofline"]
         mem = r.get("memory", {})
+        resident = mem.get("resident_bytes", {}).get(
+            "total", mem.get("argument_bytes", 0))
+        peak = mem.get("peak_bytes_analytic", mem.get("peak_bytes", 0))
         out.append(
             f"| {r['arch']} | {r['cell']} | {_flags(r)} "
             f"| {t['compute_s']:.3f} | {t['memory_s']:.3f} "
             f"| {t['collective_s']:.3f} | {t['bottleneck']} "
             f"| {t.get('useful_ratio', 0):.2f} | {t['roofline_frac']:.3f} "
-            f"| {fmt_bytes(mem.get('resident_bytes', {}).get('total', 0))} "
-            f"| {fmt_bytes(mem.get('peak_bytes_analytic', 0))} "
+            f"| {fmt_bytes(resident)} | {fmt_bytes(peak)} "
             f"| {'Y' if mem.get('fits_hbm') else 'N'} |")
     return "\n".join(out)
 

@@ -24,7 +24,10 @@ tensor. ``ppermute`` and ``all_to_all`` are their own kind's transpose.
 
 No collective here falls back: a failing one raises. A rank never sends to
 itself (gloo and NCCL refuse it): ``ppermute`` keeps a self-pair's block
-and sends nothing.
+and sends nothing. On ``meta`` tensors (the dry run's fake group, whose
+``batch_isend_irecv`` refuses the meta device) ``ppermute`` counts its
+bytes and returns what a real group would, as meta tensors, without a
+send.
 
 ``merge_partials`` is flash-decoding's combine across ranks: each rank's
 attention over its block of a sequence-cut KV cache, with the rows'
@@ -255,8 +258,9 @@ def _permute(x, group, pairs):
                                   dist.get_global_rank(group, src), group))
     if ops:
         record("collective-permute", _nbytes(x), group)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        if x.device.type != "meta":         # a fake group moves nothing
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     return torch.zeros_like(x) if out is None else out
 
 

@@ -19,7 +19,8 @@ equal, part by part, the sum over the same leaves of JAX's
 the port) with JAX's specs (``param_specs``, ``zero_shardings``, the
 ``fsdp_dp`` spec of its ``lower_cell``, ``decode_state_specs``), run on 8
 host devices in another subprocess, both at once. The CLI writes one
-record a cell and refuses the ``layout`` and ``pp`` suites;
+record a cell, the ``layout`` and ``pp`` suites theirs (held to JAX in
+``test_torch_dryrun_layout.py``), and refuses a suite it does not have;
 ``launch/report.py`` renders the records.
 """
 import json
@@ -312,23 +313,54 @@ def test_dry_run_counts_the_collectives(dryruns):
 
 def test_cli_writes_records_and_refuses_other_suites(tmp_path):
     """``--suite lm --mesh single --arch gemma-2b --cell decode_32k`` at
-    full size writes one record; the report renders it; ``--suite
-    layout`` and ``--suite pp`` raise "not yet ported"."""
+    full size writes one record; ``--suite layout --mesh single`` writes
+    the layout suite's 10 records and ``--suite pp`` the pp suite's 2, all
+    at full size; the report renders them all; a suite the dry run does
+    not have is refused."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--suite", "lm",
-         "--mesh", "single", "--arch", "gemma-2b", "--cell", "decode_32k",
-         "--out", str(tmp_path / "dry")], env=env, capture_output=True,
-        text=True, timeout=600)
-    assert out.returncode == 0, out.stderr[-4000:]
-    assert "1/1 OK" in out.stdout
-    rec = json.load(open(tmp_path / "dry" / "pod16x16"
-                         / "gemma-2b__decode_32k.json"))
+    out_dir = tmp_path / "dry"
+    runs = [["--suite", "lm", "--mesh", "single", "--arch", "gemma-2b",
+             "--cell", "decode_32k"],
+            ["--suite", "layout", "--mesh", "single"],
+            ["--suite", "pp"]]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         str(out_dir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for argv in runs]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0, stderr[-4000:]
+            outs.append(stdout)
+    finally:
+        for p in procs:
+            p.kill()
+    assert "1/1 OK" in outs[0]
+    assert "10/10 OK" in outs[1]
+    assert "2/2 OK" in outs[2]
+    rec = json.load(open(out_dir / "pod16x16" / "gemma-2b__decode_32k.json"))
     assert rec["mesh"] == "16x16" and rec["memory"]["fits_hbm"]
+    layout = sorted(p.name for p in (out_dir / "pod16x16").glob("layout_*"))
+    assert len(layout) == 10
+    assert "layout_coarse_level_exact__layout_step.json" in layout
+    assert "layout_hugetric_like_grid_halo__layout_step.json" in layout
+    for name in layout:
+        r = json.load(open(out_dir / "pod16x16" / name))
+        assert r["memory"]["argument_bytes"] > 0 and r["collectives"]
+        assert r["memory"]["fits_hbm"] and r["roofline"]["flops"] > 0
+    pp = json.load(open(out_dir / "pods2x16x16"
+                        / "gemma-2b-pp2__train_fwd_bwd.json"))
+    ring = json.load(open(out_dir / "pod16x16"
+                          / "ring-attention-32k__prefill_attn_layer.json"))
+    assert {c["op"] for c in pp["collectives"]} >= {"collective-permute"}
+    assert ring["collectives"][0]["op"] == "collective-permute"
     from repro_torch.launch import report
-    txt = report.main(["--root", str(tmp_path / "dry"),
+    txt = report.main(["--root", str(out_dir),
                        "--out", str(tmp_path / "roofline.md")])
-    assert "| gemma-2b | decode_32k |" in txt
-    for suite in ("layout", "pp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            D.main(["--suite", suite])
+    for row in ("| gemma-2b | decode_32k |", "| gemma-2b-pp2 | train_fwd_bwd",
+                "| ring-attention-32k | prefill_attn_layer",
+                "| layout_hugetric_like_grid | layout_step |"):
+        assert row in txt
+    with pytest.raises(SystemExit):
+        D.main(["--suite", "nosuch"])
